@@ -9,6 +9,11 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
