@@ -16,7 +16,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    width with the depth cut to 4 of 48 layers, random weights from seed 0,
    batch 8, prompt 128, 32 new tokens.  Every kernel must have launched in
    both prefill and decode, and the logits must be finite.  Then the same
-   run warm, and a profile of eight decode steps.
+   weights and prompts through ``generate`` again, warm, and once more
+   under the profiler.
 4. Card against CPU: the reduced qwen3-moe config, prefill plus 3 decode
    steps on the CPU (plain versions) and on the card (kernels), logits held
    within the tolerance of the CPU slice test.
@@ -225,53 +226,35 @@ def phase_serve(torch, ops):
                                  f"{res.launches[phase]}, expected {want}")
     if res.tokens.shape != (sc.batch_size, sc.max_new_tokens):
         raise AssertionError(f"serve: tokens {res.tokens.shape}")
-    return launches, res.tokens
+    return launches, res
 
 
-def phase_warm(torch, first_tokens):
-    """The same weights and prompts again in this process: warm times, then
-    eight profiled decode steps for the device time by kernel, the idle
-    share, and the host's op, launch and synchronization counts."""
-    import numpy as np
+def phase_warm(torch, first):
+    """serve()'s weights and prompts through generate() again: warm times,
+    then the same run under the profiler for the device time by kernel,
+    the idle share, and the host's op, launch and synchronization counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.common.config import ServeConfig
-    from repro_torch.data.pipeline import synthetic_tokens
-    from repro_torch.launch.serve import generate, serve_config
-    from repro_torch.models.transformer import init_caches, init_model
-    from repro_torch.serve.decode import decode_step_fn, prefill_fn
-    from repro_torch.sharding.plan import single_device_plan
-    sc = ServeConfig()
-    cfg = serve_config(SERVE["arch"], reduced=False,
-                       num_layers=SERVE["num_layers"],
-                       moe_grid=SERVE["moe_grid"])
-    plan = single_device_plan()
-    params = init_model(cfg, plan, seed=0, device="cuda")
-    prompts = torch.as_tensor(synthetic_tokens(
-        np.random.default_rng(0), sc.batch_size, sc.prompt_len,
-        cfg.vocab_size), device="cuda")
-    res = generate(params, prompts, cfg, plan, new_tokens=sc.max_new_tokens)
+    from repro_torch.launch.serve import generate
+    inp = first.inputs
+    new_tokens = first.tokens.shape[1]
+
+    def run():
+        return generate(inp.params, inp.prompts, inp.cfg, inp.plan,
+                        new_tokens=new_tokens)
+
+    res = run()
     steps = res.decode_steps
     print(f"  warm: prefill {res.prefill_s * 1e3:.2f} ms; decode "
           f"{res.decode_s / steps * 1e3:.2f} ms per step "
           f"({steps * res.batch / res.decode_s:.1f} tokens/s); tokens equal "
-          f"to the first call: {bool((res.tokens == first_tokens).all())}")
-    # decode is 31 of the 32 forwards of the run: profile decode steps only
-    steps = 8
-    caches = init_caches(cfg, sc.batch_size, sc.prompt_len + steps, plan,
-                         device="cuda")
-    run = dict(cfg=cfg, plan=plan, use_kernel=True)
-    with torch.inference_mode():
-        tok, caches, _ = prefill_fn(params, prompts, caches, **run)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(steps):
-                tok, caches, _ = decode_step_fn(params, tok, caches,
-                                                sc.prompt_len + i, **run)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+          f"to the first call: {bool((res.tokens == first.tokens).all())}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
     dev, runtime = {}, {}
     for e in prof.key_averages():
         # device-side entries only: a CPU op's entry repeats the time of
@@ -287,15 +270,15 @@ def phase_warm(torch, first_tokens):
                   if e.cpu_parent is None and e.name.startswith("aten::"))
     launches = sum(n for k, n in runtime.items() if "Launch" in k)
     syncs = sum(n for k, n in runtime.items() if "Synchronize" in k)
-    print(f"  profiled ({steps} decode steps, profiler on): wall "
-          f"{wall_us / 1e3 / steps:.2f} ms per step, device busy "
-          f"{busy / 1e3 / steps:.2f} ms per step, idle share "
-          f"{1 - busy / wall_us:.3f}; per step {top_ops / steps:.0f} "
-          f"top-level aten ops, {launches / steps:.0f} kernel launches, "
-          f"{syncs / steps:.1f} host synchronizations")
+    fwd = new_tokens                     # one prefill + the decode steps
+    print(f"  profiled (the whole run, {fwd} forwards, profiler on): wall "
+          f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
+          f"share {1 - busy / wall_us:.3f}; per forward "
+          f"{top_ops / fwd:.0f} top-level aten ops, {launches / fwd:.0f} "
+          f"kernel launches, {syncs / fwd:.2f} host synchronizations")
     for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {us / 1e3 / steps:8.3f} ms/step  "
-              f"{100 * us / max(busy, 1e-9):5.1f}%  {name[:90]}")
+        print(f"    {us / 1e3:8.3f} ms  {100 * us / max(busy, 1e-9):5.1f}%  "
+              f"{name[:90]}")
 
 
 def phase_card_vs_cpu(torch):
@@ -375,8 +358,9 @@ def main() -> int:
 
     print(f"== phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 layers "
           f"({card})")
-    launches, first_tokens = phase_serve(torch, ops)
-    phase_warm(torch, first_tokens)
+    launches, first = phase_serve(torch, ops)
+    phase_warm(torch, first)
+    del first
 
     print("== phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
     phase_card_vs_cpu(torch)

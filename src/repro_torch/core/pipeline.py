@@ -116,7 +116,8 @@ def z_loss(logits: torch.Tensor, valid: torch.Tensor, coef: float,
 
 def experts_ffn(w: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
                 use_kernel: bool = False) -> torch.Tensor:
-    """Per-group expert FFN.  ``x``: (G, T, d); weights (G, d, f)/(G, f, d).
+    """Per-group expert FFN.  ``x``: (G, T, d); weights (G, d, f)/(G, f, d)
+    in ``x.dtype`` (the model casts them once at load).
 
     ``use_kernel=True`` runs the grouped-FFN kernel (fp32 accumulation, one
     bf16 rounding of ``h`` and of the output); ``False`` mirrors the JAX
@@ -124,13 +125,11 @@ def experts_ffn(w: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     """
     w3 = w.get("w3")
     if use_kernel:
-        return kops.grouped_ffn(x.contiguous(), w["w1"].to(x.dtype),
-                                None if w3 is None else w3.to(x.dtype),
-                                w["w2"].to(x.dtype), act=act)
-    h = ref.activation(torch.bmm(x, w["w1"].to(x.dtype)), act)
+        return kops.grouped_ffn(x.contiguous(), w["w1"], w3, w["w2"], act=act)
+    h = ref.activation(torch.bmm(x, w["w1"]), act)
     if w3 is not None:
-        h = h * torch.bmm(x, w3.to(x.dtype))
-    return torch.bmm(h, w["w2"].to(x.dtype))
+        h = h * torch.bmm(x, w3)
+    return torch.bmm(h, w["w2"])
 
 
 # =============================================================================

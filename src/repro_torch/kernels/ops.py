@@ -140,10 +140,13 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
                 w2: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
     """Grouped expert FFN ``act(x @ w1) [* (x @ w3)] @ w2`` per group.
     x: (G, T, d); w1/w3: (G, d, f); w2: (G, f, d); ``w3=None`` is the plain
-    MLP.  On the card everything is bf16 and d, f are multiples of 64."""
+    MLP.  The weights come in x's dtype (the model casts them once at
+    load); on the card that is bf16, and d, f are multiples of 64."""
+    ws = (w1, w2) + (() if w3 is None else (w3,))
+    _require(all(w.dtype == x.dtype for w in ws), f"grouped_ffn: weights "
+             f"must have x's dtype {x.dtype}, got {[w.dtype for w in ws]}")
     if _on_cpu(x, w1, w3, w2):
-        cast = lambda w: None if w is None else w.to(x.dtype)
-        return ref.grouped_ffn_ref(x, cast(w1), cast(w3), cast(w2), act=act)
+        return ref.grouped_ffn_ref(x, w1, w3, w2, act=act)
     _require(act in ACTS, f"grouped_ffn: act must be one of {tuple(ACTS)}, "
              f"got {act!r}")
     _require(x.dim() == 3, f"grouped_ffn: x (G, T, d), got {tuple(x.shape)}")
@@ -155,7 +158,7 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     for w, want in shapes:
         _require(tuple(w.shape) == want, f"grouped_ffn: weight shape "
                  f"{tuple(w.shape)}, expected {want}")
-    for t in (x, w1, w2) + (() if w3 is None else (w3,)):
+    for t in (x,) + ws:
         _require(t.dtype == torch.bfloat16, f"grouped_ffn: bfloat16 on the "
                  f"card, got {t.dtype}")
         _require(t.is_contiguous(), "grouped_ffn: inputs must be contiguous")

@@ -33,6 +33,16 @@ from repro_torch.sharding.plan import MeshPlan, single_device_plan
 
 
 @dataclasses.dataclass
+class ServeInputs:
+    """What :func:`serve` builds before it generates; hand it back to
+    :func:`generate` to run the same weights and prompts again."""
+    cfg: ModelConfig
+    plan: MeshPlan
+    params: Dict
+    prompts: torch.Tensor               # (B, S) int32 on the device
+
+
+@dataclasses.dataclass
 class ServeResult:
     tokens: np.ndarray                  # (B, new_tokens) generated ids
     prefill_s: float                    # wall time of the prefill
@@ -41,6 +51,7 @@ class ServeResult:
     batch: int
     launches: Dict[str, Dict[str, int]]  # phase -> kernel -> launches
     logits_finite: bool                 # every step's logits were finite
+    inputs: Optional[ServeInputs] = None  # set by serve()
 
 
 def _sync(device: torch.device) -> None:
@@ -108,7 +119,8 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           device="cuda", num_layers: Optional[int] = None,
           moe_grid: Optional[Tuple[int, int]] = None) -> ServeResult:
     """Random weights from ``seed``, synthetic prompts, then
-    :func:`generate`; prints the times and the first generated row."""
+    :func:`generate`; prints the times and the first generated row.  The
+    result's ``inputs`` hold the config, weights and prompts."""
     cfg = serve_config(arch, reduced=reduced, num_layers=num_layers,
                        moe_grid=moe_grid)
     device = resolve_device(device)
@@ -118,6 +130,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
         synthetic_tokens(np.random.default_rng(seed), batch, prompt_len,
                          cfg.vocab_size), device=device)
     res = generate(params, prompts, cfg, plan, new_tokens=new_tokens)
+    res.inputs = ServeInputs(cfg, plan, params, prompts)
     steps = res.decode_steps
     print(f"prefill {prompt_len} toks x{batch}: {res.prefill_s * 1e3:.1f} ms;"
           f" decode {steps} steps: {res.decode_s * 1e3:.1f} ms "

@@ -5,10 +5,12 @@ activations ``(B, T, d)``, attention heads ``(B, T, H, hd)``, projection
 weights ``(d, H, hd)`` / ``(H, hd, d)``.  Collectives go through
 :mod:`repro_torch.sharding.comm` (the identity on one device).
 
-Dtypes follow the reference: matmul weights are cast to the activation dtype
-at use (``.to(x.dtype)``; a no-op when the caller already cast them once at
-load, as :func:`repro_torch.models.transformer.init_model` does), norms and
-the LM head compute in fp32.
+Dtypes follow the reference, with one difference of form: the reference
+casts matmul weights to the activation dtype at every use, and here the
+caller casts them once at load
+(:func:`repro_torch.models.transformer.cast_for_compute`, same bits), so the
+projections and FFNs use them as given.  Norms and the LM head compute in
+fp32.
 
 This slice ports the cache-less and ring-buffer-cache attention paths; the
 paged cache (the serving engine), the sequence-sharded cache and MLA raise.
@@ -121,10 +123,10 @@ def init_ffn(cfg: ModelConfig, d_ff: Optional[int] = None, *,
 
 def ffn_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 plan: MeshPlan) -> torch.Tensor:
-    h = ref.activation(x @ p["w1"].to(x.dtype), cfg.act)
+    h = ref.activation(x @ p["w1"], cfg.act)
     if "w3" in p:
-        h = h * (x @ p["w3"].to(x.dtype))
-    y = h @ p["w2"].to(x.dtype)
+        h = h * (x @ p["w3"])
+    y = h @ p["w2"]
     return comm.name_saved(comm.psum(y, plan.tp_axis))
 
 
@@ -209,7 +211,7 @@ def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("btd,dhk->bthk") as one matmul over the flattened heads."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(
+    return (x @ w.reshape(d, h * k)).reshape(
         x.shape[0], x.shape[1], h, k)
 
 
@@ -237,9 +239,9 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -260,7 +262,7 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                                 window=window)
         new_cache = cache
     H, hd, d = p["wo"].shape
-    y = out.reshape(B, T, H * hd) @ p["wo"].to(x.dtype).reshape(H * hd, d)
+    y = out.reshape(B, T, H * hd) @ p["wo"].reshape(H * hd, d)
     return comm.name_saved(comm.psum(y, plan.tp_axis)), new_cache
 
 

@@ -14,10 +14,12 @@ Parameters are drawn from a seeded ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s, which is expected: the
 tests carry the JAX package's weights across with
 :func:`repro_torch.weights.params_from_jax`.  The matmul weights of the
-blocks (attention projections, dense and expert FFNs) are cast to the
-compute dtype once at load by :func:`cast_for_compute`; the reference casts
-them at every use, which gives the same bits.  Router weights, norm scales,
-the embedding table and the LM head stay fp32.
+blocks (attention projections, dense, shared and expert FFNs) are cast to
+the activation dtype (bf16, the dtype :func:`embed_inputs` computes in) once
+at load by :func:`cast_for_compute`; the reference casts them at every use,
+which gives the same bits.  The blocks use them as they are, with no cast
+of their own.  Router weights, norm scales, the embedding table and the LM
+head stay fp32.
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ from repro_torch.models import layers as L
 from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float16": torch.float16}
+# the activation dtype of forward: the reference embeds in bf16 whatever
+# the config's dtype, and casts the blocks' weights to it at use
+COMPUTE_DTYPE = torch.bfloat16
 
 
 # =============================================================================
@@ -172,10 +175,10 @@ def moe_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
                              use_kernel=use_kernel, token_valid=valid_loc)
     if "shared" in p:
         ps = p["shared"]
-        hh = activation(loc @ ps["w1"].to(loc.dtype), cfg.act)
+        hh = activation(loc @ ps["w1"], cfg.act)
         if "w3" in ps:
-            hh = hh * (loc @ ps["w3"].to(loc.dtype))
-        y_loc = y_loc + hh @ ps["w2"].to(loc.dtype)
+            hh = hh * (loc @ ps["w3"])
+        y_loc = y_loc + hh @ ps["w2"]
     y = comm.unsplit_tokens(y_loc, plan.tp_axis, B * T).reshape(B, T, d)
     return x + y, stats, cache
 
@@ -232,10 +235,10 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
 # =============================================================================
 
 def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
-    """Cast the blocks' matmul weights to the compute dtype once, in place
-    of the reference's cast at every use (same bits).  Router weights, norm
-    scales, the embedding table and the LM head are left as they are."""
-    dt = DTYPES[cfg.dtype]
+    """Cast the blocks' matmul weights to :data:`COMPUTE_DTYPE` once, in
+    place of the reference's cast at every use (same bits).  Router weights,
+    norm scales, the embedding table and the LM head are left as they are."""
+    dt = COMPUTE_DTYPE
 
     def block(p: Dict) -> Dict:
         p = dict(p)
@@ -279,7 +282,7 @@ def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
 
 
 def embed_inputs(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 plan: MeshPlan, dtype=torch.bfloat16) -> torch.Tensor:
+                 plan: MeshPlan, dtype=COMPUTE_DTYPE) -> torch.Tensor:
     """Token embedding; like the reference, always computed in bf16."""
     return L.embed_tokens(params["embed"], tokens, plan, dtype)
 

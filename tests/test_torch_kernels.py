@@ -134,3 +134,13 @@ def test_wrappers_reject_mixed_devices():
     with pytest.raises(ValueError, match="devices"):
         ops.dispatch_gather(x, torch.zeros((2,), dtype=torch.int32,
                                            device="meta"))
+
+
+def test_grouped_ffn_rejects_weights_of_another_dtype():
+    """The model casts its expert weights once at load, so the wrapper
+    takes weights only in x's dtype and casts nothing itself."""
+    x = torch.zeros((2, 3, 16), dtype=torch.bfloat16)
+    w1 = torch.zeros((2, 16, 8))
+    w2 = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.grouped_ffn(x, w1, None, w2, act="gelu")
