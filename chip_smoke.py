@@ -10,8 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    process per source, in parallel).
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    of the serving path (qwen3-moe-30b-a3b at full width, logical expert grid
-   (16, 8), batch 8, prompt 128; decode t=8): errors, and times from CUDA
-   events beside the least time the card could take.
+   (16, 8), batch 8, prompt 128; decode t=8) and of the training path
+   (smile-3.7b at full width, grid (16, 8), batch 16 x seq 128: the routers
+   (2048, 768) x (768, 16) and (4096, 768) x (768, 8), the sorts 2,048 keys
+   over 17 values and 4,096 over 129; plus the Switch baseline's flat
+   router over 128 experts, a bf16 case with ties, and a 2**20-key sort):
+   errors, and times from CUDA events beside the least time the card could
+   take.
 3. The path: ``repro_torch.launch.serve.serve`` on qwen3-moe-30b-a3b at full
    width with the depth cut to 4 of 48 layers, random weights from seed 0,
    batch 8, prompt 128, 32 new tokens.  Every kernel must have launched in
@@ -21,7 +26,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 4. Card against CPU: the reduced qwen3-moe config, prefill plus 3 decode
    steps on the CPU (plain versions) and on the card (kernels), logits held
    within the tolerance of the CPU slice test.
-5. A ``{"kernels": [...]}`` line, then the card line, then the last line
+5. The training path: ``repro_torch.launch.train.train`` on smile-3.7b at
+   full width and depth (12 layers, 3.7 B parameters, fp32 masters, LAMB),
+   grid (16, 8), ``router_impl="fused"``, ``sort_impl="radix"``, batch 16 x
+   seq 128, random weights from seed 0: one warm-up step and 3 timed steps.
+   Both routing kernels must launch 24 times a step (6 MoE layers x 2 hops,
+   forward and remat recompute), loss and gradient norm must be finite.
+   Then 2 more steps under the profiler, for the device time by kernel.
+6. Card against CPU, training: reduced smile-3.7b, 3 steps from the same
+   weights and batches on the CPU (plain versions) and on the card
+   (kernels), each step's loss within 3e-2.
+7. A ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card; without one, or without the repository's ``src``
@@ -29,7 +44,10 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -37,6 +55,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the training phase holds ~60 GiB of long-lived tensors beside short-lived
+# ones of many sizes; growable segments keep the allocator from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_TC_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
@@ -57,6 +78,22 @@ FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2)}   # (G, T)
 # the tolerance of tests/test_torch_serve.py for bf16 logits
 LOGITS_ATOL = 3e-2
 FFN_RTOL = FFN_ATOL = 2e-2
+# training shapes: smile-3.7b, d=768, batch 16 x seq 128 (t=2048), grid
+# (16, 8): (name, t, E, k, dtype, ties) per router call and (name, A, keys)
+# per sort
+ROUTER_SHAPES = [("train hop-1", 2048, 16, 1, "bf16", False),
+                 ("train hop-2", 4096, 8, 1, "bf16", False),
+                 ("switch flat", 2048, 128, 1, "bf16", False),
+                 ("bf16 ties k2", 2048, 16, 2, "bf16", True)]
+SORT_SHAPES = [("train hop-1", 2048, 17), ("train hop-2", 4096, 129),
+               ("2**20 keys", 1 << 20, 129)]
+# the router's logits are fp32 sums of 768 products; the kernel and cuBLAS
+# (TF32 off) each land up to ~1e-6 from the fp64 product at these shapes
+# (measured on the card: 8.8e-7 and 9.7e-7), in other directions, so their
+# difference reaches ~2e-6 where a logit is near 0; probs inherit it
+ROUTER_RTOL, ROUTER_ATOL = 1e-5, 4e-6
+# bf16 compute with other summation orders, through 2 layers and 3 steps
+TRAIN_LOSS_ATOL = 3e-2
 
 SOURCES = {
     "dispatch_gather": ("src/repro_torch/kernels/csrc/dispatch_gather.cu",
@@ -65,6 +102,10 @@ SOURCES = {
                     "src/repro/kernels/grouped_ffn.py:103"),
     "combine_gather": ("src/repro_torch/kernels/csrc/combine_gather.cu",
                        "src/repro/kernels/moe_dispatch.py:94"),
+    "router_fused": ("src/repro_torch/kernels/csrc/router_fused.cu",
+                     "src/repro/kernels/router_fused.py:150"),
+    "group_sort": ("src/repro_torch/kernels/csrc/group_sort.cu",
+                   "src/repro/kernels/radix_sort.py:115"),
 }
 
 
@@ -90,10 +131,41 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call of the kernels ``fn`` launches (profiler, CUDA
+    activity only): the card's own time, without the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def bound(nbytes: float, ops: float, peak_ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
             else "operations")
+
+
+def add_row(rows, name, shape, got, want, ms, plain_ms, b,
+            library_ms=None):
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    rows.setdefault(name, []).append(dict(
+        shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
+    lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+    print(f"  {name:15s} {shape:13s} max abs err {err:.3e} (over max "
+          f"|ref|: {rel:.2e})  kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]})  library "
+          f"{lib} ms")
 
 
 def phase_kernels(torch, ops, ref):
@@ -105,16 +177,7 @@ def phase_kernels(torch, ops, ref):
     rows = {}
 
     def record(name, shape, got, want, ms, plain_ms, b, library_ms=None):
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / max(want.float().abs().max().item(), 1e-30)
-        rows.setdefault(name, []).append(dict(
-            shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
-        lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
-        print(f"  {name:15s} {shape:13s} max abs err {err:.3e} (over max "
-              f"|ref|: {rel:.2e})  kernel {ms:.4f} ms  plain "
-              f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]})  library "
-              f"{lib} ms")
+        add_row(rows, name, shape, got, want, ms, plain_ms, b, library_ms)
 
     for shape, (t, R, k) in GATHER_SHAPES.items():
         # dispatch: x (t, d) -> (R, d); a quarter of the slots empty
@@ -188,6 +251,90 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
+def check_router(torch, ref, got, want, k, shape):
+    """The router kernel against its plain version on the same inputs:
+    logits and probs within ROUTER_RTOL / ROUTER_ATOL; ids equal on every
+    row whose top-(k+1) probabilities are more than 1e-6 apart; ranks and
+    starts bit-exact against the counting sort of the kernel's own ids;
+    gates the kernel's probs at its ids.  Returns the rows closer."""
+    gates, idx, probs, logits, ranks, starts = got
+    for what, a, b in (("logits", logits, want[3]), ("probs", probs, want[2])):
+        bad = (a - b).abs() > ROUTER_ATOL + ROUTER_RTOL * b.abs()
+        if bool(bad.any()):
+            raise AssertionError(
+                f"router_fused {shape}: {int(bad.sum())} {what} outside "
+                f"rtol {ROUTER_RTOL} / atol {ROUTER_ATOL}; max abs err "
+                f"{(a - b).abs().max().item():.3e}")
+    E = probs.shape[1]
+    top = want[2].sort(dim=1, descending=True).values[:, :min(k + 1, E)]
+    close = ((top[:, :-1] - top[:, 1:]) <= 1e-6).any(dim=1)
+    if not torch.equal(idx[~close], want[1][~close]):
+        raise AssertionError(f"router_fused {shape}: ids differ on rows "
+                             f"whose top-{k + 1} probabilities are apart")
+    r, st = ref.group_sort_ref(idx.reshape(-1), E)
+    if not (torch.equal(ranks, r) and torch.equal(starts, st)):
+        raise AssertionError(f"router_fused {shape}: ranks/starts differ "
+                             f"from the counting sort of its ids")
+    if not torch.equal(gates, probs.gather(1, idx.long())):
+        raise AssertionError(f"router_fused {shape}: gates are not the "
+                             f"probs at the chosen ids")
+    return int(close.sum())
+
+
+def phase_routing_kernels(torch, ops, ref, rows):
+    """The training path's two kernels against their plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    d = 768
+    for shape, t, E, k, _, ties in ROUTER_SHAPES:
+        x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
+        if ties:
+            # bf16-rounded weights with two equal columns: every row ties
+            w = w.to(torch.bfloat16).float()
+            w[:, 5] = w[:, 3]
+        got = ops.router_fused(x, w, k)
+        want = ref.router_fused_ref(x, w, k)
+        torch.cuda.synchronize()
+        closer = check_router(torch, ref, got, want, k, shape)
+        exact = x.double() @ w.double()
+        print(f"  router_fused    {shape}: {closer} of {t} rows have top-"
+              f"{k + 1} probabilities within 1e-6; logits max abs err "
+              f"against fp64: kernel "
+              f"{(got[3].double() - exact).abs().max().item():.3e}, plain "
+              f"{(want[3].double() - exact).abs().max().item():.3e}; device "
+              f"time {device_ms(torch, lambda: ops.router_fused(x, w, k)):.4f}"
+              f" ms a call")
+        nbytes = (t * d * 2 + d * E * 4 + 2 * t * E * 4 + 3 * t * k * 4
+                  + (E + 1) * 4)
+        add_row(rows, "router_fused", shape,
+                torch.cat([got[3].flatten(), got[2].flatten()]),
+                torch.cat([want[3].flatten(), want[2].flatten()]),
+                time_ms(lambda: ops.router_fused(x, w, k)),
+                time_ms(lambda: ref.router_fused_ref(x, w, k)),
+                bound(nbytes, 2.0 * t * d * E, FP32_FLOPS))
+    for shape, A, K in SORT_SHAPES:
+        keys = torch.randint(0, K, (A,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        # a skewed draw: a third of the keys on one value, as a hot expert
+        hot = torch.rand((A,), generator=gen, device=dev) < 1 / 3
+        keys = torch.where(hot, torch.full_like(keys, K // 3), keys)
+        got = ops.group_sort(keys, K, impl="radix")
+        want = ref.group_sort_ref(keys, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"group_sort {shape}: not bit-exact")
+        dms = device_ms(torch, lambda: ops.group_sort(keys, K, impl="radix"))
+        print(f"  group_sort      {shape}: device time {dms:.4f} ms a call")
+        add_row(rows, "group_sort", shape, torch.cat(got).float(),
+                torch.cat(want).float(),
+                time_ms(lambda: ops.group_sort(keys, K, impl="radix")),
+                time_ms(lambda: ref.group_sort_ref(keys, K)),
+                bound(8.0 * A + 4.0 * (K + 1), 0, FP32_FLOPS),
+                time_ms(lambda: torch.sort(keys, stable=True)))
+
+
 SERVE = dict(arch="qwen3-moe-30b-a3b", reduced=False, num_layers=4,
              moe_grid=(16, 8))
 
@@ -218,7 +365,7 @@ def phase_serve(torch, ops):
     if not res.logits_finite:
         raise AssertionError("serve: non-finite logits")
     per_forward = {"dispatch_gather": 8, "grouped_ffn": 4,
-                   "combine_gather": 8}
+                   "combine_gather": 8, "router_fused": 0, "group_sort": 0}
     for phase, n in (("prefill", 1), ("decode", steps)):
         want = {k: v * n for k, v in per_forward.items()}
         if res.launches[phase] != want:
@@ -233,7 +380,6 @@ def phase_warm(torch, first):
     """serve()'s weights and prompts through generate() again: warm times,
     then the same run under the profiler for the device time by kernel,
     the idle share, and the host's op, launch and synchronization counts."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import generate
     inp = first.inputs
@@ -255,30 +401,42 @@ def phase_warm(torch, first):
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
+    profile_summary(prof, wall_us, new_tokens, "forward")
+
+
+def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12):
+    """Device time by kernel, idle share, and the host's op, launch and
+    synchronization counts per ``unit`` from a profiled run of ``n`` units
+    that took ``wall_us``.  Returns the device busy time in us."""
+    from torch.autograd import DeviceType
     dev, runtime = {}, {}
     for e in prof.key_averages():
-        # device-side entries only: a CPU op's entry repeats the time of
-        # the kernels it launched
-        if e.device_type == DeviceType.CUDA:
+        # device-side kernel entries only: a CPU op's entry repeats the time
+        # of the kernels it launched, and a profiler range's device span
+        # (train_step.*) covers kernels counted on their own
+        if (e.device_type == DeviceType.CUDA
+                and not e.key.startswith("train_step.")):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             dev[e.key] = dev.get(e.key, 0.0) + us
         elif e.key.startswith("cuda"):
             runtime[e.key] = runtime.get(e.key, 0) + e.count
     busy = sum(dev.values())
-    top_ops = sum(1 for e in prof.events()
-                  if e.cpu_parent is None and e.name.startswith("aten::"))
-    launches = sum(n for k, n in runtime.items() if "Launch" in k)
-    syncs = sum(n for k, n in runtime.items() if "Synchronize" in k)
-    fwd = new_tokens                     # one prefill + the decode steps
-    print(f"  profiled (the whole run, {fwd} forwards, profiler on): wall "
+    # aten ops not called from another aten op (a profiler range is no op)
+    top_ops = sum(1 for e in prof.events() if e.name.startswith("aten::")
+                  and (e.cpu_parent is None
+                       or not e.cpu_parent.name.startswith("aten::")))
+    launches = sum(k for name, k in runtime.items() if "Launch" in name)
+    syncs = sum(k for name, k in runtime.items() if "Synchronize" in name)
+    print(f"  profiled ({n} {unit}s, profiler on): wall "
           f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
-          f"share {1 - busy / wall_us:.3f}; per forward "
-          f"{top_ops / fwd:.0f} top-level aten ops, {launches / fwd:.0f} "
-          f"kernel launches, {syncs / fwd:.2f} host synchronizations")
-    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:12]:
+          f"share {1 - busy / wall_us:.3f}; per {unit} "
+          f"{top_ops / n:.0f} top-level aten ops, {launches / n:.0f} "
+          f"kernel launches, {syncs / n:.2f} host synchronizations")
+    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3:8.3f} ms  {100 * us / max(busy, 1e-9):5.1f}%  "
               f"{name[:90]}")
+    return busy
 
 
 def phase_card_vs_cpu(torch):
@@ -292,18 +450,11 @@ def phase_card_vs_cpu(torch):
     plan = single_device_plan()
     params = T.init_model(cfg, plan, seed=0, device="cpu")
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(to(v, dev) for v in tree)
-        return tree.to(dev)
-
     B, S, steps = 2, 16, 3
     toks = np.random.default_rng(0).integers(8, cfg.vocab_size, (B, S))
     runs = {}
     for dev in ("cpu", "cuda"):
-        p = to(params, dev)
+        p = _to(params, dev)
         caches = T.init_caches(cfg, B, S + steps, plan, device=dev)
         outs = []
         tok = torch.as_tensor(toks, dtype=torch.int32, device=dev)
@@ -327,6 +478,126 @@ def phase_card_vs_cpu(torch):
               f"{a.abs().max().item():.3f})")
         if not err <= LOGITS_ATOL:
             raise AssertionError(f"card against CPU, {what}: {err}")
+
+
+TRAIN = dict(arch="smile-3.7b", reduced=False, batch=16, seq=128,
+             optimizer="lamb", moe_grid=(16, 8),
+             moe_options={"router_impl": "fused", "sort_impl": "radix"})
+# 6 MoE layers x 2 SMILE hops, in the forward and in the remat recompute
+TRAIN_LAUNCHES = {"router_fused": 24, "group_sort": 24,
+                  "dispatch_gather": 0, "grouped_ffn": 0,
+                  "combine_gather": 0}
+
+
+def phase_train(torch, ops):
+    """The training path: train() once, one warm-up step and 3 timed steps,
+    every launch count set to 0 just before and read just after; then 2
+    more steps under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import train
+    from repro_torch.optim import leaf_groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, hist = train(steps=4, log_every=1, device="cuda", **TRAIN)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for g in leaf_groups(params)
+                   for p in g.pieces)
+    del params
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    for h in hist:
+        print(f"  step {h['step']}{' (warm-up)' if h['step'] == 1 else ''}: "
+              f"{h['step_ms']:.2f} ms ({tokens / h['step_ms'] * 1e3:,.0f} "
+              f"tokens/s)  loss {h['loss']:.4f} ce {h['ce']:.4f} lb "
+              f"{h['lb']:.5f} drop_frac {h['drop_frac']:.4f} grad norm "
+              f"{h['grad_norm']:.4f}  launches {h['launches']}")
+        if not (all(math.isfinite(h[k]) for k in ("loss", "grad_norm"))):
+            raise AssertionError(f"train step {h['step']}: non-finite loss "
+                                 f"or grad norm")
+        if h["launches"] != TRAIN_LAUNCHES:
+            raise AssertionError(f"train step {h['step']}: launches "
+                                 f"{h['launches']}, expected "
+                                 f"{TRAIN_LAUNCHES}")
+    timed = [h["step_ms"] for h in hist[1:]]
+    print(f"  timed steps (3): mean {sum(timed) / len(timed):.2f} ms, "
+          f"{tokens * len(timed) / sum(timed) * 1e3:,.0f} tokens/s; "
+          f"{n_params / 1e9:.3f} B parameters; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, _ = train(steps=2, log_every=1, device="cuda", **TRAIN)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del params
+    print("  profile of train(steps=2), parameter init included:")
+    profile_summary(prof, wall_us, 2, "step", top=15)
+    # each range shows twice: its host span (CPU) and its device span, from
+    # its first kernel's start to its last kernel's end (CUDA)
+    from torch.autograd import DeviceType
+    for e in prof.key_averages():
+        if e.key.startswith("train_step."):
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+                print(f"    {e.key:26s} device span {us / 2e3:9.3f} ms a "
+                      f"step")
+            else:
+                print(f"    {e.key:26s} host span   "
+                      f"{e.cpu_time_total / 2e3:9.3f} ms a step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timed, peak
+
+
+def _to(tree, dev):
+    """A copy of a parameter tree on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev, copy=True)
+
+
+def phase_train_card_vs_cpu(torch):
+    """Reduced smile-3.7b, 3 steps from the same weights and batches on the
+    CPU (plain versions) and on the card (kernels); each step's loss within
+    TRAIN_LOSS_ATOL."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.sharding.plan import single_device_plan
+    from repro_torch.train.step import build_train_step
+    cfg = train_config("smile-3.7b", reduced=True,
+                       moe_options=TRAIN["moe_options"])
+    plan = single_device_plan()
+    B, S, steps = 8, 64, 3
+    params = T.init_model(cfg, plan, seed=0, device="cpu", compute_cast=False)
+    tcfg = TrainConfig(global_batch_size=B, seq_len=S, steps=steps,
+                       warmup_steps=1)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        opt = make_optimizer("lamb")
+        batches = [make_batch(cfg, B, S, 0, i) for i in range(steps)]
+        step = build_train_step(cfg, tcfg, plan, opt,
+                                make_schedule("cosine", 3e-4, 1, steps), p,
+                                batches[0])
+        state = opt.init(p)
+        losses[dev] = []
+        for i, b in enumerate(batches):
+            p, state, m = step(p, state, b, i + 1)
+            losses[dev].append(float(m["loss"]))
+    for i, (a, b) in enumerate(zip(losses["cpu"], losses["cuda"])):
+        print(f"  step {i + 1}: loss cpu {a:.5f}, card {b:.5f}, |diff| "
+              f"{abs(a - b):.3e} (tolerance {TRAIN_LOSS_ATOL})")
+        if not abs(a - b) <= TRAIN_LOSS_ATOL:
+            raise AssertionError(f"training card against CPU, step {i + 1}")
 
 
 def main() -> int:
@@ -355,6 +626,11 @@ def main() -> int:
           f"tolerances: dispatch_gather bit-exact, combine_gather 1 bf16 "
           f"ulp, grouped_ffn rtol {FFN_RTOL} + atol {FFN_ATOL}")
     rows = phase_kernels(torch, ops, ref)
+    print(f"  training shapes: router_fused and group_sort; tolerances: "
+          f"router logits/probs rtol {ROUTER_RTOL} + atol {ROUTER_ATOL} "
+          f"(TF32 off in the plain version), ids/ranks/starts exact; "
+          f"group_sort bit-exact")
+    phase_routing_kernels(torch, ops, ref, rows)
 
     print(f"== phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 layers "
           f"({card})")
@@ -365,9 +641,20 @@ def main() -> int:
     print("== phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
     phase_card_vs_cpu(torch)
 
+    print(f"== phase 5: train smile-3.7b, full width and depth, grid "
+          f"(16, 8), LAMB ({card})")
+    train_launches, _, _ = phase_train(torch, ops)
+    launches.update({k: train_launches[k]
+                     for k in ("router_fused", "group_sort")})
+
+    print("== phase 6: card against CPU, training reduced smile-3.7b")
+    phase_train_card_vs_cpu(torch)
+
     main_shape = {"dispatch_gather": "prefill hop-2",
                   "combine_gather": "prefill hop-2",
-                  "grouped_ffn": "prefill"}
+                  "grouped_ffn": "prefill",
+                  "router_fused": "train hop-1",
+                  "group_sort": "train hop-2"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = next(x for x in rows[name] if x["shape"] == main_shape[name])

@@ -34,6 +34,8 @@ from repro_torch.common.config import MoEConfig
 from repro_torch.core import pipeline as PL
 from repro_torch.core.layout import ExpertLayout, make_layout
 from repro_torch.core.pipeline import MoEStats
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
 
@@ -57,33 +59,26 @@ def topk_gates(probs: torch.Tensor, k: int, renorm: bool
     ``k`` max-extraction rounds, the lowest index winning ties — the order
     ``lax.top_k`` guarantees and ``torch.topk`` does not promise.
     """
-    E = probs.shape[-1]
-    if not 1 <= k <= E:
-        raise ValueError(f"top-k {k} must be in [1, {E}]")
-    lane = torch.arange(E, device=probs.device)
-    work = probs
-    gsel, isel = [], []
-    for _ in range(k):
-        g = work.max(dim=-1, keepdim=True).values
-        sel = torch.where(work == g, lane, E).min(dim=-1, keepdim=True).values
-        gsel.append(g)
-        isel.append(sel)
-        work = torch.where(lane == sel, -math.inf, work)
-    gates = torch.cat(gsel, dim=1)
-    idx = torch.cat(isel, dim=1).to(torch.int32)
+    gates, idx = ref.topk_lowest_index(probs, k)
     if renorm and k > 1:
-        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        gates = ref.renorm_gates(gates)
     return gates, idx
 
 
 def router_topk(x: torch.Tensor, w: torch.Tensor, k: int, renorm: bool,
                 impl: str = "unfused"):
     """The routing prologue every hop shares: GEMM -> softmax -> top-k.
-    Returns ``(gates (t,k), idx (t,k), probs (t,E), logits (t,E))``."""
+    Returns ``(gates (t,k), idx (t,k), probs (t,E), logits (t,E))``.
+
+    ``impl`` is ``MoEConfig.router_impl``: ``"unfused"`` runs the plain
+    ops above; ``"fused"`` runs :func:`repro_torch.kernels.ops.router_fused`
+    (the fused routing kernel on the card), whose dispatch positions
+    (ranks, starts) are dropped here, as in the JAX package.
+    """
     if impl == "fused":
-        raise NotImplementedError(
-            "router_impl='fused' needs the router_fused kernel, which is not "
-            "ported yet; use router_impl='unfused'")
+        gates, idx, probs, logits, _, _ = kops.router_fused(
+            x.contiguous(), w, k, renorm=renorm)
+        return gates, idx, probs, logits
     if impl != "unfused":
         raise ValueError(f"unknown router_impl {impl!r}; "
                          f"expected \"unfused\" or \"fused\"")

@@ -1,6 +1,7 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface (every function returns its
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) has a plain C interface (every function returns its
 ``cudaError_t`` as an int) and is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library under ``kernels/build/`` (listed in ``.gitignore``).
 All sources are compiled in parallel, one ``nvcc`` process each.  A
@@ -29,6 +30,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "dispatch_gather": {"dispatch_gather": [P, P, P, I, I, L, P]},
     "combine_gather": {"combine_gather": [P, P, P, P, I, I, I, I, P]},
     "grouped_ffn": {"grouped_ffn": [P, P, P, P, P, P, I, I, I, I, I, P]},
+    "group_sort": {"group_sort": [P, L, I, I, L, P, P, P, P]},
+    "router_fused": {"router_fused": [P, I, P, I, I, I, I, P, P, P, P, P, I,
+                                      P, P, P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,7 +57,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's hash
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -17,8 +17,10 @@ on the CPU path.  :func:`launch_counts` and :func:`reset_launch_counts`
 read and clear all of them.
 
 ``group_sort`` keeps the JAX package's sort switch: ``impl="argsort"``
-runs the plain stable sort, and ``impl="radix"`` raises until the counting
-sort kernel is ported.
+runs the plain stable sort wherever the keys lie, and ``impl="radix"`` is
+the counting-sort kernel.  ``router_fused`` is a
+``torch.autograd.Function``: the kernel computes the forward, and the
+backward is the VJP of the plain chain.
 """
 from __future__ import annotations
 
@@ -59,17 +61,170 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# group_sort.cu: 256 keys per step of a block, at most 1,024 blocks and
+# 2**20 per-block counters, shared counters for at most 8,192 keys
+SORT_TILE = 256
+SORT_MAX_BLOCKS = 1024
+SORT_MAX_COUNTERS = 1 << 20
+SORT_MAX_KEYS = 8192
+
+
+def _sort_blocks(A: int, num_keys: int):
+    """``(nb, chunk)``: the counting sort's blocks and the keys each walks
+    (a multiple of :data:`SORT_TILE`)."""
+    nb = min(-(-A // SORT_TILE), SORT_MAX_BLOCKS,
+             max(1, SORT_MAX_COUNTERS // num_keys))
+    chunk = -(-A // nb)
+    chunk = -(-chunk // SORT_TILE) * SORT_TILE
+    return -(-A // chunk), chunk
+
+
 def group_sort(keys: torch.Tensor, num_keys: int, *, impl: str = "argsort"):
     """Stable sort of small-domain int keys -> ``(ranks, starts)`` (see
-    :func:`repro_torch.kernels.ref.group_sort_ref`)."""
+    :func:`repro_torch.kernels.ref.group_sort_ref`).
+
+    ``impl="argsort"`` runs the plain stable sort wherever ``keys`` lie;
+    ``impl="radix"`` launches the counting-sort kernel on the card (keys
+    int32 in ``[0, num_keys)``, ``num_keys <= 8192``, ``A < 2**31``) and
+    runs the plain version on the CPU.  Both give the same bits: a stable
+    integer sort is unique.
+    """
     if impl not in SORT_IMPLS:
         raise ValueError(f"unknown sort_impl {impl!r}; "
                          f"expected one of {SORT_IMPLS}")
-    if impl == "radix":
-        raise NotImplementedError(
-            "sort_impl='radix' needs the group_sort kernel, which is not "
-            "ported yet; use sort_impl='argsort'")
-    return ref.group_sort_ref(keys, num_keys)
+    if num_keys < 1:
+        raise ValueError(f"num_keys must be >= 1, got {num_keys}")
+    if impl == "argsort" or _on_cpu(keys):
+        return ref.group_sort_ref(keys, num_keys)
+    _require(keys.dim() == 1 and keys.dtype == torch.int32
+             and keys.is_contiguous(), f"group_sort: keys must be a "
+             f"contiguous (A,) int32 tensor, got {tuple(keys.shape)} "
+             f"{keys.dtype}")
+    _require(num_keys <= SORT_MAX_KEYS, f"group_sort: the kernel takes at "
+             f"most {SORT_MAX_KEYS} keys, got num_keys={num_keys}")
+    A = keys.shape[0]
+    _require(A < 2 ** 31, f"group_sort: at most 2**31 - 1 keys, got {A}")
+    dev = keys.device
+    starts = torch.empty((num_keys + 1,), dtype=torch.int32, device=dev)
+    if A == 0:
+        return torch.empty((0,), dtype=torch.int32, device=dev), starts.zero_()
+    ranks = torch.empty((A,), dtype=torch.int32, device=dev)
+    nb, chunk = _sort_blocks(A, num_keys)
+    counts = torch.empty((num_keys * nb,), dtype=torch.int32, device=dev)
+    lib = _build.load("group_sort")
+    _check(lib.group_sort(keys.data_ptr(), A, num_keys, nb, chunk,
+                          counts.data_ptr(), ranks.data_ptr(),
+                          starts.data_ptr(), _stream()), "group_sort")
+    group_sort.launches += 1
+    return ranks, starts
+
+
+# router_fused.cu: 16 tokens per block, at most 256 experts
+ROUTER_ROWS = 16
+ROUTER_MAX_EXPERTS = 256
+
+
+def _router_fused_cuda(x: torch.Tensor, w: torch.Tensor, k: int,
+                       renorm: bool):
+    _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
+             f"router_fused: x (t, d) and w (d, E), got {tuple(x.shape)} "
+             f"and {tuple(w.shape)}")
+    _require(x.dtype in (torch.bfloat16, torch.float32), f"router_fused: x "
+             f"must be bfloat16 or float32, got {x.dtype}")
+    _require(w.dtype == torch.float32, f"router_fused: w must be float32, "
+             f"got {w.dtype}")
+    _require(x.is_contiguous() and w.is_contiguous(),
+             "router_fused: x and w must be contiguous")
+    t, d = x.shape
+    E = w.shape[1]
+    _require(E <= ROUTER_MAX_EXPERTS, f"router_fused: at most "
+             f"{ROUTER_MAX_EXPERTS} experts, got {E}")
+    dev = x.device
+    f32, i32 = torch.float32, torch.int32
+    gates = torch.empty((t, k), dtype=f32, device=dev)
+    idx = torch.empty((t, k), dtype=i32, device=dev)
+    probs = torch.empty((t, E), dtype=f32, device=dev)
+    logits = torch.empty((t, E), dtype=f32, device=dev)
+    ranks = torch.empty((t * k,), dtype=i32, device=dev)
+    starts = torch.zeros((E + 1,), dtype=i32, device=dev)
+    if t == 0:
+        return gates, idx, probs, logits, ranks, starts
+    nb = -(-t // ROUTER_ROWS)
+    counts = torch.empty((E * nb,), dtype=i32, device=dev)
+    lib = _build.load("router_fused")
+    _check(lib.router_fused(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                            w.data_ptr(), t, d, E, k, logits.data_ptr(),
+                            probs.data_ptr(), gates.data_ptr(),
+                            idx.data_ptr(), counts.data_ptr(), nb,
+                            ranks.data_ptr(), starts.data_ptr(), _stream()),
+           "router_fused")
+    router_fused.launches += 1
+    if renorm and k > 1:
+        gates = ref.renorm_gates(gates)
+    return gates, idx, probs, logits, ranks, starts
+
+
+class _RouterFused(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU.
+    Backward: the VJP of the plain chain (fp32 GEMM, softmax, the chosen
+    probabilities gathered at the forward's own ids, renormalisation), as
+    the JAX package's ``custom_vjp`` does; the integer outputs carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, k, renorm):
+        if _on_cpu(x, w):
+            out = ref.router_fused_ref(x, w, k, renorm=renorm)
+        else:
+            out = _router_fused_cuda(x, w, k, renorm)
+        idx, ranks, starts = out[1], out[4], out[5]
+        ctx.save_for_backward(x, w, idx)
+        ctx.k, ctx.renorm = k, renorm
+        ctx.mark_non_differentiable(idx, ranks, starts)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_gates, _g_idx, g_probs, g_logits, _g_ranks,
+                 _g_starts):
+        x, w, idx = ctx.saved_tensors
+        need_x, need_w = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(need_x)
+            ww = w.detach().requires_grad_(need_w)
+            logits = xx.float() @ ww.float()
+            probs = torch.softmax(logits, dim=-1)
+            gates = probs.gather(1, idx.long())
+            if ctx.renorm and ctx.k > 1:
+                gates = ref.renorm_gates(gates)
+            outs = [(o, g) for o, g in ((gates, g_gates), (probs, g_probs),
+                                        (logits, g_logits)) if g is not None]
+            if not outs:
+                return None, None, None, None
+            got = list(torch.autograd.grad(
+                [o for o, _ in outs], [t for t in (xx, ww) if t.requires_grad],
+                [g for _, g in outs]))
+        gx = got.pop(0) if need_x else None
+        gw = got.pop(0) if need_w else None
+        return gx, gw, None, None
+
+
+def router_fused(x: torch.Tensor, w: torch.Tensor, k: int, *,
+                 renorm: bool = False):
+    """The fused routing prologue: router GEMM, softmax, top-k (lowest index
+    wins ties) and the counting-sort positions over the chosen ids.
+
+    x: (t, d) bf16 or fp32; w: (d, E) fp32; ``1 <= k <= E <= 256``.
+    Returns ``(gates (t,k), idx (t,k) int32, probs (t,E), logits (t,E),
+    ranks (t*k,) int32, starts (E+1,) int32)`` (see
+    :func:`repro_torch.kernels.ref.router_fused_ref`).  Differentiable in
+    x and w through gates, probs and logits.  There is no shape threshold:
+    every CUDA call launches the kernel.
+    """
+    E = w.shape[-1]
+    if not 1 <= k <= E:
+        raise ValueError(f"top-k {k} must be in [1, num_experts {E}]")
+    return _RouterFused.apply(x, w, k, renorm)
 
 
 def dispatch_gather(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -177,7 +332,8 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     return y
 
 
-KERNEL_WRAPPERS = (dispatch_gather, grouped_ffn, combine_gather)
+KERNEL_WRAPPERS = (dispatch_gather, grouped_ffn, combine_gather,
+                   router_fused, group_sort)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

@@ -7,6 +7,8 @@ each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -57,6 +59,49 @@ def group_sort_ref(keys: torch.Tensor, num_keys: int):
     bounds = torch.arange(num_keys + 1, dtype=torch.int32, device=dev)
     starts = torch.searchsorted(skeys, bounds, out_int32=True)
     return ranks, starts
+
+
+def topk_lowest_index(probs: torch.Tensor, k: int):
+    """Top-k of each row by ``k`` max-extraction rounds, the lowest index
+    winning ties (the order ``lax.top_k`` guarantees and ``torch.topk``
+    does not promise).  Returns ``(gates (t, k), idx (t, k) int32)``."""
+    E = probs.shape[-1]
+    if not 1 <= k <= E:
+        raise ValueError(f"top-k {k} must be in [1, {E}]")
+    lane = torch.arange(E, device=probs.device)
+    work = probs
+    gsel, isel = [], []
+    for _ in range(k):
+        g = work.max(dim=-1, keepdim=True).values
+        sel = torch.where(work == g, lane, E).min(dim=-1, keepdim=True).values
+        gsel.append(g)
+        isel.append(sel)
+        work = torch.where(lane == sel, -math.inf, work)
+    return torch.cat(gsel, dim=1), torch.cat(isel, dim=1).to(torch.int32)
+
+
+def renorm_gates(gates: torch.Tensor) -> torch.Tensor:
+    return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+
+def router_fused_ref(x: torch.Tensor, w: torch.Tensor, k: int, *,
+                     renorm: bool = False):
+    """The fused routing prologue, plain: fp32 GEMM, softmax, top-k with
+    the lowest index winning ties, optional gate renormalisation, and the
+    counting-sort positions over the chosen ids.
+
+    x: (t, d); w: (d, E).  Returns ``(gates (t, k), idx (t, k) int32,
+    probs (t, E), logits (t, E), ranks (t*k,) int32, starts (E+1,)
+    int32)``, as ``repro.kernels.ref.router_fused_ref``.
+    """
+    E = w.shape[1]
+    logits = x.float() @ w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = topk_lowest_index(probs, k)
+    if renorm and k > 1:
+        gates = renorm_gates(gates)
+    ranks, starts = group_sort_ref(idx.reshape(-1), E)
+    return gates, idx, probs, logits, ranks, starts
 
 
 def dispatch_gather_ref(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

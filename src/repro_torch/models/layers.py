@@ -107,6 +107,23 @@ def output_logits(p: Dict, x: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
     return x.float() @ w.float().t()
 
 
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        plan: MeshPlan) -> torch.Tensor:
+    """Cross-entropy over fp32 logits (..., V) against global vocab ids
+    (...,); returns the per-position loss.  The single-device form of the
+    reference's vocab-sharded cross-entropy: the max shift is kept out of
+    autograd, and a label outside ``[0, V)`` (``IGNORE = -1``) is never used
+    as an index (it is clamped, and its pick is zeroed; the caller masks its
+    loss)."""
+    v = logits.shape[-1]
+    m = comm.pmax(logits.detach().amax(-1), plan.tp_axis)
+    lse = torch.log(comm.psum(torch.exp(logits - m[..., None]).sum(-1),
+                              plan.tp_axis)) + m
+    hit = (labels >= 0) & (labels < v)
+    picked = logits.gather(-1, labels.clamp(0, v - 1).long()[..., None])[..., 0]
+    return lse - comm.psum(picked * hit.to(logits.dtype), plan.tp_axis)
+
+
 # =============================================================================
 # Dense FFN
 # =============================================================================

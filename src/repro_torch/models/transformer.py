@@ -13,13 +13,26 @@ multimodal inputs raise.
 Parameters are drawn from a seeded ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s, which is expected: the
 tests carry the JAX package's weights across with
-:func:`repro_torch.weights.params_from_jax`.  The matmul weights of the
-blocks (attention projections, dense, shared and expert FFNs) are cast to
-the activation dtype (bf16, the dtype :func:`embed_inputs` computes in) once
-at load by :func:`cast_for_compute`; the reference casts them at every use,
-which gives the same bits.  The blocks use them as they are, with no cast
-of their own.  Router weights, norm scales, the embedding table and the LM
-head stay fp32.
+:func:`repro_torch.weights.params_from_jax`.  Parameters are fp32; the
+activations are in :func:`compute_dtype` (``ModelConfig.dtype``, bf16 by
+default).  The matmul weights of the blocks (attention projections, dense,
+shared and expert FFNs) are used in the compute dtype, cast in one of two
+ways:
+
+* serving casts them once at load (:func:`cast_for_compute`, the default of
+  :func:`init_model`); the blocks then use them as they are;
+* training keeps the fp32 masters (``compute_cast=False``) and runs
+  :func:`forward` with ``cast_weights=True``, which casts each block's
+  weights at the top of the block, inside its remat region, so only the
+  block being run (or recomputed) holds a cast copy.
+
+The reference casts them at every use, which gives the same bits.  Router
+weights, norm scales, the embedding table and the LM head stay fp32.
+
+``remat=True`` (``ModelConfig.remat``, on for training) runs each block
+under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
+its layer-scan body in ``jax.checkpoint``: a block's activations are
+recomputed in the backward pass instead of kept.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
@@ -37,9 +51,13 @@ from repro_torch.models import layers as L
 from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
 
-# the activation dtype of forward: the reference embeds in bf16 whatever
-# the config's dtype, and casts the blocks' weights to it at use
-COMPUTE_DTYPE = torch.bfloat16
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The activation dtype of :func:`forward`: ``ModelConfig.dtype``.  The
+    reference embeds in bf16 (the default here too); ``dtype="float32"``
+    runs the whole model in fp32, which the tests use to hold gradients to
+    the reference tightly."""
+    return getattr(torch, cfg.dtype)
 
 
 # =============================================================================
@@ -200,21 +218,52 @@ def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
                        for _ in range(R)]}
 
 
+def cast_block(p: Dict, dt: torch.dtype) -> Dict:
+    """One block's matmul weights (attention, dense, shared and expert FFNs)
+    cast to ``dt``; router weights and norm scales are left as they are.
+    A no-op on weights already in ``dt``."""
+    p = dict(p)
+    p["attn"] = {k: v.to(dt) for k, v in p["attn"].items()}
+    if "ffn" in p:
+        p["ffn"] = {k: v.to(dt) for k, v in p["ffn"].items()}
+    if "shared" in p:
+        p["shared"] = {k: v.to(dt) for k, v in p["shared"].items()}
+    if "moe" in p:
+        p["moe"] = dict(p["moe"])
+        p["moe"]["experts"] = {k: v.to(dt) for k, v in
+                               p["moe"]["experts"].items()}
+    return p
+
+
 def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
-                  plan: MeshPlan, positions, caches, *,
-                  use_kernel: bool = False, token_valid=None):
+                  plan: MeshPlan, positions, caches, *, remat: bool = False,
+                  use_kernel: bool = False, token_valid=None,
+                  cast_weights: bool = False):
     """Run the stage's blocks in order (a loop in place of ``lax.scan``).
-    ``caches``: None or a list of per-block caches.  Returns
+    ``caches``: None or a list of per-block caches.  With ``remat`` (and
+    autograd recording) each block runs under ``torch.utils.checkpoint``;
+    with ``cast_weights`` each block casts its fp32 weights to the
+    activation dtype first, inside that region.  Returns
     ``(x, stats, caches)``."""
+    remat = remat and torch.is_grad_enabled()
 
     def run(kind, blocks, x, caches):
         fn = BLOCK_FNS[kind]
+
+        def body(p, x, c):
+            if cast_weights:
+                p = cast_block(p, x.dtype)
+            return fn(p, x, cfg, plan, positions, c, use_kernel=use_kernel,
+                      token_valid=token_valid)
+
         acc = zero_stats(x.device)
         new = []
         for i, p in enumerate(blocks):
             c = None if caches is None else caches[i]
-            x, stats, c = fn(p, x, cfg, plan, positions, c,
-                             use_kernel=use_kernel, token_valid=token_valid)
+            if remat:
+                x, stats, c = checkpoint(body, p, x, c, use_reentrant=False)
+            else:
+                x, stats, c = body(p, x, c)
             acc = _add_stats(acc, stats)
             new.append(c)
         return x, acc, (None if caches is None else new)
@@ -235,36 +284,26 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
 # =============================================================================
 
 def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
-    """Cast the blocks' matmul weights to :data:`COMPUTE_DTYPE` once, in
-    place of the reference's cast at every use (same bits).  Router weights,
-    norm scales, the embedding table and the LM head are left as they are."""
-    dt = COMPUTE_DTYPE
-
-    def block(p: Dict) -> Dict:
-        p = dict(p)
-        p["attn"] = {k: v.to(dt) for k, v in p["attn"].items()}
-        if "ffn" in p:
-            p["ffn"] = {k: v.to(dt) for k, v in p["ffn"].items()}
-        if "shared" in p:
-            p["shared"] = {k: v.to(dt) for k, v in p["shared"].items()}
-        if "moe" in p:
-            p["moe"] = dict(p["moe"])
-            p["moe"]["experts"] = {k: v.to(dt) for k, v in
-                                   p["moe"]["experts"].items()}
-        return p
-
+    """Every block's matmul weights cast to :func:`compute_dtype` once (the
+    serving form), in place of the reference's cast at every use (same
+    bits).  Router weights, norm scales, the embedding table and the LM
+    head are left as they are."""
+    dt = compute_dtype(cfg)
     out = dict(params)
-    out["stages"] = tuple({k: [block(b) for b in blocks]
+    out["stages"] = tuple({k: [cast_block(b, dt) for b in blocks]
                            for k, blocks in st.items()}
                           for st in params["stages"])
     return out
 
 
 def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
-               device="cuda") -> Dict:
+               device="cuda", compute_cast: bool = True) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless the caller asks for the CPU; raises when
-    the card is asked for and there is none)."""
+    the card is asked for and there is none).  ``compute_cast=True`` (the
+    serving form) casts the blocks' matmul weights once with
+    :func:`cast_for_compute`; ``False`` keeps every parameter fp32 (the
+    training form)."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)
@@ -278,13 +317,13 @@ def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
                    for st in build_stages(cfg))
     params["stages"] = stages
     params["final_norm"] = L._norm_init(cfg.d_model, cfg.norm, device)
-    return cast_for_compute(params, cfg)
+    return cast_for_compute(params, cfg) if compute_cast else params
 
 
 def embed_inputs(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 plan: MeshPlan, dtype=COMPUTE_DTYPE) -> torch.Tensor:
-    """Token embedding; like the reference, always computed in bf16."""
-    return L.embed_tokens(params["embed"], tokens, plan, dtype)
+                 plan: MeshPlan) -> torch.Tensor:
+    """Token embedding in :func:`compute_dtype`."""
+    return L.embed_tokens(params["embed"], tokens, plan, compute_dtype(cfg))
 
 
 def model_logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -297,11 +336,14 @@ def model_logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
             plan: MeshPlan, *, positions: torch.Tensor,
-            caches: Optional[Tuple] = None, use_kernel: bool = False,
-            token_valid: Optional[torch.Tensor] = None):
+            caches: Optional[Tuple] = None, remat: bool = False,
+            use_kernel: bool = False,
+            token_valid: Optional[torch.Tensor] = None,
+            cast_weights: bool = False):
     """Full forward.  Returns (hidden (B,T,d), logits (B,T,V), MoEStats,
     new_caches).  ``caches`` (from :func:`init_caches`) are updated in
-    place and returned."""
+    place and returned.  ``remat`` and ``cast_weights`` as in
+    :func:`stage_forward` (training passes both)."""
     cfg = _model_cfg(cfg0, plan)
     stages = build_stages(cfg)
     x = embed_inputs(params, tokens, cfg, plan)
@@ -310,8 +352,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
     for i, st in enumerate(stages):
         c = None if caches is None else caches[i]
         x, stats, c = stage_forward(params["stages"][i], x, cfg, st, plan,
-                                    positions, c, use_kernel=use_kernel,
-                                    token_valid=token_valid)
+                                    positions, c, remat=remat,
+                                    use_kernel=use_kernel,
+                                    token_valid=token_valid,
+                                    cast_weights=cast_weights)
         acc = _add_stats(acc, stats)
         new_caches.append(c)
     logits = model_logits(params, x, cfg, plan)

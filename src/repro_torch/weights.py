@@ -6,9 +6,11 @@ their blocks' parameters on a leading ``(repeats, ...)`` axis (for
 already turned into numpy arrays (``jax.tree.map(np.asarray, params)``),
 splits every stage into its per-block dicts, and returns the port's
 parameters — the same structure :func:`repro_torch.models.transformer.
-init_model` returns, compute weights cast once to the compute dtype — so
-both packages compute the same thing on the same weights.  This module
-imports neither JAX nor the JAX package.
+init_model` returns — so both packages compute the same thing on the same
+weights.  ``compute_cast=True`` gives the serving form (the blocks' matmul
+weights cast once to the compute dtype); ``False`` the training form (every
+parameter fp32, the masters the optimizer updates).  This module imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -38,9 +40,11 @@ def _tree(t, device, index=None):
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
-                    device="cuda") -> Dict[str, Any]:
+                    device="cuda", compute_cast: bool = True
+                    ) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves) as the port's parameters on
-    ``device``."""
+    ``device``: cast for serving, or fp32 for training (``compute_cast=
+    False``)."""
     device = resolve_device(device)
     _check_supported(cfg)
     stages = []
@@ -54,4 +58,4 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                                       for r in range(st.repeats)]})
     params = {k: _tree(v, device) for k, v in tree.items() if k != "stages"}
     params["stages"] = tuple(stages)
-    return cast_for_compute(params, cfg)
+    return cast_for_compute(params, cfg) if compute_cast else params

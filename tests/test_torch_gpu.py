@@ -71,6 +71,107 @@ def test_grouped_ffn_kernel(G, T, d, f, glu, act):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("A,K", [(1, 1), (5, 3), (2048, 17), (4096, 129),
+                                 (1 << 20, 129), (70001, 4096),
+                                 (3000, 8192)])
+def test_group_sort_kernel(A, K):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(A)
+    # skewed keys: half of them on one value
+    keys = torch.randint(0, K, (A,), generator=g, device=dev,
+                         dtype=torch.int32)
+    keys = torch.where(torch.rand((A,), generator=g, device=dev) < 0.5,
+                       torch.full_like(keys, K // 2), keys)
+    n = ops.group_sort.launches
+    ranks, starts = ops.group_sort(keys, K, impl="radix")
+    assert ops.group_sort.launches == n + 1
+    want_r, want_s = ref.group_sort_ref(keys, K)
+    assert torch.equal(ranks, want_r) and torch.equal(starts, want_s)
+
+
+@pytest.mark.gpu
+def test_group_sort_kernel_limits():
+    dev = _card()
+    ranks, starts = ops.group_sort(torch.zeros((0,), dtype=torch.int32,
+                                               device=dev), 5, impl="radix")
+    assert ranks.numel() == 0 and starts.tolist() == [0] * 6
+    with pytest.raises(ValueError, match="at most 8192 keys"):
+        ops.group_sort(torch.zeros((4,), dtype=torch.int32, device=dev),
+                       8193, impl="radix")
+
+
+def check_router_fused(got, want, k):
+    """The card's router against its plain version: logits and probs within
+    rtol 1e-5 / atol 4e-6 (fp32 sums in another order: each side lands up
+    to ~1e-6 from the fp64 product at d=768), ids equal wherever
+    the top-(k+1) probabilities are more than 1e-6 apart, ranks and starts
+    bit-exact against the counting sort of the kernel's own ids, gates the
+    kernel's probs at its ids.  Returns the number of rows closer."""
+    gates, idx, probs, logits, ranks, starts = got
+    torch.testing.assert_close(logits, want[3], rtol=1e-5, atol=4e-6)
+    torch.testing.assert_close(probs, want[2], rtol=1e-5, atol=4e-6)
+    E = probs.shape[1]
+    top = want[2].sort(dim=1, descending=True).values[:, :min(k + 1, E)]
+    close = ((top[:, :-1] - top[:, 1:]) <= 1e-6).any(dim=1) if E > 1 else \
+        torch.zeros(probs.shape[0], dtype=torch.bool, device=probs.device)
+    assert torch.equal(idx[~close], want[1][~close])
+    r, s = ref.group_sort_ref(idx.reshape(-1), E)
+    assert torch.equal(ranks, r) and torch.equal(starts, s)
+    return int(close.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,d,E,k,renorm,dtype", [
+    (2048, 768, 16, 1, False, torch.bfloat16),
+    (4096, 768, 8, 1, False, torch.bfloat16),
+    (2048, 768, 128, 1, False, torch.bfloat16),
+    (300, 64, 256, 8, True, torch.float32),
+    (33, 100, 3, 3, False, torch.float32),
+])
+def test_router_fused_kernel(t, d, E, k, renorm, dtype):
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(t + E)
+    x = torch.randn((t, d), generator=g, device=dev).to(dtype)
+    w = torch.randn((d, E), generator=g, device=dev) / d ** 0.5
+    n = ops.router_fused.launches
+    got = ops.router_fused(x, w, k, renorm=renorm)
+    assert ops.router_fused.launches == n + 1
+    want = ref.router_fused_ref(x, w, k, renorm=renorm)
+    check_router_fused(got, want, k)
+    gates = got[2].gather(1, got[1].long())
+    if renorm and k > 1:
+        gates = ref.renorm_gates(gates)
+    assert torch.equal(got[0], gates)
+
+
+@pytest.mark.gpu
+def test_router_fused_kernel_ties_and_grad():
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(7)
+    # bf16 inputs and two equal expert columns: exact ties on every row
+    x = torch.randn((512, 64), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((64, 16), generator=g, device=dev) / 8).to(
+        torch.bfloat16).float()
+    w[:, 5] = w[:, 3]
+    w.requires_grad_(True)
+    xr = x.float().requires_grad_(True)
+    got = ops.router_fused(xr, w, 2)
+    idx = got[1]                   # 5 ties 3, so 5 only ever follows 3
+    assert not bool((idx[:, 0] == 5).any())
+    assert bool((idx[idx[:, 1] == 5, 0] == 3).all())
+    check_router_fused(got, ref.router_fused_ref(xr, w, 2), 2)
+    (got[0].sum() + got[2].square().sum()).backward()
+    gw, gx = w.grad.clone(), xr.grad.clone()
+    w.grad = xr.grad = None
+    probs = torch.softmax(xr @ w, -1)
+    (probs.gather(1, got[1].long()).sum() + probs.square().sum()).backward()
+    torch.testing.assert_close(gw, w.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx, xr.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
 def test_serve_launches_every_kernel():
     _card()
     from repro_torch.launch.serve import serve
@@ -78,6 +179,7 @@ def test_serve_launches_every_kernel():
                 new_tokens=4, device="cuda")
     assert res.logits_finite
     per_forward = {"dispatch_gather": 4, "grouped_ffn": 2,
-                   "combine_gather": 4}            # 2 layers x 2 SMILE hops
+                   "combine_gather": 4,            # 2 layers x 2 SMILE hops
+                   "router_fused": 0, "group_sort": 0}   # unfused, argsort
     assert res.launches["prefill"] == per_forward
     assert res.launches["decode"] == {k: 3 * v for k, v in per_forward.items()}

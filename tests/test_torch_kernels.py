@@ -99,8 +99,9 @@ def test_group_sort_impls():
     keys = torch.tensor([2, 0, 2, 1], dtype=torch.int32)
     r, s = ops.group_sort(keys, 3)
     assert r.tolist() == [2, 0, 3, 1] and s.tolist() == [0, 1, 2, 4]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ops.group_sort(keys, 3, impl="radix")
+    # radix on a CPU tensor: the plain version, the same bits
+    r2, s2 = ops.group_sort(keys, 3, impl="radix")
+    assert torch.equal(r2, r) and torch.equal(s2, s)
     with pytest.raises(ValueError):
         ops.group_sort(keys, 3, impl="bogus")
 
@@ -124,9 +125,17 @@ def test_wrappers_on_cpu_take_plain_path_without_launches():
                        ref.combine_gather_ref(rows, csrc, scale))
     assert torch.equal(ops.grouped_ffn(xg, w1, None, w2, act="gelu"),
                        ref.grouped_ffn_ref(xg, w1, None, w2, act="gelu"))
+    wr = torch.from_numpy(rng.standard_normal((16, 4)).astype(np.float32))
+    for a, b in zip(ops.router_fused(x, wr, 2),
+                    ref.router_fused_ref(x, wr, 2)):
+        assert torch.equal(a, b)
+    keys = torch.tensor([3, 1, 3, 0], dtype=torch.int32)
+    for a, b in zip(ops.group_sort(keys, 4, impl="radix"),
+                    ref.group_sort_ref(keys, 4)):
+        assert torch.equal(a, b)
     assert ops.launch_counts() == before
     assert set(before) == {"dispatch_gather", "grouped_ffn",
-                           "combine_gather"}
+                           "combine_gather", "router_fused", "group_sort"}
 
 
 def test_wrappers_reject_mixed_devices():
