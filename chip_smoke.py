@@ -29,10 +29,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 5. The training path: ``repro_torch.launch.train.train`` on smile-3.7b at
    full width and depth (12 layers, 3.7 B parameters, fp32 masters, LAMB),
    grid (16, 8), ``router_impl="fused"``, ``sort_impl="radix"``, batch 16 x
-   seq 128, random weights from seed 0: one warm-up step and 3 timed steps.
-   Both routing kernels must launch 24 times a step (6 MoE layers x 2 hops,
-   forward and remat recompute), loss and gradient norm must be finite.
-   Then 2 more steps under the profiler, for the device time by kernel.
+   seq 128, random weights from seed 0: one warm-up step, 3 timed steps,
+   then 2 more steps of the same run under the profiler, for the device
+   time by kernel.  Both routing kernels must launch 24 times a step (6 MoE
+   layers x 2 hops, forward and remat recompute), loss and gradient norm
+   must be finite.
 6. Card against CPU, training: reduced smile-3.7b, 3 steps from the same
    weights and batches on the CPU (plain versions) and on the card
    (kernels), each step's loss within 3e-2.
@@ -489,18 +490,38 @@ TRAIN_LAUNCHES = {"router_fused": 24, "group_sort": 24,
                   "combine_gather": 0}
 
 
+# one warm-up step, 3 timed steps, then 2 steps under the profiler
+TRAIN_TIMED, TRAIN_PROFILED = 3, 2
+
+
 def phase_train(torch, ops):
-    """The training path: train() once, one warm-up step and 3 timed steps,
-    every launch count set to 0 just before and read just after; then 2
-    more steps under the profiler."""
+    """The training path: train() once, every launch count set to 0 just
+    before and read just after: one warm-up step, TRAIN_TIMED timed steps,
+    then TRAIN_PROFILED warm steps under the profiler (started and stopped
+    between steps through train()'s ``on_step``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.train import train
     from repro_torch.optim import leaf_groups
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    first, last = 1 + TRAIN_TIMED, 1 + TRAIN_TIMED + TRAIN_PROFILED
+    span = {}
+
+    def on_step(step):
+        # train() has synced the device at the end of each logged step
+        if step == first:
+            span["peak_timed"] = torch.cuda.max_memory_allocated()
+            prof.start()
+            span["t0"] = time.perf_counter()
+        elif step == last:
+            span["wall_us"] = (time.perf_counter() - span["t0"]) * 1e6
+            prof.stop()
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    params, hist = train(steps=4, log_every=1, device="cuda", **TRAIN)
+    params, hist = train(steps=last, log_every=1, device="cuda",
+                         on_step=on_step, **TRAIN)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for g in leaf_groups(params)
@@ -508,7 +529,9 @@ def phase_train(torch, ops):
     del params
     tokens = TRAIN["batch"] * TRAIN["seq"]
     for h in hist:
-        print(f"  step {h['step']}{' (warm-up)' if h['step'] == 1 else ''}: "
+        what = (" (warm-up)" if h["step"] == 1 else
+                " (profiled)" if h["step"] > first else "")
+        print(f"  step {h['step']}{what}: "
               f"{h['step_ms']:.2f} ms ({tokens / h['step_ms'] * 1e3:,.0f} "
               f"tokens/s)  loss {h['loss']:.4f} ce {h['ce']:.4f} lb "
               f"{h['lb']:.5f} drop_frac {h['drop_frac']:.4f} grad norm "
@@ -520,21 +543,15 @@ def phase_train(torch, ops):
             raise AssertionError(f"train step {h['step']}: launches "
                                  f"{h['launches']}, expected "
                                  f"{TRAIN_LAUNCHES}")
-    timed = [h["step_ms"] for h in hist[1:]]
-    print(f"  timed steps (3): mean {sum(timed) / len(timed):.2f} ms, "
+    timed = [h["step_ms"] for h in hist[1:first]]
+    print(f"  timed steps ({TRAIN_TIMED}): mean "
+          f"{sum(timed) / len(timed):.2f} ms, "
           f"{tokens * len(timed) / sum(timed) * 1e3:,.0f} tokens/s; "
           f"{n_params / 1e9:.3f} B parameters; max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB")
-    gc.collect()
-    torch.cuda.empty_cache()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, _ = train(steps=2, log_every=1, device="cuda", **TRAIN)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    del params
-    print("  profile of train(steps=2), parameter init included:")
-    profile_summary(prof, wall_us, 2, "step", top=15)
+          f"{span['peak_timed'] / 2**30:.2f} GiB over steps 1-{first}, "
+          f"{peak / 2**30:.2f} GiB over all {last}")
+    print(f"  profile of steps {first + 1}-{last} of the same run (warm):")
+    profile_summary(prof, span["wall_us"], TRAIN_PROFILED, "step", top=15)
     # each range shows twice: its host span (CPU) and its device span, from
     # its first kernel's start to its last kernel's end (CUDA)
     from torch.autograd import DeviceType
@@ -543,11 +560,12 @@ def phase_train(torch, ops):
             if e.device_type == DeviceType.CUDA:
                 us = getattr(e, "device_time_total",
                              getattr(e, "cuda_time_total", 0.0))
-                print(f"    {e.key:26s} device span {us / 2e3:9.3f} ms a "
-                      f"step")
+                print(f"    {e.key:26s} device span "
+                      f"{us / TRAIN_PROFILED / 1e3:9.3f} ms a step")
             else:
                 print(f"    {e.key:26s} host span   "
-                      f"{e.cpu_time_total / 2e3:9.3f} ms a step")
+                      f"{e.cpu_time_total / TRAIN_PROFILED / 1e3:9.3f} ms "
+                      f"a step")
     gc.collect()
     torch.cuda.empty_cache()
     return launches, timed, peak

@@ -7,6 +7,11 @@ The port of ``repro.kernels.ops``.  Every wrapper follows one rule:
 * a CUDA tensor launches the CUDA kernel (``csrc/<name>.cu``, built at
   first use by :mod:`repro_torch.kernels._build`) or raises.
 
+``dispatch_gather``, ``combine_gather`` and ``grouped_ffn`` have no
+backward: on the card they raise where autograd would need one, rather than
+return an output that silently carries no gradient.  The training step runs
+their plain tensor code (``use_kernel=False``), as the JAX package's does.
+
 There is no fallback and no shape threshold: the JAX package's ``T < 16``
 gates existed for TPU interpret-mode overhead, and on the card the kernels
 take every shape, so decode steps launch them too.
@@ -59,6 +64,16 @@ def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _forward_only(name: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need the gradient of a kernel that has no
+    backward."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call "
+                           f"it under torch.no_grad(), or run the plain "
+                           f"version (use_kernel=False) to train")
 
 
 # group_sort.cu: 256 keys per step of a block, at most 1,024 blocks and
@@ -234,6 +249,7 @@ def dispatch_gather(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     must lie in ``[-1, T)``."""
     if _on_cpu(x, src):
         return ref.dispatch_gather_ref(x, src)
+    _forward_only("dispatch_gather", x)
     _require(x.dim() == 2 and src.dim() == 1,
              f"dispatch_gather: x (T, d) and src (R,), got "
              f"{tuple(x.shape)} and {tuple(src.shape)}")
@@ -263,6 +279,7 @@ def combine_gather(rows: torch.Tensor, src: torch.Tensor,
     end.  rows: (R, d) bf16; src: (t, k) int32; scale: (t, k) fp32."""
     if _on_cpu(rows, src, scale):
         return ref.combine_gather_ref(rows, src, scale)
+    _forward_only("combine_gather", rows, scale)
     _require(rows.dim() == 2 and src.dim() == 2 and src.shape == scale.shape,
              f"combine_gather: rows (R, d), src/scale (t, k), got "
              f"{tuple(rows.shape)}, {tuple(src.shape)}, {tuple(scale.shape)}")
@@ -302,6 +319,7 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
              f"must have x's dtype {x.dtype}, got {[w.dtype for w in ws]}")
     if _on_cpu(x, w1, w3, w2):
         return ref.grouped_ffn_ref(x, w1, w3, w2, act=act)
+    _forward_only("grouped_ffn", x, w1, w3, w2)
     _require(act in ACTS, f"grouped_ffn: act must be one of {tuple(ACTS)}, "
              f"got {act!r}")
     _require(x.dim() == 3, f"grouped_ffn: x (G, T, d), got {tuple(x.shape)}")

@@ -19,7 +19,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -109,9 +109,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
           log_file: str = "", zero1: bool = False, eval_every: int = 0,
           moe_options: Optional[dict] = None, sentinel: bool = False,
           resume: bool = False, ckpt_every: int = 0, ckpt_keep: int = 3,
-          ckpt_dir: str = "", halt_after: int = 0,
-          moe_grid: Optional[Tuple[int, int]] = None,
-          num_layers: Optional[int] = None, device="cuda"):
+          ckpt_dir: str = "", moe_grid: Optional[Tuple[int, int]] = None,
+          num_layers: Optional[int] = None, device="cuda",
+          on_step: Optional[Callable[[int], None]] = None):
     """Run a training run from random weights (seed ``seed``) on the
     synthetic stream.  Returns ``(params, history)``.
 
@@ -119,11 +119,14 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     cumulative ``tokens_per_s`` (as the JAX package), and, over the steps
     since the previous entry, ``step_ms`` (wall time per step, measured to
     a device sync) and ``launches`` (kernel launches per step).
+    ``on_step(step)``, where given, is called after each step and its log
+    entry (to start or stop a profiler between steps, for instance).
     """
     if mesh is not None:
         raise NotImplementedError("a device mesh needs the expert-parallel "
                                   "slice; the port trains on one device")
-    if zero1 or sentinel or resume or ckpt or ckpt_every or ckpt_dir:
+    if (zero1 or sentinel or resume or ckpt or ckpt_every or ckpt_dir
+            or ckpt_keep != TrainConfig.ckpt_keep):
         raise NotImplementedError(f"--zero1/--sentinel/--resume/--ckpt*: "
                                   f"{NOT_PORTED}")
     cfg = train_config(arch, reduced=reduced, moe_options=moe_options,
@@ -148,8 +151,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     _sync(device)
     t0 = t_last = time.perf_counter()
     c_last, i_last = kops.launch_counts(), 0
-    until = min(steps, halt_after) if halt_after else steps
-    for i in range(until):
+    for i in range(steps):
         b = batch0 if i == 0 else next(pipe)
         params, opt_state, m = step_fn(params, opt_state, b, i + 1)
         if (i + 1) % log_every == 0 or i == 0:
@@ -174,6 +176,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
                           n_batches=2)
             print(f"  eval ce {ev['eval_ce']:.4f} ppl {ev['eval_ppl']:.1f}")
             history.append({"step": i + 1, **ev})
+        if on_step is not None:
+            on_step(i + 1)
     pipe.close()
     if log_file:
         with open(log_file, "w") as f:

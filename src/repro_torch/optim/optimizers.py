@@ -13,9 +13,10 @@ The update runs on the parameters in place, under ``torch.no_grad``, and
 reads each piece's ``.grad``; the moments are updated in place too.  Every
 elementwise pass goes over flat chunks of at most :data:`CHUNK` elements, so
 a stage's stacked expert leaf (3.6 B elements in smile-3.7b) never needs a
-full-size temporary: LAMB makes two passes, one for the moments and the
-norms, one that recomputes the direction from the stored moments and
-applies it.
+full-size temporary: LAMB makes two passes, one for the moments, the
+direction and the norms, one that applies the direction.  The direction
+goes into the gradient's buffer in place, since the gradient is spent once
+the moments hold it; after LAMB's update ``.grad`` holds the applied step.
 """
 from __future__ import annotations
 
@@ -149,22 +150,24 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
             dev = group.pieces[0].device
             wn = torch.zeros((), dtype=torch.float32, device=dev)
             dn = torch.zeros((), dtype=torch.float32, device=dev)
+            for p in group.pieces:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             for p, g, m, v in _pieces(group, state, gi):
                 _update_moments(g, m, v, b1, b2)
                 d = _direction(p, m, v, bc1, bc2, eps, decay)
                 wn += p.float().square().sum()
                 dn += d.square().sum()
+                g.copy_(d)
             wn, dn = wn.sqrt(), dn.sqrt()
             trust = torch.where((wn > 0) & (dn > 0),
                                 torch.clamp(wn / torch.clamp(dn, min=1e-12),
                                             min_trust, max_trust),
                                 torch.ones_like(wn))
             rate = lr * trust
-            # second pass: the same direction, recomputed from the stored
-            # moments, applied in place
-            for p, _, m, v in _pieces(group, state, gi):
-                d = _direction(p, m, v, bc1, bc2, eps, decay)
-                p.sub_(d.mul_(rate))
+            for p in group.pieces:
+                for pc, dc in zip(_chunks(p), _chunks(p.grad)):
+                    pc.sub_(dc.mul_(rate))
         return state
 
     return Optimizer(_moments_init, update)

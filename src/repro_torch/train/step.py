@@ -6,9 +6,10 @@ clip and the optimizer update.  The parameters are the fp32 masters
 weights to the activation dtype inside its remat region
 (``forward(..., cast_weights=True)``).
 
-As in the JAX package the step runs with ``use_kernel=False`` by default:
-the expert FFN and the dispatch/combine gathers are plain tensor code, so
-the slice-1 kernels need no backward.  The routing kernels run all the
+As the JAX package's step does at every call site, the forward runs with
+``use_kernel=False``: the expert FFN and the dispatch/combine gathers are
+plain tensor code, so the slice-1 kernels (which have no backward) stay off
+this path.  The routing kernels run all the
 same, through ``MoEConfig.router_impl="fused"`` and ``sort_impl="radix"``.
 
 One device only: the mesh, the gradient sync trees, ZeRO-1 and the step
@@ -32,8 +33,7 @@ from repro_torch.sharding.plan import MeshPlan
 IGNORE = -1
 
 
-def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan,
-             use_kernel: bool = False):
+def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan):
     """Masked cross-entropy plus the MoE aux losses.  Returns ``(loss,
     metrics)``; on one device the gradient-path loss is the loss itself."""
     tokens, labels = batch["tokens"], batch["labels"]
@@ -43,7 +43,7 @@ def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan,
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     _, logits, stats, _ = T.forward(params, tokens, cfg, plan,
                                     positions=positions, remat=cfg.remat,
-                                    use_kernel=use_kernel, cast_weights=True)
+                                    use_kernel=False, cast_weights=True)
     ce = vocab_parallel_xent(logits, labels, plan)
     mask = labels != IGNORE
     loss_sum = (ce * mask).sum()
@@ -67,7 +67,7 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
                   tcfg: TrainConfig, plan: MeshPlan, opt: Optimizer,
-                  schedule, n_micro: int = 1, use_kernel: bool = False):
+                  schedule, n_micro: int = 1):
     """One optimizer step.  ``params`` are updated in place (and returned);
     returns ``(params, opt_state, metrics)``, the metrics as tensors (no
     host sync) except ``lr``.  Its three phases are profiler ranges
@@ -76,8 +76,7 @@ def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
         for p in g.pieces:
             p.grad = None
     with record_function("train_step.loss_backward"):
-        loss, metrics = _loss_backward(params, batch, cfg, plan, n_micro,
-                                       use_kernel)
+        loss, metrics = _loss_backward(params, batch, cfg, plan, n_micro)
     lr = schedule(step)
     with record_function("train_step.clip"):
         gnorm = clip_by_global_norm(params, tcfg.grad_clip)
@@ -87,12 +86,12 @@ def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
     return params, opt_state, metrics
 
 
-def _loss_backward(params, batch, cfg, plan, n_micro, use_kernel):
+def _loss_backward(params, batch, cfg, plan, n_micro):
     """Forward and backward, over ``n_micro`` micro-batches; the gradients
     land in each parameter's ``.grad``.  Returns ``(loss, metrics)`` of the
     last micro-batch."""
     if n_micro <= 1:
-        loss, metrics = _ce_loss(params, batch, cfg, plan, use_kernel)
+        loss, metrics = _ce_loss(params, batch, cfg, plan)
         loss.backward()
     else:
         B = batch["tokens"].shape[0]
@@ -104,7 +103,7 @@ def _loss_backward(params, batch, cfg, plan, n_micro, use_kernel):
         # the metrics are the last micro-batch's
         for i in range(n_micro):
             sub = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics = _ce_loss(params, sub, cfg, plan, use_kernel)
+            loss, metrics = _ce_loss(params, sub, cfg, plan)
             loss.backward()
         with torch.no_grad():
             for g in leaf_groups(params):
@@ -116,8 +115,7 @@ def _loss_backward(params, batch, cfg, plan, n_micro, use_kernel):
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
                      opt: Optimizer, schedule, params_like, batch_like,
-                     mesh=None, use_kernel: bool = False,
-                     zero1: bool = False, sentinel: bool = False):
+                     mesh=None, zero1: bool = False, sentinel: bool = False):
     """Return ``step(params, opt_state, batch, step) -> (params, opt_state,
     metrics)`` for one device.  ``batch`` may hold numpy arrays; they are
     moved to the parameters' device.  Marks every parameter of
@@ -141,7 +139,6 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
     def step_fn(params, opt_state, batch, step):
         return train_step_fn(params, opt_state, to_device(batch, device),
                              step, cfg=cfg, tcfg=tcfg, plan=plan, opt=opt,
-                             schedule=schedule, n_micro=n_micro,
-                             use_kernel=use_kernel)
+                             schedule=schedule, n_micro=n_micro)
 
     return step_fn

@@ -172,6 +172,33 @@ def test_router_fused_kernel_ties_and_grad():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dispatch_gather", "combine_gather",
+                                  "grouped_ffn"])
+def test_forward_only_kernels_raise_under_autograd(name):
+    # these kernels have no backward: under autograd they must raise, not
+    # return an output that carries no gradient; under no_grad they launch
+    dev = _card()
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    x = torch.randn((16, 64), **bf)
+    w = torch.randn((2, 64, 64), **bf)
+    src = torch.arange(16, dtype=torch.int32, device=dev)
+    calls = {
+        "dispatch_gather": lambda x, w: ops.dispatch_gather(x, src),
+        "combine_gather": lambda x, w: ops.combine_gather(
+            x, src[:, None], torch.ones((16, 1), device=dev)),
+        "grouped_ffn": lambda x, w: ops.grouped_ffn(
+            x.view(2, 8, 64), w, None, w, act="gelu"),
+    }
+    before = ops.launch_counts()[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[name](x.requires_grad_(True), w.requires_grad_(True))
+    assert ops.launch_counts()[name] == before
+    with torch.no_grad():
+        calls[name](x, w)
+    assert ops.launch_counts()[name] == before + 1
+
+
+@pytest.mark.gpu
 def test_serve_launches_every_kernel():
     _card()
     from repro_torch.launch.serve import serve

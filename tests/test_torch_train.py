@@ -170,11 +170,16 @@ def test_evaluate_matches_jax_fp32(monkeypatch):
     np.testing.assert_allclose(tev["eval_ce"], jev["eval_ce"], rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", ["zero1", "sentinel", "resume"])
+UNPORTED = {"zero1": True, "sentinel": True, "resume": True,
+            "ckpt": "run", "ckpt_every": 5, "ckpt_dir": "run",
+            "ckpt_keep": 5}
+
+
+@pytest.mark.parametrize("flag", list(UNPORTED))
 def test_unported_train_options_raise(flag):
     with pytest.raises(NotImplementedError, match="queue item 8"):
         TL.train("smile-3.7b", steps=1, batch=2, seq=16, device="cpu",
-                 **{flag: True})
+                 **{flag: UNPORTED[flag]})
 
 
 def test_cli_zero1_raises(monkeypatch):
