@@ -14,9 +14,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (smile-3.7b at full width, grid (16, 8), batch 16 x seq 128: the routers
    (2048, 768) x (768, 16) and (4096, 768) x (768, 8), the sorts 2,048 keys
    over 17 values and 4,096 over 129; plus the Switch baseline's flat
-   router over 128 experts, a bf16 case with ties, and a 2**20-key sort):
-   errors, and times from CUDA events beside the least time the card could
-   take.
+   router over 128 experts, a bf16 case with ties, and a 2**20-key sort;
+   and the ragged grouped FFN at the dropless serve's hop-2 shapes, on the
+   layout of a real dispatch_ragged: 18,432 rows of which 8,192 real at
+   prefill, 1,344 of which 64 at decode): errors, and times from CUDA
+   events beside the least time the card could take.
 3. The path: ``repro_torch.launch.serve.serve`` on qwen3-moe-30b-a3b at full
    width with the depth cut to 4 of 48 layers, random weights from seed 0,
    batch 8, prompt 128, 32 new tokens.  Every kernel must have launched in
@@ -37,7 +39,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. Card against CPU, training: reduced smile-3.7b, 3 steps from the same
    weights and batches on the CPU (plain versions) and on the card
    (kernels), each step's loss within 3e-2.
-7. A ``{"kernels": [...]}`` line, then the card line, then the last line
+7. The dropless path: ``serve`` as in phase 3 with ``moe_options=
+   {"dispatch_backend": "dropless"}``: the ragged grouped FFN must launch 4
+   times a forward and the padded one never.  Then the same weights and
+   prompts warm through ``generate`` under the sort and the dropless
+   configs in turns (sort, dropless, dropless, sort), the FFN rows each
+   computes against the real rows, and a profile of one dropless run.
+8. Card against CPU, dropless: phase 4 under the dropless config (where
+   nothing overflows capacity at this size, so both configs give the same
+   logits, bit for bit, on each device; the launch counts show which FFN
+   kernel ran).
+9. A ``{"kernels": [...]}`` line, then the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card; without one, or without the repository's ``src``
@@ -76,6 +88,10 @@ GATHER_SHAPES = {
     "decode hop-2": (64, 256, 2),
 }
 FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2)}   # (G, T)
+# the dropless serve's hop 2: the hop-1 slab's rows (real ones), k=2 experts
+# of the arrival node's 8 each, over 128 expert groups
+RAGGED_SHAPES = {"prefill hop-2": (5120, 4096), "decode hop-2": (160, 32)}
+N_NODES, PER_NODE, K_LOCAL = 16, 8, 2
 # the tolerance of tests/test_torch_serve.py for bf16 logits
 LOGITS_ATOL = 3e-2
 FFN_RTOL = FFN_ATOL = 2e-2
@@ -107,6 +123,8 @@ SOURCES = {
                      "src/repro/kernels/router_fused.py:150"),
     "group_sort": ("src/repro_torch/kernels/csrc/group_sort.cu",
                    "src/repro/kernels/radix_sort.py:115"),
+    "grouped_ffn_ragged": ("src/repro_torch/kernels/csrc/grouped_ffn_ragged.cu",
+                           "src/repro/kernels/grouped_ffn.py:148"),
 }
 
 
@@ -252,6 +270,77 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
+def hop2_layout(torch, gen, slab: int, real: int):
+    """A dropless hop-2 layout from a real ``dispatch_ragged`` on the card:
+    ``slab`` arrival rows (the first ``real`` real, the rest zeros, as the
+    hop-1 exchange hands them over), each routed to K_LOCAL distinct
+    experts of its arrival node.  Returns ``(rows, group_starts, block,
+    valid assignments)``."""
+    from repro_torch.core import dispatch as D
+    dev = torch.device("cuda")
+    valid_row = torch.arange(slab, device=dev) < real
+    x = torch.randn((slab, D_MODEL), generator=gen, device=dev)
+    x = (x * valid_row[:, None]).to(torch.bfloat16)
+    node = torch.randint(0, N_NODES, (slab,), generator=gen, device=dev)
+    q = torch.rand((slab, PER_NODE), generator=gen, device=dev).argsort(
+        dim=1)[:, :K_LOCAL]
+    gid = (node[:, None] * PER_NODE + q).reshape(-1).to(torch.int32)
+    valid = valid_row.repeat_interleave(K_LOCAL)
+    gates = torch.rand((slab * K_LOCAL,), generator=gen, device=dev)
+    rows, starts, st = D.dispatch_ragged(x, gid, gates, N_NODES * PER_NODE,
+                                         k=K_LOCAL, valid=valid,
+                                         use_kernel=True)
+    return rows, starts, st.cap, gid[valid]
+
+
+def phase_ragged_ffn(torch, ops, ref, rows_out):
+    """The ragged grouped FFN against its plain version at the dropless
+    serve's hop-2 shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    bf = torch.bfloat16
+    G = N_NODES * PER_NODE
+    w1 = (torch.randn((G, D_MODEL, D_FF), generator=gen, device=dev)
+          / D_MODEL ** 0.5).to(bf)
+    w3 = (torch.randn((G, D_MODEL, D_FF), generator=gen, device=dev)
+          / D_MODEL ** 0.5).to(bf)
+    w2 = (torch.randn((G, D_FF, D_MODEL), generator=gen, device=dev)
+          / D_FF ** 0.5).to(bf)
+    for shape, (slab, real) in RAGGED_SHAPES.items():
+        rows, starts, block, gids = hop2_layout(torch, gen, slab, real)
+
+        def kernel():
+            return ops.grouped_ffn_ragged(rows, starts, w1, w3, w2,
+                                          block=block, act="silu")
+
+        got = kernel()
+        want = ref.grouped_ffn_ragged_ref(rows, starts, w1, w3, w2,
+                                          act="silu")
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= FFN_ATOL + FFN_RTOL * want.float().abs()).all()):
+            raise AssertionError(f"grouped_ffn_ragged {shape}: outside rtol "
+                                 f"{FFN_RTOL} / atol {FFN_ATOL}")
+        end = int(starts[-1])
+        if bool(got[end:].any()):
+            raise AssertionError(f"grouped_ffn_ragged {shape}: tail tiles "
+                                 f"not zero")
+        R, n_real = rows.shape[0], gids.numel()
+        experts = torch.unique(gids).numel()
+        nbytes = (experts * 3 * D_MODEL * D_FF + 2 * n_real * D_MODEL) * 2
+        flops = 6.0 * D_MODEL * D_FF * n_real
+        print(f"  grouped_ffn_ragged {shape}: R {R} rows, block {block}, "
+              f"{R // block} tiles; {n_real} real rows, {end} rows in "
+              f"{end // block} tiles computed (the rest are tail tiles, "
+              f"written as zeros); {experts} experts touched; device time "
+              f"{device_ms(torch, kernel):.4f} ms a call")
+        add_row(rows_out, "grouped_ffn_ragged", shape, got, want,
+                time_ms(kernel),
+                time_ms(lambda: ref.grouped_ffn_ragged_ref(
+                    rows, starts, w1, w3, w2, act="silu")),
+                bound(nbytes, flops, BF16_TC_FLOPS))
+
+
 def check_router(torch, ref, got, want, k, shape):
     """The router kernel against its plain version on the same inputs:
     logits and probs within ROUTER_RTOL / ROUTER_ATOL; ids equal on every
@@ -366,7 +455,8 @@ def phase_serve(torch, ops):
     if not res.logits_finite:
         raise AssertionError("serve: non-finite logits")
     per_forward = {"dispatch_gather": 8, "grouped_ffn": 4,
-                   "combine_gather": 8, "router_fused": 0, "group_sort": 0}
+                   "combine_gather": 8, "router_fused": 0, "group_sort": 0,
+                   "grouped_ffn_ragged": 0}
     for phase, n in (("prefill", 1), ("decode", steps)):
         want = {k: v * n for k, v in per_forward.items()}
         if res.launches[phase] != want:
@@ -440,20 +530,23 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12):
     return busy
 
 
-def phase_card_vs_cpu(torch):
-    """Reduced qwen3-moe: prefill + 3 decode steps, CPU plain versions
-    against the card's kernels, the CPU's tokens fed to both."""
+def phase_card_vs_cpu(torch, ops, moe_options=None):
+    """Reduced qwen3-moe (under ``moe_options``): prefill + 3 decode steps,
+    CPU plain versions against the card's kernels, the CPU's tokens fed to
+    both.  Prints the card run's launches, and checks that its expert FFN
+    ran the kernel of the config's backend."""
     import numpy as np
-    from repro_torch.configs import get_reduced
+    from repro_torch.configs import get_reduced, with_options
     from repro_torch.models import transformer as T
     from repro_torch.sharding.plan import single_device_plan
-    cfg = get_reduced("qwen3-moe-30b-a3b")
+    cfg = with_options(get_reduced("qwen3-moe-30b-a3b"), **(moe_options or {}))
     plan = single_device_plan()
     params = T.init_model(cfg, plan, seed=0, device="cpu")
 
     B, S, steps = 2, 16, 3
     toks = np.random.default_rng(0).integers(8, cfg.vocab_size, (B, S))
     runs = {}
+    ops.reset_launch_counts()
     for dev in ("cpu", "cuda"):
         p = _to(params, dev)
         caches = T.init_caches(cfg, B, S + steps, plan, device=dev)
@@ -471,6 +564,14 @@ def phase_card_vs_cpu(torch):
                 nxt = (runs["cpu"][i] if dev == "cuda" else logits.cpu())
                 tok = nxt[:, -1].argmax(-1).to(torch.int32)[:, None].to(dev)
         runs[dev] = outs
+    launches = ops.launch_counts()
+    ffn = ("grouped_ffn_ragged" if cfg.moe.dispatch_backend == "dropless"
+           else "grouped_ffn")
+    other = ({"grouped_ffn", "grouped_ffn_ragged"} - {ffn}).pop()
+    print(f"  card launches over the {steps + 1} forwards: {launches}")
+    if not (launches[ffn] > 0 and launches[other] == 0):
+        raise AssertionError(f"card against CPU: the expert FFN should run "
+                             f"{ffn} only, launches {launches}")
     for i, (a, b) in enumerate(zip(runs["cpu"], runs["cuda"])):
         err = (a - b).abs().max().item()
         what = "prefill" if i == 0 else f"decode {i}"
@@ -481,13 +582,125 @@ def phase_card_vs_cpu(torch):
             raise AssertionError(f"card against CPU, {what}: {err}")
 
 
+DROPLESS = {"dispatch_backend": "dropless"}
+# per forward of the 4-layer dropless serve: both SMILE hops gather and
+# combine; hop 2 runs the ragged FFN and nothing runs the padded one
+DROPLESS_PER_FORWARD = {"dispatch_gather": 8, "grouped_ffn": 0,
+                        "combine_gather": 8, "router_fused": 0,
+                        "group_sort": 0, "grouped_ffn_ragged": 4}
+
+
+def phase_serve_dropless(torch, ops):
+    """The dropless path: serve() once under the dropless config, every
+    launch count set to 0 just before and read just after; then, warm and
+    in turns on the same weights and prompts, the sort and the dropless
+    configs through generate(); the FFN rows each path computes; a profile
+    of one dropless run."""
+    from repro_torch.configs import with_options
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.common.config import ServeConfig
+    from torch.profiler import ProfilerActivity, profile
+    sc = ServeConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve(SERVE["arch"], reduced=False, batch=sc.batch_size,
+                prompt_len=sc.prompt_len, new_tokens=sc.max_new_tokens,
+                seed=0, device="cuda", num_layers=SERVE["num_layers"],
+                moe_grid=SERVE["moe_grid"], moe_options=DROPLESS)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = res.decode_steps
+    print(f"  first call: prefill {res.prefill_s * 1e3:.2f} ms; decode "
+          f"{res.decode_s / steps * 1e3:.2f} ms per step; launches: prefill "
+          f"{res.launches['prefill']}, decode {res.launches['decode']}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if not res.logits_finite:
+        raise AssertionError("dropless serve: non-finite logits")
+    for phase, n in (("prefill", 1), ("decode", steps)):
+        want = {k: v * n for k, v in DROPLESS_PER_FORWARD.items()}
+        if res.launches[phase] != want:
+            raise AssertionError(f"dropless serve {phase}: launches "
+                                 f"{res.launches[phase]}, expected {want}")
+    if res.tokens.shape != (sc.batch_size, sc.max_new_tokens):
+        raise AssertionError(f"dropless serve: tokens {res.tokens.shape}")
+
+    inp = res.inputs
+    cfgs = {"dropless": inp.cfg,
+            "sort": with_options(inp.cfg, dispatch_backend="sort")}
+
+    def run(name):
+        return generate(inp.params, inp.prompts, cfgs[name], inp.plan,
+                        new_tokens=sc.max_new_tokens)
+
+    times = {"sort": [], "dropless": []}
+    tokens = {}
+    for name in ("sort", "dropless", "dropless", "sort"):
+        torch.cuda.reset_peak_memory_stats()
+        r = run(name)
+        times[name].append((r.prefill_s * 1e3, r.decode_s / steps * 1e3,
+                            steps * r.batch / r.decode_s,
+                            torch.cuda.max_memory_allocated() / 2**30))
+        tokens[name] = r.tokens
+    for name, ts in times.items():
+        for i, (pf, dc, tps, mem) in enumerate(ts):
+            print(f"  warm {name:8s} run {i + 1}: prefill {pf:.2f} ms; "
+                  f"decode {dc:.2f} ms per step ({tps:.1f} tokens/s); peak "
+                  f"{mem:.2f} GiB")
+    same = float((tokens["sort"] == tokens["dropless"]).mean())
+    print(f"  greedy tokens equal between sort and dropless: {same:.3f} of "
+          f"{tokens['sort'].size} (sort drops over capacity, dropless never)")
+
+    # the FFN rows each path computes at hop 2, against the real rows it was
+    # handed (rows that are not all zeros), seen through the executor's FFN
+    # calls (the kernels' wrappers and their counts stay as they are)
+    from repro_torch.core import pipeline as PL
+    seen = []
+    orig = (PL.experts_ffn, PL.experts_ffn_ragged)
+
+    def padded(w, x, *a, **kw):
+        seen.append((x.shape[0] * x.shape[1],
+                     int((x.reshape(-1, x.shape[-1]) != 0).any(-1).sum())))
+        return orig[0](w, x, *a, **kw)
+
+    def ragged(w, rows, starts, *a, **kw):
+        seen.append((int(starts[-1]), int((rows != 0).any(-1).sum())))
+        return orig[1](w, rows, starts, *a, **kw)
+
+    PL.experts_ffn, PL.experts_ffn_ragged = padded, ragged
+    try:
+        for name in ("sort", "dropless"):
+            seen.clear()
+            run(name)
+            per = len(seen) // (steps + 1)
+            for what, calls in (("prefill", seen[:per]),
+                                ("decode", seen[per:])):
+                rows_c = sum(c for c, _ in calls) / max(len(calls), 1)
+                real = sum(r for _, r in calls) / max(len(calls), 1)
+                print(f"  {name:8s} {what}: FFN rows computed {rows_c:.1f} "
+                      f"a call against {real:.1f} real rows "
+                      f"({len(calls)} calls)")
+    finally:
+        PL.experts_ffn, PL.experts_ffn_ragged = orig
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run("dropless")
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_summary(prof, wall_us, sc.max_new_tokens, "forward")
+    return launches
+
+
 TRAIN = dict(arch="smile-3.7b", reduced=False, batch=16, seq=128,
              optimizer="lamb", moe_grid=(16, 8),
              moe_options={"router_impl": "fused", "sort_impl": "radix"})
 # 6 MoE layers x 2 SMILE hops, in the forward and in the remat recompute
 TRAIN_LAUNCHES = {"router_fused": 24, "group_sort": 24,
                   "dispatch_gather": 0, "grouped_ffn": 0,
-                  "combine_gather": 0}
+                  "combine_gather": 0, "grouped_ffn_ragged": 0}
 
 
 # one warm-up step, 3 timed steps, then 2 steps under the profiler
@@ -649,6 +862,9 @@ def main() -> int:
           f"(TF32 off in the plain version), ids/ranks/starts exact; "
           f"group_sort bit-exact")
     phase_routing_kernels(torch, ops, ref, rows)
+    print(f"  dropless hop-2 shapes: grouped_ffn_ragged; tolerance rtol "
+          f"{FFN_RTOL} + atol {FFN_ATOL}, tail tiles exact zeros")
+    phase_ragged_ffn(torch, ops, ref, rows)
 
     print(f"== phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 layers "
           f"({card})")
@@ -657,7 +873,7 @@ def main() -> int:
     del first
 
     print("== phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
-    phase_card_vs_cpu(torch)
+    phase_card_vs_cpu(torch, ops)
 
     print(f"== phase 5: train smile-3.7b, full width and depth, grid "
           f"(16, 8), LAMB ({card})")
@@ -668,11 +884,20 @@ def main() -> int:
     print("== phase 6: card against CPU, training reduced smile-3.7b")
     phase_train_card_vs_cpu(torch)
 
+    print(f"== phase 7: serve qwen3-moe-30b-a3b dropless, full width, 4 of "
+          f"48 layers ({card})")
+    dropless_launches = phase_serve_dropless(torch, ops)
+    launches["grouped_ffn_ragged"] = dropless_launches["grouped_ffn_ragged"]
+
+    print("== phase 8: card against CPU, reduced qwen3-moe-30b-a3b dropless")
+    phase_card_vs_cpu(torch, ops, DROPLESS)
+
     main_shape = {"dispatch_gather": "prefill hop-2",
                   "combine_gather": "prefill hop-2",
                   "grouped_ffn": "prefill",
                   "router_fused": "train hop-1",
-                  "group_sort": "train hop-2"}
+                  "group_sort": "train hop-2",
+                  "grouped_ffn_ragged": "prefill hop-2"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = next(x for x in rows[name] if x["shape"] == main_shape[name])

@@ -13,10 +13,13 @@ intra-node on the arrived tokens).  The schedules only *declare* their hops:
   reverse exchange -> gate-weighted combine, accumulating one
   :class:`MoEStats`.
 
-This slice ports the ``padded`` exchange (the capacity-buffer hop that the
-default ``sort`` backend uses) at ``n_ranks == 1``, where the exchange is
-the identity.  The ``local`` and ``ragged`` exchanges belong to the dropless
-slice and raise here.
+All three exchanges run at ``n_ranks == 1``: ``padded`` (the capacity
+buffer of the ``sort`` and ``dense`` backends, and of ``dropless`` with
+``ragged_a2a=False``), ``local`` (the dropless innermost hop: the expert FFN
+straight over the tile-aligned ragged layout) and ``ragged`` (the dropless
+outer hop, whose exchange is a single-rank copy).  The ragged hop's clamped
+receive bound and its wire checksums need ``n_ranks > 1`` and come with the
+expert-parallel slice; fault injection raises.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.sharding import comm
 # hop slots in the fixed-shape per-hop vectors (switch uses 1, SMILE 2)
 MAX_HOPS = 2
 # source-rank bins of MoEStats.wire_faults (kept so stats match the
-# reference's shapes; all zero until the wire-integrity layer is ported)
+# reference's shapes; all zero: a single-rank hop has no wire to check)
 WIRE_SRC_BINS = 16
 
 EXCHANGES = ("local", "padded", "ragged")
@@ -52,8 +55,9 @@ class MoEStats:
     fields of ``repro.core.pipeline.MoEStats``: summed LB and z losses,
     ``drop_frac`` (summed over hops) with its per-hop breakdown, and the
     router-collapse watchdog inputs (max load fraction, normalized load
-    entropy per hop).  ``fault_events`` and ``wire_faults`` stay zero until
-    fault containment and the wire-integrity layer are ported."""
+    entropy per hop).  ``fault_events`` counts, per hop, the count-grid
+    entries :func:`sanitize_len_grid` rejected on ragged hops;
+    ``wire_faults`` stays zero until the wire-integrity layer is ported."""
     lb_loss: torch.Tensor
     z_loss: torch.Tensor
     drop_frac: torch.Tensor
@@ -111,7 +115,7 @@ def z_loss(logits: torch.Tensor, valid: torch.Tensor, coef: float,
 
 
 # =============================================================================
-# Expert FFN (padded capacity layout)
+# Expert FFN flavours (padded / ragged / compact)
 # =============================================================================
 
 def experts_ffn(w: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
@@ -130,6 +134,70 @@ def experts_ffn(w: Dict[str, torch.Tensor], x: torch.Tensor, act: str,
     if w3 is not None:
         h = h * torch.bmm(x, w3)
     return torch.bmm(h, w["w2"])
+
+
+def experts_ffn_ragged(w: Dict[str, torch.Tensor], rows: torch.Tensor,
+                       group_starts: torch.Tensor, act: str, *, block: int,
+                       use_kernel: bool = False) -> torch.Tensor:
+    """Expert FFN over the dropless tile-aligned ragged layout.
+
+    ``rows``: (R, d) from :func:`repro_torch.core.dispatch.dispatch_ragged`;
+    ``group_starts``: (G+1,) aligned segment offsets; ``block``: the row
+    tile.  ``use_kernel=True`` runs the ragged grouped-FFN kernel; ``False``
+    mirrors the JAX package's batched matmul over row tiles with each
+    tile's weights gathered (every product rounded to ``rows.dtype``).
+    """
+    w3 = w.get("w3")
+    if use_kernel:
+        return kops.grouped_ffn_ragged(rows.contiguous(), group_starts,
+                                       w["w1"], w3, w["w2"], block=block,
+                                       act=act)
+    R, d = rows.shape
+    tile_gid = D.ragged_tile_gids(group_starts, R // block, block).long()
+    xt = rows.reshape(R // block, block, d)
+    h = ref.activation(torch.bmm(xt, w["w1"][tile_gid].to(rows.dtype)), act)
+    if w3 is not None:
+        h = h * torch.bmm(xt, w3[tile_gid].to(rows.dtype))
+    return torch.bmm(h, w["w2"][tile_gid].to(rows.dtype)).reshape(R, d)
+
+
+def experts_ffn_compact_rows(w: Dict[str, torch.Tensor], rows: torch.Tensor,
+                             gid: torch.Tensor, valid: torch.Tensor,
+                             num_groups: int, act: str,
+                             use_kernel: bool = False,
+                             sort_impl: str = "argsort") -> torch.Tensor:
+    """Dropless expert compute over received rows with per-row group ids.
+
+    ``rows``: (S, d) arrived slab; ``gid``/``valid``: (S,) local group and
+    real-row flag per row.  Compacts the valid rows into the ragged layout,
+    runs the FFN over exact segment lengths, and reads the results back to
+    the slab's rows (invalid rows stay zero).
+    """
+    ones = torch.ones((rows.shape[0],), dtype=torch.float32,
+                      device=rows.device)
+    r2, starts, st = D.dispatch_ragged(rows, gid, ones, num_groups, k=1,
+                                       valid=valid, use_kernel=use_kernel,
+                                       sort_impl=sort_impl)
+    out = experts_ffn_ragged(w, r2, starts, act, block=st.cap,
+                             use_kernel=use_kernel)
+    return D.combine(out, st)
+
+
+def experts_ffn_compact(w: Dict[str, torch.Tensor], recv: torch.Tensor,
+                        valid: torch.Tensor, act: str,
+                        use_kernel: bool = False,
+                        sort_impl: str = "argsort") -> torch.Tensor:
+    """Dropless expert compute over a received (G, S, d) capacity buffer
+    (``valid``: (G, S) bool): the occupied slots go through
+    :func:`experts_ffn_compact_rows`, empty slots stay zero."""
+    G, S, d = recv.shape
+    rgid = torch.arange(G, dtype=torch.int32,
+                        device=recv.device).repeat_interleave(S)
+    out = experts_ffn_compact_rows(w, recv.reshape(G * S, d), rgid,
+                                   valid.reshape(-1), G, act,
+                                   use_kernel=use_kernel,
+                                   sort_impl=sort_impl)
+    return out.reshape(G, S, d)
 
 
 # =============================================================================
@@ -231,6 +299,102 @@ def _unfold(y: torch.Tensor, spec: HopSpec, cap: int) -> torch.Tensor:
 
 
 # =============================================================================
+# Ragged exchange
+# =============================================================================
+
+def recv_bound_rows(factor: float, rows: int, n_ranks: int,
+                    groups_per_rank: int, block: int) -> int:
+    """Static bounded receive-slab size of a clamped ragged hop: ``factor``
+    times the sender's rows plus one tile of slack per (source, local
+    group), rounded up to the tile, never above ``P x R``."""
+    slack = n_ranks * groups_per_rank * block
+    b = int(math.ceil(factor * rows)) + slack
+    b = ((b + block - 1) // block) * block
+    return min(b, n_ranks * rows)
+
+
+def sanitize_len_grid(len_grid: torch.Tensor, block: int, src_rows: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Validate an exchanged ``(P, nl)`` count grid; quarantine bad sources.
+
+    A negative entry, or a source whose tile-aligned running row total
+    passes its ``src_rows`` staging bound, marks its whole source row bad,
+    and the row is zeroed.  Returns ``(grid, events, src_bad)``: the
+    sanitized grid, the number of violating entries (fp32 scalar, the hop's
+    ``fault_events``), and the (P,) per-source quarantine mask.  The
+    identity, with ``events == 0``, on a healthy grid.
+    """
+    aligned = ((len_grid + block - 1) // block) * block
+    neg = len_grid < 0
+    over = torch.cumsum(torch.where(neg, torch.zeros_like(aligned), aligned),
+                        dim=1) > src_rows
+    bad = neg | over
+    src_bad = bad.any(dim=1)
+    grid = torch.where(src_bad[:, None], torch.zeros_like(len_grid), len_grid)
+    return grid, bad.sum().to(torch.float32), src_bad
+
+
+@dataclasses.dataclass
+class _RaggedHopState:
+    """Everything the reverse of one ragged hop needs."""
+    recv: torch.Tensor            # (B, d) received slab
+    gid: torch.Tensor             # (B,) local group per slab row
+    valid: torch.Tensor           # (B,) real-row flag per slab row
+    recv_counts: torch.Tensor     # (P,) aligned rows per source
+    send_counts: torch.Tensor     # (P,) aligned rows sent per destination
+    kept: Optional[torch.Tensor]  # (P,) rows kept per source after a clamp
+    rows_out: int                 # R: sender layout rows
+
+
+def _ragged_forward(rows: torch.Tensor, group_starts: torch.Tensor,
+                    seg_lens: torch.Tensor, spec: HopSpec, block: int
+                    ) -> Tuple[_RaggedHopState, torch.Tensor]:
+    """Forward ragged All2All of one dispatch hop: exact tile-aligned
+    segments plus the (P, nl) count grid, from which the received slab's
+    per-row structure is rebuilt.  Returns ``(state, sanitizer events)``.
+
+    The unclamped, checksum-free branch of the JAX package's
+    ``_ragged_forward``: the slab is the worst-case ``P x R`` rows.  The
+    clamped receive bound and the checksummed wire need ``P > 1`` (they are
+    inert at one rank, as in the JAX package) and come with the
+    expert-parallel slice.
+    """
+    P, nl = spec.n_ranks, spec.groups_per_rank
+    R = rows.shape[0]
+    clamped = (spec.recv_bound_factor is not None and P > 1
+               and recv_bound_rows(spec.recv_bound_factor, R, P, nl,
+                                   block) < P * R)
+    if clamped or (spec.wire_integrity != "off" and P > 1):
+        raise NotImplementedError(
+            f"hop {spec.name!r}: the clamped and checksummed ragged "
+            f"exchanges need n_ranks > 1 (ROADMAP queue 1, item 7)")
+    send_counts = D.ragged_send_counts(group_starts, nl)
+    comm.assert_count_i32(seg_lens, "_ragged_forward(seg_lens)")
+    len_grid = comm.all_to_all(seg_lens.reshape(P, nl), spec.axes,
+                               split_axis=0, concat_axis=0)
+    len_grid, events, _ = sanitize_len_grid(len_grid, block, R)
+    rc = (((len_grid + block - 1) // block) * block).sum(dim=1).to(
+        torch.int32)
+    B = P * R
+    recv, _ = comm.ragged_all_to_all(rows, send_counts, spec.axes,
+                                     recv_rows=B, recv_counts=rc)
+    gid, valid = D.ragged_recv_layout(len_grid, block, B)
+    return _RaggedHopState(recv, gid, valid, rc, send_counts, None, R), events
+
+
+def _ragged_reverse(y_slab: torch.Tensor, hs: _RaggedHopState,
+                    spec: HopSpec) -> torch.Tensor:
+    """Reverse ragged All2All: each source's slab segment back to its
+    origin rank at the origin offsets, (R, d) aligned with the sender's
+    layout.  Unclamped, everything returns, so no count exchange runs."""
+    R = hs.rows_out
+    back, _ = comm.ragged_all_to_all(y_slab, hs.recv_counts, spec.axes,
+                                     recv_rows=R, seg_rows=R,
+                                     recv_counts=hs.send_counts)
+    return back
+
+
+# =============================================================================
 # The executor
 # =============================================================================
 
@@ -257,16 +421,15 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
         raise ValueError(f"pipeline has {len(hops)} hops; MAX_HOPS is "
                          f"{MAX_HOPS}")
     if getattr(cfg, "fault_plan", None) is not None:
-        raise NotImplementedError("fault injection is not ported yet")
-    if cfg.dispatch_backend != "sort":
-        raise NotImplementedError(
-            f"dispatch_backend={cfg.dispatch_backend!r} is not ported yet "
-            f"(the dropless slice brings \"dropless\"); use \"sort\"")
+        raise NotImplementedError("fault injection is not ported yet "
+                                  "(ROADMAP queue 1, item 8)")
+    dropless = cfg.dispatch_backend == "dropless"
     dev = x.device
     simpl = cfg.sort_impl
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     lb_terms, z_terms = [], []
     hop_drops = [zero] * MAX_HOPS
+    hop_faults = [zero] * MAX_HOPS
     hop_maxload = [zero] * MAX_HOPS
     hop_entropy = [torch.ones((), dtype=torch.float32, device=dev)] * MAX_HOPS
 
@@ -275,10 +438,6 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
         hop = hops[level]
         spec = hop.spec
         innermost = level == len(hops) - 1
-        if spec.exchange != "padded":
-            raise NotImplementedError(
-                f"hop {spec.name!r}: the {spec.exchange!r} exchange belongs "
-                f"to the dropless slice and is not ported yet")
         dec = hop.route(x, token_valid, outer_gid)
         A, k = dec.group_ids.shape[0], dec.k
         gid = (dec.group_ids if spec.perm is None
@@ -296,14 +455,47 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
             ent = -torch.sum(fr * torch.log(torch.clamp(fr, min=1e-20)))
             hop_entropy[level] = ent / math.log(spec.loss_groups)
 
+        # ---- local: the FFN straight over the ragged layout (no drops) -----
+        if spec.exchange == "local":
+            rows, starts, st = D.dispatch_ragged(
+                x, gid, dec.gates, spec.num_groups, k=k, valid=dec.valid,
+                use_kernel=use_kernel, sort_impl=simpl)
+            out = experts_ffn_ragged(wsel, rows, starts, act, block=st.cap,
+                                     use_kernel=use_kernel)
+            return D.combine(out, st)
+
+        # ---- ragged: exact tile-aligned segments on the wire (no drops) ----
+        if spec.exchange == "ragged":
+            rows, starts, st = D.dispatch_ragged(
+                x, gid, dec.gates, spec.num_groups, k=k, valid=dec.valid,
+                use_kernel=use_kernel, sort_impl=simpl)
+            seg_lens = D.ragged_seg_lens(gid, st.keep, spec.num_groups)
+            hs, hop_faults[level] = _ragged_forward(rows, starts, seg_lens,
+                                                    spec, st.cap)
+            if innermost:
+                y_slab = experts_ffn_compact_rows(
+                    wsel, hs.recv, hs.gid, hs.valid, spec.groups_per_rank,
+                    act, use_kernel, sort_impl=simpl)
+            else:
+                y_slab = run_hop(level + 1, hs.recv, hs.valid, hs.gid)
+            return D.combine(_ragged_reverse(y_slab, hs, spec), st)
+
         # ---- padded: fixed-shape capacity buffer ----------------------------
+        hop_backend = "sort" if dropless else cfg.dispatch_backend
         buf, st = D.dispatch(x, gid, dec.gates, spec.num_groups,
                              spec.capacity, k=k, valid=dec.valid,
-                             backend="sort", use_kernel=use_kernel,
+                             backend=hop_backend, use_kernel=use_kernel,
                              sort_impl=simpl)
         recv = _fold(buf, spec)                     # (gpr, P*cap, d)
         if innermost:
-            out = experts_ffn(wsel, recv, act, use_kernel)
+            if dropless:
+                # the capacity buffer stays on the wire; the FFN sees only
+                # the occupied slots
+                rvalid = _fold(_occupancy(st, A, dev), spec) > 0
+                out = experts_ffn_compact(wsel, recv, rvalid, act,
+                                          use_kernel, sort_impl=simpl)
+            else:
+                out = experts_ffn(wsel, recv, act, use_kernel)
         else:
             gpr, S, d = recv.shape
             x1 = recv.reshape(gpr * S, d)
@@ -325,8 +517,7 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
     stats = MoEStats(sum(lb_terms[1:], lb_terms[0]),
                      sum(z_terms[1:], z_terms[0]),
                      hop_vec.sum(), hop_vec,
-                     torch.zeros((MAX_HOPS,), dtype=torch.float32,
-                                 device=dev),
+                     comm.psum(torch.stack(hop_faults), sync),
                      torch.stack(hop_maxload), torch.stack(hop_entropy),
                      torch.zeros((MAX_HOPS, WIRE_SRC_BINS),
                                  dtype=torch.float32, device=dev))

@@ -30,6 +30,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "dispatch_gather": {"dispatch_gather": [P, P, P, I, I, L, P]},
     "combine_gather": {"combine_gather": [P, P, P, P, I, I, I, I, P]},
     "grouped_ffn": {"grouped_ffn": [P, P, P, P, P, P, I, I, I, I, I, P]},
+    "grouped_ffn_ragged": {"grouped_ffn_ragged": [P, P, P, P, P, P, P, I, I,
+                                                  I, I, I, I, P]},
     "group_sort": {"group_sort": [P, L, I, I, L, P, P, P, P]},
     "router_fused": {"router_fused": [P, I, P, I, I, I, I, P, P, P, P, P, I,
                                       P, P, P]},

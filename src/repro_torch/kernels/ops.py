@@ -7,10 +7,11 @@ The port of ``repro.kernels.ops``.  Every wrapper follows one rule:
 * a CUDA tensor launches the CUDA kernel (``csrc/<name>.cu``, built at
   first use by :mod:`repro_torch.kernels._build`) or raises.
 
-``dispatch_gather``, ``combine_gather`` and ``grouped_ffn`` have no
-backward: on the card they raise where autograd would need one, rather than
-return an output that silently carries no gradient.  The training step runs
-their plain tensor code (``use_kernel=False``), as the JAX package's does.
+``dispatch_gather``, ``combine_gather``, ``grouped_ffn`` and
+``grouped_ffn_ragged`` have no backward: on the card they raise where
+autograd would need one, rather than return an output that silently carries
+no gradient.  The training step runs their plain tensor code
+(``use_kernel=False``), as the JAX package's does.
 
 There is no fallback and no shape threshold: the JAX package's ``T < 16``
 gates existed for TPU interpret-mode overhead, and on the card the kernels
@@ -350,8 +351,86 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     return y
 
 
+# grouped_ffn_ragged.cu: a block takes min(block, 64) rows of one tile
+RAGGED_MAX_ROWS_PER_BLOCK = 64
+
+
+def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
+                       w1: torch.Tensor, w3: Optional[torch.Tensor],
+                       w2: torch.Tensor, *, block: int,
+                       act: str = "gelu") -> torch.Tensor:
+    """Ragged grouped expert FFN over the dropless tile-aligned layout:
+    row tile ``i`` (``block`` rows) goes through the expert ``g`` that owns
+    it, ``act(x @ w1[g]) [* (x @ w3[g])] @ w2[g]``.
+
+    rows: (R, d), R a multiple of ``block``, sorted by group with zeros in
+    the alignment padding and past ``group_starts[G]`` (what
+    :func:`repro_torch.core.dispatch.dispatch_ragged` gives); group_starts:
+    (G+1,) int32 ascending segment offsets, each a multiple of ``block``;
+    w1/w3: (G, d, f); w2: (G, f, d), in rows' dtype.  On the card: bf16,
+    d and f multiples of 64, ``block`` a multiple of 8 that is at most 64
+    or a multiple of 64.  The kernel writes zeros for the tiles past
+    ``group_starts[G]`` without reading their weights: their rows are
+    zeros, so the FFN would give zeros there too.
+    """
+    ws = (w1, w2) + (() if w3 is None else (w3,))
+    _require(all(w.dtype == rows.dtype for w in ws), f"grouped_ffn_ragged: "
+             f"weights must have rows' dtype {rows.dtype}, got "
+             f"{[w.dtype for w in ws]}")
+    if _on_cpu(rows, group_starts, w1, w3, w2):
+        return ref.grouped_ffn_ragged_ref(rows, group_starts, w1, w3, w2,
+                                          act=act)
+    _forward_only("grouped_ffn_ragged", rows, w1, w3, w2)
+    _require(act in ACTS, f"grouped_ffn_ragged: act must be one of "
+             f"{tuple(ACTS)}, got {act!r}")
+    _require(rows.dim() == 2 and group_starts.dim() == 1,
+             f"grouped_ffn_ragged: rows (R, d) and group_starts (G+1,), got "
+             f"{tuple(rows.shape)} and {tuple(group_starts.shape)}")
+    R, d = rows.shape
+    G = group_starts.shape[0] - 1
+    f = w1.shape[-1]
+    _require(G >= 1, "grouped_ffn_ragged: at least one group")
+    shapes = [(w1, (G, d, f)), (w2, (G, f, d))]
+    if w3 is not None:
+        shapes.append((w3, (G, d, f)))
+    for w, want in shapes:
+        _require(tuple(w.shape) == want, f"grouped_ffn_ragged: weight shape "
+                 f"{tuple(w.shape)}, expected {want}")
+    _require(group_starts.dtype == torch.int32 and group_starts.is_contiguous(),
+             f"grouped_ffn_ragged: group_starts must be contiguous int32, "
+             f"got {group_starts.dtype}")
+    for t in (rows,) + ws:
+        _require(t.dtype == torch.bfloat16, f"grouped_ffn_ragged: bfloat16 "
+                 f"on the card, got {t.dtype}")
+        _require(t.is_contiguous(),
+                 "grouped_ffn_ragged: inputs must be contiguous")
+    _require(d % 64 == 0 and f % 64 == 0, f"grouped_ffn_ragged: d and f "
+             f"must be multiples of 64, got d={d}, f={f}")
+    step = min(block, RAGGED_MAX_ROWS_PER_BLOCK)
+    _require(block >= 8 and block % 8 == 0 and block % step == 0,
+             f"grouped_ffn_ragged: block must be a multiple of 8 that is at "
+             f"most 64 or a multiple of 64, got {block}")
+    _require(R % block == 0, f"grouped_ffn_ragged: R={R} is not a multiple "
+             f"of block={block}")
+    _require(R // step <= 65535, f"grouped_ffn_ragged: at most 65535 row "
+             f"blocks, got {R // step}")
+    y = torch.empty_like(rows)
+    if R == 0:
+        return y
+    h = torch.empty((R, f), dtype=rows.dtype, device=rows.device)
+    lib = _build.load("grouped_ffn_ragged")
+    _check(lib.grouped_ffn_ragged(rows.data_ptr(), group_starts.data_ptr(),
+                                  w1.data_ptr(),
+                                  None if w3 is None else w3.data_ptr(),
+                                  w2.data_ptr(), h.data_ptr(), y.data_ptr(),
+                                  R, G, d, f, block, ACTS[act], _stream()),
+           "grouped_ffn_ragged")
+    grouped_ffn_ragged.launches += 1
+    return y
+
+
 KERNEL_WRAPPERS = (dispatch_gather, grouped_ffn, combine_gather,
-                   router_fused, group_sort)
+                   router_fused, group_sort, grouped_ffn_ragged)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

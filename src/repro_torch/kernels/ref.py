@@ -37,6 +37,46 @@ def grouped_ffn_ref(x, w1, w3, w2, *, act: str = "gelu"):
     return y.to(x.dtype)
 
 
+def _ragged_group_bounds(group_starts: torch.Tensor, R: int):
+    """``[(lo, hi), ...]``: the rows of each group under the JAX oracle's
+    per-row rule ``clip(searchsorted(group_starts, row, "right") - 1, 0,
+    G-1)``, for ascending ``group_starts``: group 0 also takes rows before
+    ``group_starts[1]``, group G-1 every row from ``group_starts[G-1]``."""
+    gs = [min(max(int(v), 0), R) for v in group_starts.tolist()]
+    G = len(gs) - 1
+    out = []
+    for g in range(G):
+        lo = 0 if g == 0 else gs[g]
+        hi = R if g == G - 1 else gs[g + 1]
+        out.append((lo, max(lo, hi)))
+    return out
+
+
+def grouped_ffn_ragged_ref(rows, group_starts, w1, w3, w2, *,
+                           act: str = "gelu"):
+    """Ragged grouped FFN over the tile-aligned dropless layout.
+
+    rows: (R, d) sorted by group (alignment padding rows are zero);
+    group_starts: (G+1,) aligned segment offsets; w1/w3: (G, d, f); w2:
+    (G, f, d).  Each row goes through its own group's expert, the group
+    taken row by row as ``repro.kernels.ref.grouped_ffn_ragged_ref`` takes
+    it; the rows of a group are contiguous, so each group is one slice.
+    fp32 products, ``h`` rounded to ``rows.dtype`` once, an fp32 sum over
+    all of f, one rounding at the end.
+    """
+    R, d = rows.shape
+    y = torch.empty_like(rows)
+    for g, (lo, hi) in enumerate(_ragged_group_bounds(group_starts, R)):
+        if hi == lo:
+            continue
+        xf = rows[lo:hi].float()
+        h = activation(xf @ w1[g].float(), act)
+        if w3 is not None:
+            h = h * (xf @ w3[g].float())
+        y[lo:hi] = (h.to(rows.dtype).float() @ w2[g].float()).to(rows.dtype)
+    return y
+
+
 def group_sort_ref(keys: torch.Tensor, num_keys: int):
     """Stable small-domain key sort.
 

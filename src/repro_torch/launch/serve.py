@@ -6,7 +6,11 @@ lock-step (the fixed-batch path of ``repro.launch.serve``).
 
 Runs on the card unless ``--device cpu`` is given.  The path always runs
 the CUDA kernels (``use_kernel=True``): on the card every dispatch gather,
-grouped expert FFN and combine is a kernel launch.  ``--num-layers`` cuts
+grouped expert FFN and combine is a kernel launch.  ``serve(...,
+moe_options={"dispatch_backend": "dropless"})`` serves without capacity
+(the options of :func:`repro_torch.configs.with_options`, as in the JAX
+package there is no flag for them): the expert FFN then runs the ragged
+grouped-FFN kernel.  ``--num-layers`` cuts
 the depth and ``--moe-grid N,M`` sets the logical expert grid, which a
 SMILE config needs on one device (its ``grid=(0, 0)`` folds to ``(1, 1)``
 there, and top-``top_g`` of one node cannot route).  The continuous-batching
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, with_options
 from repro_torch.data.pipeline import synthetic_tokens
 from repro_torch.kernels import ops as kops
 from repro_torch.models.transformer import init_caches, init_model
@@ -65,10 +69,14 @@ def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 
 def serve_config(arch: str, *, reduced: bool = True,
                  num_layers: Optional[int] = None,
-                 moe_grid: Optional[Tuple[int, int]] = None) -> ModelConfig:
+                 moe_grid: Optional[Tuple[int, int]] = None,
+                 moe_options: Optional[dict] = None) -> ModelConfig:
     """The config :func:`serve` runs: the arch's config (or its reduced
-    variant) with the depth and the logical expert grid optionally set."""
+    variant) with the depth, the logical expert grid and the MoE runtime
+    options (``configs.with_options``) optionally set."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if moe_options:
+        cfg = with_options(cfg, **moe_options)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=num_layers)
     if moe_grid is not None:
@@ -117,12 +125,13 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
           device="cuda", num_layers: Optional[int] = None,
-          moe_grid: Optional[Tuple[int, int]] = None) -> ServeResult:
+          moe_grid: Optional[Tuple[int, int]] = None,
+          moe_options: Optional[dict] = None) -> ServeResult:
     """Random weights from ``seed``, synthetic prompts, then
     :func:`generate`; prints the times and the first generated row.  The
     result's ``inputs`` hold the config, weights and prompts."""
     cfg = serve_config(arch, reduced=reduced, num_layers=num_layers,
-                       moe_grid=moe_grid)
+                       moe_grid=moe_grid, moe_options=moe_options)
     device = resolve_device(device)
     plan = single_device_plan()
     params = init_model(cfg, plan, seed=seed, device=device)

@@ -9,7 +9,7 @@ slice.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -55,6 +55,68 @@ def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
 def axis_index(axes: Axes) -> int:
     _single_device(axes, "axis_index")
     return 0
+
+
+# ------------------------------------------------------------- ragged All2All
+def excl_cumsum(c: torch.Tensor) -> torch.Tensor:
+    """Exclusive int32 cumsum: the segment-offset idiom of every ragged
+    layout."""
+    return torch.cat([torch.zeros((1,), dtype=torch.int32, device=c.device),
+                      torch.cumsum(c, 0).to(torch.int32)])[:-1]
+
+
+def clamped_segment_counts(m: torch.Tensor, recv_rows: int) -> torch.Tensor:
+    """Paired clamped sizes of a truncating ragged exchange: from the full
+    (P, P) count matrix (``m[s, d]`` rows from source ``s`` to destination
+    ``d``) and the receive bound, ``kept[s, d] = clip(recv_rows - off[s, d],
+    0, m[s, d])`` with ``off`` the exclusive cumsum down each column."""
+    off = torch.cumsum(m, 0) - m
+    return torch.minimum((recv_rows - off).clamp(min=0), m).to(m.dtype)
+
+
+def assert_count_i32(counts: torch.Tensor, what: str) -> None:
+    """The wire contract is int32 counts everywhere; raise on any other
+    dtype (a silent promotion would double the count bytes)."""
+    if counts.dtype != torch.int32:
+        raise TypeError(f"{what} must be int32 at the collective boundary, "
+                        f"got {counts.dtype}")
+
+
+def exchange_counts(send_counts: torch.Tensor, axes: Axes) -> torch.Tensor:
+    """Tell every peer how many rows it will receive: entry ``p`` of the
+    result is how many rows rank ``p`` sends here.  The identity on one
+    device."""
+    assert_count_i32(send_counts, "exchange_counts(send_counts)")
+    _single_device(axes, "exchange_counts")
+    return send_counts
+
+
+def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
+                      axes: Axes, *, recv_rows: int,
+                      seg_rows: Optional[int] = None,
+                      recv_counts: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All2All of exact per-peer row segments.
+
+    ``rows`` (R, ...) holds, in rank order, the segment for each peer
+    (``send_counts`` rows each); ``recv_rows`` is the static size of the
+    received layout, ``seg_rows`` a static bound on one segment, and
+    ``recv_counts`` the per-source lengths when the caller knows them.
+    Returns ``(recv (recv_rows, ...), recv_counts (P,))``.  On one device
+    ``recv`` is ``rows`` zero-padded or cut to ``recv_rows`` (``rows``
+    itself when it has ``recv_rows`` rows), with ``recv_counts =
+    send_counts``.
+    """
+    assert_count_i32(send_counts, "ragged_all_to_all(send_counts)")
+    if recv_counts is not None:
+        assert_count_i32(recv_counts, "ragged_all_to_all(recv_counts)")
+    _single_device(axes, "ragged_all_to_all")
+    if rows.shape[0] == recv_rows:
+        return rows, send_counts
+    out = rows.new_zeros((recv_rows,) + tuple(rows.shape[1:]))
+    n = min(recv_rows, rows.shape[0])
+    out[:n] = rows[:n]
+    return out, send_counts
 
 
 def name_saved(x):

@@ -70,6 +70,102 @@ def test_grouped_ffn_kernel(G, T, d, f, glu, act):
     torch.testing.assert_close(got.float(), want.float(), **FFN_TOL)
 
 
+def _ragged_rows(G, block, lens, tail, d, dev, g):
+    """A tile-aligned ragged layout on the card: group ``i``'s ``lens[i]``
+    rows at an aligned offset, zeros in the padding and in ``tail`` tiles
+    past the last segment (what dispatch_ragged hands the kernel)."""
+    aligned = [-(-n // block) * block for n in lens]
+    starts = [0]
+    for a in aligned:
+        starts.append(starts[-1] + a)
+    R = starts[-1] + tail * block
+    rows = torch.zeros((R, d), device=dev)
+    for i, n in enumerate(lens):
+        rows[starts[i]:starts[i] + n] = torch.randn((n, d), generator=g,
+                                                    device=dev)
+    return (rows.to(torch.bfloat16),
+            torch.tensor(starts, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens,block,tail,d,f,glu,act", [
+    ([8], 8, 0, 64, 128, True, "silu"),               # G=1, one tile
+    ([5], 8, 2, 64, 64, False, "gelu"),               # G=1, tail tiles
+    ([0, 0, 0], 8, 4, 64, 64, True, "silu"),          # every tile a tail
+    ([3, 0, 17, 9, 1], 8, 3, 128, 192, False, "silu"),
+    ([20, 40, 0, 33], 16, 1, 64, 128, True, "gelu"),
+    ([70, 5, 64], 32, 2, 256, 128, True, "silu"),
+    ([130, 0, 64, 1], 128, 1, 128, 64, True, "gelu"),  # 64 rows a block
+])
+def test_grouped_ffn_ragged_kernel(lens, block, tail, d, f, glu, act):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(len(lens) * 31 + block)
+    bf = torch.bfloat16
+    G = len(lens)
+    rows, starts = _ragged_rows(G, block, lens, tail, d, dev, g)
+    w1 = (torch.randn((G, d, f), generator=g, device=dev) / d ** .5).to(bf)
+    w3 = (torch.randn((G, d, f), generator=g, device=dev) / d ** .5).to(bf)
+    w2 = (torch.randn((G, f, d), generator=g, device=dev) / f ** .5).to(bf)
+    w3 = w3 if glu else None
+    n = ops.grouped_ffn_ragged.launches
+    got = ops.grouped_ffn_ragged(rows, starts, w1, w3, w2, block=block,
+                                 act=act)
+    assert ops.grouped_ffn_ragged.launches == n + 1
+    want = ref.grouped_ffn_ragged_ref(rows, starts, w1, w3, w2, act=act)
+    torch.testing.assert_close(got.float(), want.float(), **FFN_TOL)
+    # the tiles past the last segment come back as exact zeros
+    assert not bool(got[int(starts[-1]):].any())
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_ragged_kernel_limits():
+    dev = _card()
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    w1, w2 = torch.zeros((2, 64, 64), **bf), torch.zeros((2, 64, 64), **bf)
+    starts = torch.zeros((3,), dtype=torch.int32, device=dev)
+    n = ops.grouped_ffn_ragged.launches
+    empty = ops.grouped_ffn_ragged(torch.zeros((0, 64), **bf), starts, w1,
+                                   None, w2, block=8)
+    assert empty.shape == (0, 64) and ops.grouped_ffn_ragged.launches == n
+    # fp32 on the card: the kernel is bf16 only, and nothing falls back
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.grouped_ffn_ragged(torch.zeros((8, 64), device=dev), starts,
+                               w1.float(), None, w2.float(), block=8)
+    with pytest.raises(ValueError, match="block"):
+        ops.grouped_ffn_ragged(torch.zeros((96, 64), **bf), starts, w1, None,
+                               w2, block=96)
+    with pytest.raises(ValueError, match="multiple of block"):
+        ops.grouped_ffn_ragged(torch.zeros((12, 64), **bf), starts, w1, None,
+                               w2, block=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,k,G,block", [(5120, 2, 128, 64),    # prefill
+                                         (320, 1, 128, 8)])     # decode
+def test_grouped_ffn_ragged_kernel_serving_shapes(t, k, G, block):
+    """The serving hop-2 shapes, on the layout of a real dispatch_ragged
+    (qwen3-moe: d=2048, f=768, 128 experts)."""
+    from repro_torch.core import dispatch as D
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(t)
+    bf = torch.bfloat16
+    d, f = 2048, 768
+    x = torch.randn((t, d), generator=g, device=dev).to(bf)
+    gid = torch.randint(0, G, (t * k,), generator=g, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((t * k,), generator=g, device=dev) < 0.8
+    rows, starts, st = D.dispatch_ragged(x, gid, torch.ones(t * k, device=dev),
+                                         G, k=k, valid=valid, use_kernel=True)
+    assert st.cap == block
+    w1 = (torch.randn((G, d, f), generator=g, device=dev) / d ** .5).to(bf)
+    w3 = (torch.randn((G, d, f), generator=g, device=dev) / d ** .5).to(bf)
+    w2 = (torch.randn((G, f, d), generator=g, device=dev) / f ** .5).to(bf)
+    got = ops.grouped_ffn_ragged(rows, starts, w1, w3, w2, block=block,
+                                 act="silu")
+    want = ref.grouped_ffn_ragged_ref(rows, starts, w1, w3, w2, act="silu")
+    torch.testing.assert_close(got.float(), want.float(), **FFN_TOL)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("A,K", [(1, 1), (5, 3), (2048, 17), (4096, 129),
                                  (1 << 20, 129), (70001, 4096),
@@ -173,7 +269,7 @@ def test_router_fused_kernel_ties_and_grad():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["dispatch_gather", "combine_gather",
-                                  "grouped_ffn"])
+                                  "grouped_ffn", "grouped_ffn_ragged"])
 def test_forward_only_kernels_raise_under_autograd(name):
     # these kernels have no backward: under autograd they must raise, not
     # return an output that carries no gradient; under no_grad they launch
@@ -188,6 +284,9 @@ def test_forward_only_kernels_raise_under_autograd(name):
             x, src[:, None], torch.ones((16, 1), device=dev)),
         "grouped_ffn": lambda x, w: ops.grouped_ffn(
             x.view(2, 8, 64), w, None, w, act="gelu"),
+        "grouped_ffn_ragged": lambda x, w: ops.grouped_ffn_ragged(
+            x, torch.tensor([0, 8, 16], dtype=torch.int32, device=dev), w,
+            None, w, block=8, act="gelu"),
     }
     before = ops.launch_counts()[name]
     with pytest.raises(RuntimeError, match="no backward"):
@@ -207,6 +306,23 @@ def test_serve_launches_every_kernel():
     assert res.logits_finite
     per_forward = {"dispatch_gather": 4, "grouped_ffn": 2,
                    "combine_gather": 4,            # 2 layers x 2 SMILE hops
-                   "router_fused": 0, "group_sort": 0}   # unfused, argsort
+                   "router_fused": 0, "group_sort": 0,   # unfused, argsort
+                   "grouped_ffn_ragged": 0}
+    assert res.launches["prefill"] == per_forward
+    assert res.launches["decode"] == {k: 3 * v for k, v in per_forward.items()}
+
+
+@pytest.mark.gpu
+def test_serve_dropless_launches_the_ragged_kernel():
+    _card()
+    from repro_torch.launch.serve import serve
+    res = serve("qwen3-moe-30b-a3b", reduced=True, batch=2, prompt_len=16,
+                new_tokens=4, device="cuda",
+                moe_options={"dispatch_backend": "dropless"})
+    assert res.logits_finite
+    per_forward = {"dispatch_gather": 4, "grouped_ffn": 0,
+                   "combine_gather": 4,            # 2 layers x 2 SMILE hops
+                   "router_fused": 0, "group_sort": 0,
+                   "grouped_ffn_ragged": 2}        # hop 2 of each layer
     assert res.launches["prefill"] == per_forward
     assert res.launches["decode"] == {k: 3 * v for k, v in per_forward.items()}

@@ -54,6 +54,76 @@ def test_grouped_ffn_ref_matches_oracle(dtype, act, glu):
                                **(FP32 if dtype == "float32" else BF16))
 
 
+def _ragged_case(G, block, seed, tail_tiles=0):
+    """A tile-aligned ragged layout: rows sorted by group, zeros in the
+    padding of each segment and in ``tail_tiles`` tiles past the last."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 3 * block, G)
+    lens[rng.random(G) < 0.25] = 0                 # groups with no rows
+    aligned = -(-lens // block) * block
+    starts = np.concatenate([[0], np.cumsum(aligned)]).astype(np.int32)
+    R = int(starts[-1]) + tail_tiles * block
+    rows = np.zeros((R, 32), np.float32)
+    for g in range(G):
+        rows[starts[g]:starts[g] + lens[g]] = rng.standard_normal((lens[g], 32))
+    return rows, starts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,glu", [("silu", True), ("gelu", True),
+                                     ("gelu", False)])
+@pytest.mark.parametrize("G,block,tail", [(1, 8, 0), (5, 8, 3), (3, 16, 1),
+                                          (12, 8, 0)])
+def test_grouped_ffn_ragged_ref_matches_oracle(dtype, act, glu, G, block,
+                                               tail):
+    rows, starts = _ragged_case(G, block, seed=G + block, tail_tiles=tail)
+    rng = np.random.default_rng(1)
+    d, f = 32, 48
+    w1 = (rng.standard_normal((G, d, f)) / np.sqrt(d)).astype(np.float32)
+    w3 = (rng.standard_normal((G, d, f)) / np.sqrt(d)).astype(np.float32)
+    w2 = (rng.standard_normal((G, f, d)) / np.sqrt(f)).astype(np.float32)
+    (jx, tx), (j1, t1), (j3, t3), (j2, t2) = (_both(a, dtype)
+                                              for a in (rows, w1, w3, w2))
+    want = jref.grouped_ffn_ragged_ref(jx, jnp.asarray(starts), j1,
+                                       j3 if glu else None, j2, act=act)
+    got = ref.grouped_ffn_ragged_ref(tx, torch.from_numpy(starts), t1,
+                                     t3 if glu else None, t2, act=act)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(FP32 if dtype == "float32" else BF16))
+    # the wrapper's CPU route is the plain version, with no launch
+    n = ops.grouped_ffn_ragged.launches
+    assert torch.equal(ops.grouped_ffn_ragged(tx, torch.from_numpy(starts), t1,
+                                              t3 if glu else None, t2,
+                                              block=block, act=act), got)
+    assert ops.grouped_ffn_ragged.launches == n
+
+
+def test_grouped_ffn_ragged_ref_edges():
+    """Rows before group_starts[1] belong to group 0 and rows from
+    group_starts[G-1] on to group G-1 (the oracle's clipped searchsorted);
+    R = 0 gives an empty result."""
+    rng = np.random.default_rng(2)
+    G, d, f = 3, 16, 32
+    w1 = (rng.standard_normal((G, d, f)) / 4).astype(np.float32)
+    w2 = (rng.standard_normal((G, f, d)) / 4).astype(np.float32)
+    rows = rng.standard_normal((24, d)).astype(np.float32)
+    for starts in ([0, 8, 8, 16], [0, 0, 0, 0], [0, 24, 24, 24],
+                   [0, 8, 16, 20]):
+        st = np.array(starts, np.int32)
+        want = jref.grouped_ffn_ragged_ref(jnp.asarray(rows), jnp.asarray(st),
+                                           jnp.asarray(w1), None,
+                                           jnp.asarray(w2), act="silu")
+        got = ref.grouped_ffn_ragged_ref(
+            torch.from_numpy(rows), torch.from_numpy(st),
+            torch.from_numpy(w1), None, torch.from_numpy(w2), act="silu")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+    empty = ref.grouped_ffn_ragged_ref(
+        torch.zeros((0, d)), torch.zeros((G + 1,), dtype=torch.int32),
+        torch.from_numpy(w1), None, torch.from_numpy(w2))
+    assert empty.shape == (0, d)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T,R", [(7, 20), (16, 64), (1, 3)])
 def test_dispatch_gather_ref_matches_oracle(dtype, T, R):
@@ -133,9 +203,15 @@ def test_wrappers_on_cpu_take_plain_path_without_launches():
     for a, b in zip(ops.group_sort(keys, 4, impl="radix"),
                     ref.group_sort_ref(keys, 4)):
         assert torch.equal(a, b)
+    xr = torch.from_numpy(rng.standard_normal((16, 16)).astype(np.float32))
+    gs = torch.tensor([0, 8, 16], dtype=torch.int32)
+    assert torch.equal(
+        ops.grouped_ffn_ragged(xr, gs, w1, None, w2, block=8, act="gelu"),
+        ref.grouped_ffn_ragged_ref(xr, gs, w1, None, w2, act="gelu"))
     assert ops.launch_counts() == before
     assert set(before) == {"dispatch_gather", "grouped_ffn",
-                           "combine_gather", "router_fused", "group_sort"}
+                           "combine_gather", "router_fused", "group_sort",
+                           "grouped_ffn_ragged"}
 
 
 def test_wrappers_reject_mixed_devices():
@@ -153,3 +229,6 @@ def test_grouped_ffn_rejects_weights_of_another_dtype():
     w2 = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dtype"):
         ops.grouped_ffn(x, w1, None, w2, act="gelu")
+    with pytest.raises(ValueError, match="dtype"):
+        ops.grouped_ffn_ragged(x[0], torch.tensor([0, 3, 3], dtype=torch.int32),
+                               w1, None, w2, block=8, act="gelu")

@@ -3,10 +3,15 @@ JAX package, in fp32, on numpy-drawn inputs and parameters.
 
 Integer routing outputs (expert ids, positions, keep masks, slot maps) must
 match bit for bit; float outputs and MoEStats within 1e-5 (the same fp32
-math, reduced in another order).  The layer matrix crosses SMILE and Switch
-with a layout of one expert per slot (E=8 on the (2, 4) grid, h=1) and a
-replicated one (E=4 on the (2, 4) grid, r=2, the reduced qwen3-moe layout),
-and ample against starved capacity, so overflow drops are exercised.
+math, reduced in another order).  The layer matrix is the golden matrix's
+axes: SMILE and Switch, a layout of one expert per slot (E=8 on the (2, 4)
+grid, h=1) and a replicated one (E=4 on the (2, 4) grid, r=2, the reduced
+qwen3-moe layout), ample against starved capacity (so overflow drops are
+exercised), the sort, dense and dropless backends (dropless with ragged
+hops on and off), and both sort impls, each on the port's plain path and
+its kernel path (plain versions on the CPU).  The JAX side's radix sort
+takes its oracle (``RADIX_MIN_ROWS`` raised past every call; Pallas does
+not run on this JAX).
 """
 import dataclasses
 
@@ -19,6 +24,7 @@ import torch
 from repro.common.config import MoEConfig as JMoEConfig
 from repro.core import dispatch as JD
 from repro.core import moe as JM
+from repro.kernels import ops as jops
 from repro.sharding.plan import single_device_plan as jplan
 from repro_torch.common.config import MoEConfig as TMoEConfig
 from repro_torch.core import dispatch as TD
@@ -121,20 +127,58 @@ def _tmap(fn, tree):
             for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-@pytest.mark.parametrize("cf", [4.0, 0.5], ids=["ample", "starved"])
-@pytest.mark.parametrize("layout", ["h1", "r2"])
-@pytest.mark.parametrize("router", ["smile", "switch"])
-def test_moe_layer_matches(router, layout, cf, use_kernel):
+# (name, MoE options) of the backend axis; "sort" with argsort is the
+# original matrix, whose ids the cases keep
+BACKEND_CASES = [
+    ("sort", dict(dispatch_backend="sort")),
+    ("dense", dict(dispatch_backend="dense")),
+    ("dropless-ragged", dict(dispatch_backend="dropless", ragged_a2a=True)),
+    ("dropless-padded", dict(dispatch_backend="dropless", ragged_a2a=False)),
+]
+
+
+def _matrix():
+    for router in ("smile", "switch"):
+        for layout in ("h1", "r2"):
+            for cfname, cf in (("ample", 4.0), ("starved", 0.5)):
+                for use_kernel in (False, True):
+                    for bname, opts in BACKEND_CASES:
+                        for simpl in ("argsort", "radix"):
+                            cid = f"{router}-{layout}-{cfname}-{use_kernel}"
+                            if (bname, simpl) != ("sort", "argsort"):
+                                cid += f"-{bname}-{simpl}"
+                            yield pytest.param(
+                                router, layout, cf, use_kernel,
+                                dict(opts, sort_impl=simpl), id=cid)
+
+
+_JAX_LAYER = {}
+
+
+def _jax_layer(router, layout, cf, opts, params, x, valid):
+    """The JAX layer's output for one case (the same for both use_kernel
+    values of the port, so it is computed once)."""
+    key = (router, layout, cf, tuple(sorted(opts.items())))
+    if key not in _JAX_LAYER:
+        jcfg = _layer_cfgs(router, layout, cf)[0].with_options(**opts)
+        _JAX_LAYER[key] = JM.moe_layer(
+            _tmap(jnp.asarray, params), jnp.asarray(x), jcfg, jplan(),
+            act="silu", token_valid=jnp.asarray(valid))
+    return _JAX_LAYER[key]
+
+
+@pytest.mark.parametrize("router,layout,cf,use_kernel,opts", _matrix())
+def test_moe_layer_matches(router, layout, cf, use_kernel, opts,
+                           monkeypatch):
+    monkeypatch.setattr(jops, "RADIX_MIN_ROWS", 1 << 30)
     jcfg, tcfg = _layer_cfgs(router, layout, cf)
+    tcfg = tcfg.with_options(**opts)
     rng = np.random.default_rng(7)
     t, d = 48, 32
     params = _layer_params(rng, jcfg, d)
     x = rng.standard_normal((t, d)).astype(np.float32)
     valid = rng.random(t) < 0.9
-    jy, js = JM.moe_layer(_tmap(jnp.asarray, params), jnp.asarray(x), jcfg,
-                          jplan(), act="silu",
-                          token_valid=jnp.asarray(valid))
+    jy, js = _jax_layer(router, layout, cf, opts, params, x, valid)
     ty, ts = TM.moe_layer(_tmap(torch.from_numpy, params),
                           torch.from_numpy(x), tcfg, tplan(), act="silu",
                           use_kernel=use_kernel,
@@ -144,7 +188,17 @@ def test_moe_layer_matches(router, layout, cf, use_kernel):
         np.testing.assert_allclose(
             _np(getattr(ts, field.name)), np.asarray(getattr(js, field.name)),
             err_msg=field.name, **TOL)
-    if cf == 0.5:
+    backend = opts["dispatch_backend"]
+    inner = 1 if router == "smile" else 0
+    if backend == "dropless":
+        # the innermost hop is local: nothing can drop there, and ragged
+        # outer hops drop nothing either
+        assert float(ts.hop_drop_frac[inner]) == 0
+        if opts["ragged_a2a"] or router == "switch":
+            assert float(ts.drop_frac) == 0
+        elif cf == 0.5:
+            assert float(ts.drop_frac) > 0   # SMILE's padded outer hop drops
+    elif cf == 0.5:
         assert float(ts.drop_frac) > 0      # the starved case really drops
     else:
         assert float(ts.drop_frac) == 0

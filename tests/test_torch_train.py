@@ -12,6 +12,11 @@ LM head.  The MoE statistics are exact (the same routing decisions), and a
 With the default bf16 compute the step-1 loss agrees within 2e-2 (bf16
 rounds at other places in the two frameworks).
 
+The dropless backend (``--dispatch-backend dropless``, ragged hops on and
+off) is held to the same gradients and loss curve: its expert FFN runs the
+plain ragged path (``use_kernel=False``) on both sides, as the JAX train
+step does.
+
 Pallas does not run on this JAX, so the JAX side's fused router and radix
 sort take their oracles (``ROUTER_FUSED_MIN_ROWS`` and ``RADIX_MIN_ROWS``
 raised past every call here; the JAX package's own tests hold the oracles
@@ -64,9 +69,9 @@ def _fp32_jax(monkeypatch):
                         functools.partial(JT.embed_inputs, dtype=jnp.float32))
 
 
-def _setup(arch, fp32, seed=0):
-    jcfg = jwith_options(jget_reduced(arch), **OPTS)
-    tcfg = twith_options(tget_reduced(arch), **OPTS)
+def _setup(arch, fp32, seed=0, opts=OPTS):
+    jcfg = jwith_options(jget_reduced(arch), **opts)
+    tcfg = twith_options(tget_reduced(arch), **opts)
     if fp32:
         tcfg = tcfg.replace(dtype="float32")
     jparams = JT.init_model(jax.random.PRNGKey(seed), jcfg, jplan())
@@ -87,10 +92,9 @@ def _pairs(a, b, path=""):
         yield path, a, b
 
 
-@pytest.mark.parametrize("arch", ["smile-3.7b", "switch-3.7b"])
-def test_loss_and_grads_match_jax_fp32(arch, monkeypatch):
+def _check_loss_and_grads(arch, opts, monkeypatch):
     _fp32_jax(monkeypatch)
-    jcfg, tcfg, jparams, tparams = _setup(arch, fp32=True)
+    jcfg, tcfg, jparams, tparams = _setup(arch, fp32=True, opts=opts)
     batch = jmake_batch(jcfg, B, S, seed=0, step=0)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jgrads, jm = jax.grad(
@@ -114,16 +118,12 @@ def test_loss_and_grads_match_jax_fp32(arch, monkeypatch):
         torch.testing.assert_close(p.grad, g, **GRAD_TOL, msg=path)
         n += 1
     assert n > 20
+    return tm
 
 
-@pytest.mark.parametrize("arch,micro", [("smile-3.7b", 0),
-                                        ("switch-3.7b", 0),
-                                        ("smile-3.7b", 2)])
-def test_loss_curve_matches_jax_fp32(arch, micro, monkeypatch):
-    """Three LAMB steps; ``micro=2`` accumulates two micro-batches of 2
-    (the JAX package's ``lax.scan``, a Python loop in the port)."""
+def _check_loss_curve(arch, micro, opts, monkeypatch):
     _fp32_jax(monkeypatch)
-    jcfg, tcfg, jparams, tparams = _setup(arch, fp32=True, seed=1)
+    jcfg, tcfg, jparams, tparams = _setup(arch, fp32=True, seed=1, opts=opts)
     steps = 3
     kw = dict(global_batch_size=B, seq_len=S, steps=steps, warmup_steps=1,
               micro_batch_size=micro)
@@ -136,6 +136,7 @@ def test_loss_curve_matches_jax_fp32(arch, micro, monkeypatch):
                                    {k: jnp.asarray(v) for k, v in b0.items()})
     tstep = TS.build_train_step(tcfg, tt, tplan(), topt, tsched, tparams, b0)
     jstate, tstate = jopt.init(jparams), topt.init(tparams)
+    drops = []
     for i in range(steps):
         b = jmake_batch(jcfg, B, S, seed=0, step=i)
         jparams, jstate, jm = jstep(jparams, jstate,
@@ -146,6 +147,68 @@ def test_loss_curve_matches_jax_fp32(arch, micro, monkeypatch):
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-4)
         assert float(tm["drop_frac"]) == float(jm["drop_frac"])
+        drops.append(float(tm["drop_frac"]))
+    return drops
+
+
+@pytest.mark.parametrize("arch", ["smile-3.7b", "switch-3.7b"])
+def test_loss_and_grads_match_jax_fp32(arch, monkeypatch):
+    _check_loss_and_grads(arch, OPTS, monkeypatch)
+
+
+@pytest.mark.parametrize("arch,micro", [("smile-3.7b", 0),
+                                        ("switch-3.7b", 0),
+                                        ("smile-3.7b", 2)])
+def test_loss_curve_matches_jax_fp32(arch, micro, monkeypatch):
+    """Three LAMB steps; ``micro=2`` accumulates two micro-batches of 2
+    (the JAX package's ``lax.scan``, a Python loop in the port)."""
+    _check_loss_curve(arch, micro, OPTS, monkeypatch)
+
+
+# --dispatch-backend dropless, with ragged hops on and off
+DROPLESS = {"ragged": dict(OPTS, dispatch_backend="dropless",
+                           ragged_a2a=True),
+            "padded": dict(OPTS, dispatch_backend="dropless",
+                           ragged_a2a=False)}
+
+
+@pytest.mark.parametrize("hops", list(DROPLESS))
+def test_dropless_loss_and_grads_match_jax_fp32(hops, monkeypatch):
+    tm = _check_loss_and_grads("smile-3.7b", DROPLESS[hops], monkeypatch)
+    if hops == "ragged":
+        assert float(tm["drop_frac"]) == 0       # nothing drops anywhere
+
+
+@pytest.mark.parametrize("hops", list(DROPLESS))
+def test_dropless_loss_curve_matches_jax_fp32(hops, monkeypatch):
+    drops = _check_loss_curve("smile-3.7b", 0, DROPLESS[hops], monkeypatch)
+    if hops == "ragged":
+        assert drops == [0.0, 0.0, 0.0]
+
+
+def test_cli_dropless_trains(monkeypatch):
+    """``--dispatch-backend dropless`` through the launcher's flags (derived
+    from MOE_OPTIONS): the config carries the backend, the loss is finite
+    and no kernel launches on the CPU."""
+    got = {}
+    real = TL.train
+
+    def spy(*a, **kw):
+        got["params"], got["hist"] = real(*a, **kw)
+        got["opts"] = kw["moe_options"]
+        return got["params"], got["hist"]
+
+    monkeypatch.setattr(TL, "train", spy)
+    monkeypatch.setattr("sys.argv", [
+        "train", "--arch", "smile-3.7b", "--reduced", "--device", "cpu",
+        "--steps", "1", "--batch", "2", "--seq", "16", "--log-every", "1",
+        "--dispatch-backend", "dropless", "--ragged-a2a", "off"])
+    TL.main()
+    assert got["opts"] == {"dispatch_backend": "dropless",
+                           "ragged_a2a": False}
+    h = got["hist"][0]
+    assert np.isfinite(h["loss"])
+    assert all(v == 0 for v in h["launches"].values())
 
 
 @pytest.mark.parametrize("arch", ["smile-3.7b", "switch-3.7b"])
