@@ -49,8 +49,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    nothing overflows capacity at this size, so both configs give the same
    logits, bit for bit, on each device; the launch counts show which FFN
    kernel ran).
-9. A ``{"kernels": [...]}`` line, then the card line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. The cache-less kernel forward (``repro_torch.models.transformer.forward(
+   ..., use_kernel=True)`` without caches: a whole prompt scored in one
+   pass) of qwen3-moe-30b-a3b at full width, 4 of 48 layers, grid (16, 8),
+   random weights from seed 0, batch 2 x 4,096 tokens: a forward must
+   launch the flash kernel 4 times and the MoE kernels as serving does
+   (grouped_ffn 4, dispatch 8, combine 8), and give finite logits; then a
+   warm forward (time, tokens/s, peak memory) and a profiled one (device
+   busy, flash's share).
+10. Card against CPU: the reduced qwen3-moe config's cache-less kernel
+    forward, within the tolerance of its CPU test against the JAX package.
+11. rwkv6-1.6b at full width and depth (24 layers, 1.6 B parameters): the
+    cache-less kernel forward at batch 4 x 4,096 (the WKV6 kernel must
+    launch 24 times a forward), timed and profiled as phase 9; then
+    ``serve`` at batch 8, prompt 128, 32 new tokens, which runs the plain
+    recurrence of the cached path as the JAX package does: no kernel may
+    launch; finite logits, then warm, and profiled over a prefill and 3
+    decode steps.
+12. Card against CPU, reduced rwkv6: the cache-less kernel forward in fp32
+    and bf16, and prefill plus 3 cached decode steps in fp32, within the
+    tolerances of its CPU tests.
+13. A ``{"kernels": [...]}`` line, then the card line, then the last line
+    ``{"ok": true, "device": {...}}``.
+
+Phase 2 also holds the three kernels of the cache-less forward against
+their plain versions: flash attention at the qwen3 phase's shapes (and at
+T 128, and with as many KV heads as query heads, against
+``scaled_dot_product_attention`` as the library's time), the WKV6 scan at
+rwkv6's (4, 4,096, 32, 64) with a nonzero state and bonus, and the Mamba2
+SSD intra-chunk kernel, which no model calls, at zamba2-2.7b's shapes with
+a typical and a strongly negative log-decay.  Each phase prints its wall
+time.
 
 It needs one CUDA card; without one, or without the repository's ``src``
 beside it, it exits non-zero and prints no result.
@@ -125,7 +154,40 @@ SOURCES = {
                    "src/repro/kernels/radix_sort.py:115"),
     "grouped_ffn_ragged": ("src/repro_torch/kernels/csrc/grouped_ffn_ragged.cu",
                            "src/repro/kernels/grouped_ffn.py:148"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:54"),
+    "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:42"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:55"),
 }
+
+# the cache-less scoring forward's kernels: (B, T, H, KV, hd) per flash call
+# (qwen3-moe-30b-a3b's attention at the path's batch 2 x 4,096, at T 128,
+# and with KV = H), rwkv6-1.6b's WKV at batch 4 x 4,096, and the SSD terms
+# at zamba2-2.7b's shapes (no model calls that kernel) with a typical and a
+# strongly negative log-decay per step
+FLASH_SHAPES = {"qwen3 path": (2, 4096, 32, 4, 128),
+                "T 128": (2, 128, 32, 4, 128),
+                "KV = H": (1, 2048, 16, 16, 128)}
+# the kernel scales q in bf16 and rounds the probabilities to bf16 before
+# PV (as the Pallas body); the plain version does both in fp32: each moves
+# an output by at most ~2**-9 of max |v|, plus both outputs' bf16 rounding
+FLASH_RTOL = FLASH_ATOL = 1e-2
+RWKV_SHAPE = (4, 4096, 32, 64)                       # (B, T, nh, hd)
+# y's sum over i runs in another order than the plain version's product:
+# fp32 rounding of terms of the outputs' size
+RWKV_RTOL, RWKV_ATOL_REL = 1e-5, 1e-6
+SSD_SHAPE = (4, 32, 128, 80, 64, 64)                 # (B, nc, Q, nh, hd, ds)
+SSD_LOGA = {"zamba2 typical": (-1.0, 0.0), "zamba2 loga<=-5": (-8.0, -5.0)}
+# the cumsums run in other orders (torch's on the card is a parallel scan):
+# an ulp of |cs| per step, carried by the exponentials as a relative error
+SSD_RTOL, SSD_ATOL_REL = 1e-4, 1e-5
+# the tolerances of tests/test_torch_flash_attn.py (qwen3, bf16: per-token
+# relative error at the 90th percentile, share of tokens over 3e-2) and of
+# tests/test_torch_rwkv6.py (rwkv6: max error over max |logit|, by dtype)
+QWEN_P90, QWEN_FLIPPED = 2e-2, 0.05
+RWKV_LOGITS_REL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def card_line() -> str:
@@ -456,7 +518,7 @@ def phase_serve(torch, ops):
         raise AssertionError("serve: non-finite logits")
     per_forward = {"dispatch_gather": 8, "grouped_ffn": 4,
                    "combine_gather": 8, "router_fused": 0, "group_sort": 0,
-                   "grouped_ffn_ragged": 0}
+                   "grouped_ffn_ragged": 0, **NO_SCORING_KERNELS}
     for phase, n in (("prefill", 1), ("decode", steps)):
         want = {k: v * n for k, v in per_forward.items()}
         if res.launches[phase] != want:
@@ -467,18 +529,19 @@ def phase_serve(torch, ops):
     return launches, res
 
 
-def phase_warm(torch, first):
+def phase_warm(torch, first, profiled_tokens=None):
     """serve()'s weights and prompts through generate() again: warm times,
-    then the same run under the profiler for the device time by kernel,
-    the idle share, and the host's op, launch and synchronization counts."""
+    then the same run (or one of ``profiled_tokens`` new tokens) under the
+    profiler for the device time by kernel, the idle share, and the host's
+    op, launch and synchronization counts."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import generate
     inp = first.inputs
     new_tokens = first.tokens.shape[1]
 
-    def run():
+    def run(n=new_tokens):
         return generate(inp.params, inp.prompts, inp.cfg, inp.plan,
-                        new_tokens=new_tokens)
+                        new_tokens=n)
 
     res = run()
     steps = res.decode_steps
@@ -487,18 +550,22 @@ def phase_warm(torch, first):
           f"({steps * res.batch / res.decode_s:.1f} tokens/s); tokens equal "
           f"to the first call: {bool((res.tokens == first.tokens).all())}")
     torch.cuda.synchronize()
+    n = profiled_tokens or new_tokens
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        run(n)
         wall_us = (time.perf_counter() - t0) * 1e6
-    profile_summary(prof, wall_us, new_tokens, "forward")
+    profile_summary(prof, wall_us, n, "forward")
 
 
-def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12):
+def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
+                    shares=()):
     """Device time by kernel, idle share, and the host's op, launch and
     synchronization counts per ``unit`` from a profiled run of ``n`` units
-    that took ``wall_us``.  Returns the device busy time in us."""
+    that took ``wall_us``; for each name in ``shares``, the share of the
+    busy time of the kernels whose names hold it.  Returns the device busy
+    time in us."""
     from torch.autograd import DeviceType
     dev, runtime = {}, {}
     for e in prof.key_averages():
@@ -527,6 +594,10 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12):
     for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3:8.3f} ms  {100 * us / max(busy, 1e-9):5.1f}%  "
               f"{name[:90]}")
+    for part in shares:
+        us = sum(v for k, v in dev.items() if part in k)
+        print(f"  {part}: {us / 1e3:.3f} ms of device time per {n} {unit}s, "
+              f"{100 * us / max(busy, 1e-9):.1f}% of busy")
     return busy
 
 
@@ -582,12 +653,17 @@ def phase_card_vs_cpu(torch, ops, moe_options=None):
             raise AssertionError(f"card against CPU, {what}: {err}")
 
 
+# serving always has a cache (the attention and the rwkv recurrence take
+# their plain branches), training runs use_kernel=False, and nothing calls
+# the SSD kernel
+NO_SCORING_KERNELS = {"flash_attention": 0, "rwkv6_scan": 0, "ssd_chunk": 0}
 DROPLESS = {"dispatch_backend": "dropless"}
 # per forward of the 4-layer dropless serve: both SMILE hops gather and
 # combine; hop 2 runs the ragged FFN and nothing runs the padded one
 DROPLESS_PER_FORWARD = {"dispatch_gather": 8, "grouped_ffn": 0,
                         "combine_gather": 8, "router_fused": 0,
-                        "group_sort": 0, "grouped_ffn_ragged": 4}
+                        "group_sort": 0, "grouped_ffn_ragged": 4,
+                        **NO_SCORING_KERNELS}
 
 
 def phase_serve_dropless(torch, ops):
@@ -700,7 +776,8 @@ TRAIN = dict(arch="smile-3.7b", reduced=False, batch=16, seq=128,
 # 6 MoE layers x 2 SMILE hops, in the forward and in the remat recompute
 TRAIN_LAUNCHES = {"router_fused": 24, "group_sort": 24,
                   "dispatch_gather": 0, "grouped_ffn": 0,
-                  "combine_gather": 0, "grouped_ffn_ragged": 0}
+                  "combine_gather": 0, "grouped_ffn_ragged": 0,
+                  **NO_SCORING_KERNELS}
 
 
 # one warm-up step, 3 timed steps, then 2 steps under the profiler
@@ -831,6 +908,374 @@ def phase_train_card_vs_cpu(torch):
             raise AssertionError(f"training card against CPU, step {i + 1}")
 
 
+def phase_scoring_kernels(torch, ops, ref, rows):
+    """The cache-less forward's kernels against their plain versions:
+    flash attention at qwen3's shapes, the WKV6 scan at rwkv6's, and the
+    SSD intra-chunk terms at zamba2's (held only against the plain
+    version: no model calls them)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for shape, (B, T, H, KV, hd) in FLASH_SHAPES.items():
+        q, k, v = (randn(B, T, n, hd).to(bf) for n in (H, KV, KV))
+        rep = H // KV
+
+        def kernel():
+            return ops.flash_attention(q, k, v)
+
+        def plain():
+            return ref.flash_attention_ref(q, k.repeat_interleave(rep, 2),
+                                           v.repeat_interleave(rep, 2))
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= FLASH_ATOL + FLASH_RTOL
+                     * want.float().abs()).all()):
+            raise AssertionError(f"flash_attention {shape}: outside rtol "
+                                 f"{FLASH_RTOL} / atol {FLASH_ATOL}")
+        lib_err = (library().transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+        print(f"  flash_attention {shape}: (B, T, H, KV, hd) = "
+              f"{(B, T, H, KV, hd)}; scaled_dot_product_attention against "
+              f"the plain version: max abs err {lib_err:.3e}; device time "
+              f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
+        nbytes = 2.0 * (2 * B * T * H * hd + 2 * B * T * KV * hd)
+        flops = 4.0 * B * H * hd * T * (T + 1) / 2          # causal pairs
+        add_row(rows, "flash_attention", shape, got, want, time_ms(kernel),
+                time_ms(plain, iters=3, warmup=1),
+                bound(nbytes, flops, BF16_TC_FLOPS), time_ms(library))
+
+    B, T, nh, hd = RWKV_SHAPE
+    r, k, v = (randn(B, T, nh, hd) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(B, T, nh, hd) * 0.5 - 1.0))  # in (0, 1)
+    u, s0 = randn(nh, hd), randn(B, nh, hd, hd)                 # nonzero
+
+    def kernel():
+        return ops.rwkv6_scan(r, k, v, w, u, s0)
+
+    def plain():
+        return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+
+    (y, s_last), (wy, ws) = kernel(), plain()
+    torch.cuda.synchronize()
+    for what, a, b in (("y", y, wy), ("s_last", s_last, ws)):
+        tol = RWKV_RTOL * b.abs() + RWKV_ATOL_REL * b.abs().max()
+        if not bool(((a - b).abs() <= tol).all()):
+            raise AssertionError(f"rwkv6_scan: {what} outside rtol "
+                                 f"{RWKV_RTOL} / atol {RWKV_ATOL_REL} of its "
+                                 f"largest value")
+    print(f"  rwkv6_scan (B, T, nh, hd) = {RWKV_SHAPE}: s_last bit-exact "
+          f"against the plain version: {bool(torch.equal(s_last, ws))}; "
+          f"max |y| {wy.abs().max().item():.3f}; device time "
+          f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
+    nbytes = 4.0 * (5 * B * T * nh * hd + nh * hd + 2 * B * nh * hd * hd)
+    add_row(rows, "rwkv6_scan", "rwkv6 path", torch.cat([y.flatten(),
+                                                         s_last.flatten()]),
+            torch.cat([wy.flatten(), ws.flatten()]), time_ms(kernel),
+            time_ms(plain, iters=2, warmup=1),
+            bound(nbytes, 7.0 * B * nh * T * hd * hd, FP32_FLOPS))
+
+    B, nc, Q, nh, hd, ds = SSD_SHAPE
+    for shape, (lo, hi) in SSD_LOGA.items():
+        xh = randn(B, nc, Q, nh, hd)
+        dt = 0.001 + 0.099 * torch.rand((B, nc, Q, nh), generator=gen,
+                                        device=dev)
+        loga = lo + (hi - lo) * torch.rand((B, nc, Q, nh), generator=gen,
+                                           device=dev)
+        Bc, Cc = randn(B, nc, Q, ds), randn(B, nc, Q, ds)
+
+        def kernel():
+            return ops.ssd_chunk(xh, dt, loga, Bc, Cc)
+
+        def plain():
+            return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        for what, a, b in zip(("y_intra", "sB", "a_chunk"), got, want):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"ssd_chunk {shape}: {what} not finite")
+            tol = SSD_RTOL * b.abs() + SSD_ATOL_REL * b.abs().max()
+            if not bool(((a - b).abs() <= tol).all()):
+                raise AssertionError(f"ssd_chunk {shape}: {what} outside "
+                                     f"rtol {SSD_RTOL} / atol {SSD_ATOL_REL} "
+                                     f"of its largest value")
+        rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(got, want)]
+        print(f"  ssd_chunk {shape}: loga in [{lo}, {hi}] a step; max err "
+              f"over max |ref| of y_intra, sB, a_chunk: "
+              f"{', '.join(f'{e:.2e}' for e in rel)}; device time "
+              f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
+        nbytes = 4.0 * (2 * B * nc * Q * nh * hd + 2 * B * nc * Q * nh
+                        + 2 * B * nc * Q * ds + B * nc * nh * hd * ds
+                        + B * nc * nh)
+        tri = Q * (Q + 1) / 2.0
+        flops = (B * nc * 2.0 * ds * tri          # C B^T, once a chunk
+                 + B * nc * nh * (tri * (2.0 * hd + 4.0)   # W and W x
+                                  + 2.0 * Q * hd * ds + 3.0 * Q))  # sB
+        add_row(rows, "ssd_chunk", shape, torch.cat([t.flatten()
+                                                     for t in got]),
+                torch.cat([t.flatten() for t in want]), time_ms(kernel),
+                time_ms(plain, iters=3, warmup=1),
+                bound(nbytes, flops, FP32_FLOPS))
+
+
+# the cache-less kernel forward (forward(..., use_kernel=True), no caches):
+# qwen3-moe-30b-a3b at full width, 4 of 48 layers, grid (16, 8), batch 2 x
+# 4,096; rwkv6-1.6b at full width and depth, batch 4 x 4,096
+SCORE_QWEN = dict(arch="qwen3-moe-30b-a3b", num_layers=4, moe_grid=(16, 8),
+                  batch=2, seq=4096)
+SCORE_RWKV = dict(arch="rwkv6-1.6b", num_layers=None, moe_grid=None,
+                  batch=4, seq=4096)
+ZERO_LAUNCHES = {"dispatch_gather": 0, "grouped_ffn": 0, "combine_gather": 0,
+                 "router_fused": 0, "group_sort": 0, "grouped_ffn_ragged": 0,
+                 "flash_attention": 0, "rwkv6_scan": 0, "ssd_chunk": 0}
+QWEN_SCORE_LAUNCHES = {**ZERO_LAUNCHES, "dispatch_gather": 8,
+                       "grouped_ffn": 4, "combine_gather": 8,
+                       "flash_attention": 4}
+RWKV_SCORE_LAUNCHES = {**ZERO_LAUNCHES, "rwkv6_scan": 24}
+
+
+def phase_scoring_forward(torch, ops, run_cfg, per_forward, shares):
+    """The cache-less kernel forward once through
+    ``repro_torch.models.transformer.forward``, every launch count set to 0
+    just before and read just after; then warm, and once under the
+    profiler.  Returns the launch counts of the first forward."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = serve_config(run_cfg["arch"], reduced=False,
+                       num_layers=run_cfg["num_layers"],
+                       moe_grid=run_cfg["moe_grid"])
+    plan = single_device_plan()
+    B, S = run_cfg["batch"], run_cfg["seq"]
+    params = T.init_model(cfg, plan, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    toks = torch.as_tensor(synthetic_tokens(np.random.default_rng(0), B, S,
+                                            cfg.vocab_size), device="cuda")
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            _, logits, _, _ = T.forward(params, toks, cfg, plan,
+                                        positions=pos, use_kernel=True)
+        return logits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = run()
+    finite = bool(torch.isfinite(logits).all())
+    cold = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shape = tuple(logits.shape)
+    del logits
+    print(f"  {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, batch {B} x {S} tokens; launches {launches}; "
+          f"logits {shape} finite: {finite}")
+    if not finite:
+        raise AssertionError(f"{cfg.name} forward: non-finite logits")
+    if shape != (B, S, cfg.vocab_size):
+        raise AssertionError(f"{cfg.name} forward: logits {shape}")
+    if launches != per_forward:
+        raise AssertionError(f"{cfg.name} forward: launches {launches}, "
+                             f"expected {per_forward}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    print(f"  first forward {cold * 1e3:.2f} ms; warm {warm * 1e3:.2f} ms "
+          f"({B * S / warm:,.0f} tokens/s); max_memory_allocated over the "
+          f"first forward {peak / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    profile_summary(prof, wall_us, 1, "forward", shares=shares)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_scoring_card_vs_cpu(torch, ops, arch, dtype="bfloat16"):
+    """A reduced config's cache-less forward (use_kernel=True), on the CPU
+    (plain versions) and on the card (kernels), from the same weights and
+    tokens, within the CPU tests' tolerances against the JAX package."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = get_reduced(arch).replace(dtype=dtype)
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cpu")
+    B, S = 2, 64
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            _, logits, _, _ = T.forward(
+                _to(params, dev), torch.as_tensor(toks, device=dev), cfg,
+                plan, positions=torch.arange(S, device=dev), use_kernel=True)
+        out[dev] = logits.float().cpu().numpy()
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        print(f"  {arch} ({dtype}) on {dev}: launches {counts}")
+    a, b = out["cpu"], out["cuda"]
+    if cfg.moe is not None:
+        per_tok = np.abs(a - b).max(-1).reshape(-1) / np.abs(a).max()
+        p90, flipped = np.percentile(per_tok, 90), (per_tok > 3e-2).mean()
+        print(f"  per-token error over max |logit|: p90 {p90:.3e} (bound "
+              f"{QWEN_P90}); tokens over 3e-2: {flipped:.4f} (bound "
+              f"{QWEN_FLIPPED})")
+        if not (p90 < QWEN_P90 and flipped < QWEN_FLIPPED):
+            raise AssertionError(f"{arch} card against CPU: p90 {p90}, "
+                                 f"flipped {flipped}")
+    else:
+        err = np.abs(a - b).max() / np.abs(a).max()
+        print(f"  max error over max |logit| {err:.3e} (bound "
+              f"{RWKV_LOGITS_REL[dtype]})")
+        if not err < RWKV_LOGITS_REL[dtype]:
+            raise AssertionError(f"{arch} ({dtype}) card against CPU: {err}")
+
+
+def phase_rwkv_serve(torch, ops):
+    """rwkv6-1.6b through serve() at full depth (batch 8, prompt 128, 32 new
+    tokens), every launch count set to 0 just before and read just after:
+    serving runs the plain recurrence, so no kernel launches at all.  Then
+    warm, and profiled over a prefill and 3 decode steps (the profiler's
+    own processing of ~4,600 host ops a forward takes about a minute over
+    all 32)."""
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.launch.serve import serve
+    sc = ServeConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve("rwkv6-1.6b", reduced=False, batch=sc.batch_size,
+                prompt_len=sc.prompt_len, new_tokens=sc.max_new_tokens,
+                seed=0, device="cuda")
+    launches = ops.launch_counts()
+    steps = res.decode_steps
+    print(f"  first call: prefill {res.prefill_s * 1e3:.2f} ms "
+          f"({sc.batch_size} x {sc.prompt_len} tokens); decode "
+          f"{res.decode_s / steps * 1e3:.2f} ms per step over {steps} steps "
+          f"({steps * res.batch / res.decode_s:.1f} tokens/s); "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  first generated row: {res.tokens[0].tolist()}")
+    if not res.logits_finite:
+        raise AssertionError("rwkv6 serve: non-finite logits")
+    if launches != ZERO_LAUNCHES:
+        raise AssertionError(f"rwkv6 serve: launches {launches}, expected "
+                             f"none (serving runs the plain recurrence)")
+    if res.tokens.shape != (sc.batch_size, sc.max_new_tokens):
+        raise AssertionError(f"rwkv6 serve: tokens {res.tokens.shape}")
+    phase_warm(torch, res, profiled_tokens=4)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_rwkv_serve_card_vs_cpu(torch, ops):
+    """Reduced rwkv6 in fp32: prefill + 3 decode steps with the caches (the
+    serving path's plain recurrence) on the CPU and on the card, the CPU's
+    tokens fed to both; logits within the fp32 bound of the CPU tests."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = get_reduced("rwkv6-1.6b").replace(dtype="float32")
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cpu")
+    B, S, steps = 2, 16, 3
+    toks = np.random.default_rng(0).integers(8, cfg.vocab_size, (B, S))
+    runs = {}
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        p = _to(params, dev)
+        caches = T.init_caches(cfg, B, S + steps, plan, device=dev)
+        tok = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+        outs = []
+        with torch.inference_mode():
+            for i in range(steps + 1):
+                pos = (torch.arange(S, device=dev) if i == 0
+                       else torch.tensor([S + i - 1], device=dev))
+                _, logits, _, caches = T.forward(p, tok, cfg, plan,
+                                                 positions=pos, caches=caches,
+                                                 use_kernel=True)
+                outs.append(logits[:, -1].float().cpu().numpy())
+                nxt = runs["cpu"][i] if dev == "cuda" else outs[-1]
+                tok = torch.as_tensor(nxt.argmax(-1)[:, None],
+                                      dtype=torch.int32, device=dev)
+        runs[dev] = outs
+    if ops.launch_counts() != ZERO_LAUNCHES:
+        raise AssertionError(f"rwkv6 cached steps launched kernels: "
+                             f"{ops.launch_counts()}")
+    bound_ = RWKV_LOGITS_REL["float32"]
+    for i, (a, b) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        err = np.abs(a - b).max() / np.abs(a).max()
+        what = "prefill" if i == 0 else f"decode {i}"
+        print(f"  {what}: max error over max |logit| {err:.3e} (bound "
+              f"{bound_})")
+        if not err < bound_:
+            raise AssertionError(f"rwkv6 serve card against CPU, {what}: "
+                                 f"{err}")
+
+
+
+class PhaseClock:
+    """Prints each phase's heading, and its wall time when the next one
+    starts (or at :meth:`stop`)."""
+
+    def __init__(self):
+        self.t0 = None
+
+    def start(self, heading: str) -> None:
+        self.stop()
+        print(f"== {heading}")
+        self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.t0 is not None:
+            print(f"  phase wall time {time.perf_counter() - self.t0:.1f} s")
+        self.t0 = None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -840,8 +1285,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    clock = PhaseClock()
 
-    print("== phase 1: card and build")
+    clock.start("phase 1: card and build")
     card = card_line()
     print(f"  card: {card}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -853,9 +1299,9 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    print(f"== phase 2: kernels against their plain versions ({card}); "
-          f"tolerances: dispatch_gather bit-exact, combine_gather 1 bf16 "
-          f"ulp, grouped_ffn rtol {FFN_RTOL} + atol {FFN_ATOL}")
+    clock.start(f"phase 2: kernels against their plain versions ({card}); "
+                f"tolerances: dispatch_gather bit-exact, combine_gather 1 "
+                f"bf16 ulp, grouped_ffn rtol {FFN_RTOL} + atol {FFN_ATOL}")
     rows = phase_kernels(torch, ops, ref)
     print(f"  training shapes: router_fused and group_sort; tolerances: "
           f"router logits/probs rtol {ROUTER_RTOL} + atol {ROUTER_ATOL} "
@@ -865,39 +1311,75 @@ def main() -> int:
     print(f"  dropless hop-2 shapes: grouped_ffn_ragged; tolerance rtol "
           f"{FFN_RTOL} + atol {FFN_ATOL}, tail tiles exact zeros")
     phase_ragged_ffn(torch, ops, ref, rows)
+    print(f"  cache-less forward shapes: flash_attention (rtol {FLASH_RTOL} "
+          f"+ atol {FLASH_ATOL}), rwkv6_scan (rtol {RWKV_RTOL} + atol "
+          f"{RWKV_ATOL_REL} of the largest value), ssd_chunk (rtol "
+          f"{SSD_RTOL} + atol {SSD_ATOL_REL} of the largest value)")
+    phase_scoring_kernels(torch, ops, ref, rows)
 
-    print(f"== phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 layers "
-          f"({card})")
+    clock.start(f"phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 "
+                f"layers ({card})")
     launches, first = phase_serve(torch, ops)
     phase_warm(torch, first)
     del first
 
-    print("== phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
+    clock.start("phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
     phase_card_vs_cpu(torch, ops)
 
-    print(f"== phase 5: train smile-3.7b, full width and depth, grid "
-          f"(16, 8), LAMB ({card})")
+    clock.start(f"phase 5: train smile-3.7b, full width and depth, grid "
+                f"(16, 8), LAMB ({card})")
     train_launches, _, _ = phase_train(torch, ops)
     launches.update({k: train_launches[k]
                      for k in ("router_fused", "group_sort")})
 
-    print("== phase 6: card against CPU, training reduced smile-3.7b")
+    clock.start("phase 6: card against CPU, training reduced smile-3.7b")
     phase_train_card_vs_cpu(torch)
 
-    print(f"== phase 7: serve qwen3-moe-30b-a3b dropless, full width, 4 of "
-          f"48 layers ({card})")
+    clock.start(f"phase 7: serve qwen3-moe-30b-a3b dropless, full width, 4 "
+                f"of 48 layers ({card})")
     dropless_launches = phase_serve_dropless(torch, ops)
     launches["grouped_ffn_ragged"] = dropless_launches["grouped_ffn_ragged"]
 
-    print("== phase 8: card against CPU, reduced qwen3-moe-30b-a3b dropless")
+    clock.start("phase 8: card against CPU, reduced qwen3-moe-30b-a3b "
+                "dropless")
     phase_card_vs_cpu(torch, ops, DROPLESS)
+
+    clock.start(f"phase 9: qwen3-moe-30b-a3b cache-less kernel forward, full "
+                f"width, 4 of 48 layers, batch 2 x 4096 ({card})")
+    score = phase_scoring_forward(torch, ops, SCORE_QWEN, QWEN_SCORE_LAUNCHES,
+                                  shares=("flash_attn", "gemm_kernel"))
+    launches["flash_attention"] = score["flash_attention"]
+
+    clock.start("phase 10: card against CPU, reduced qwen3-moe-30b-a3b "
+                "cache-less kernel forward")
+    phase_scoring_card_vs_cpu(torch, ops, "qwen3-moe-30b-a3b")
+
+    clock.start(f"phase 11: rwkv6-1.6b, full width and depth: cache-less "
+                f"kernel forward, batch 4 x 4096; serve, batch 8, prompt "
+                f"128, 32 new tokens ({card})")
+    score = phase_scoring_forward(torch, ops, SCORE_RWKV, RWKV_SCORE_LAUNCHES,
+                                  shares=("rwkv6_scan",))
+    launches["rwkv6_scan"] = score["rwkv6_scan"]
+    phase_rwkv_serve(torch, ops)
+    # no path of the port (or of the JAX package) calls the SSD kernel
+    launches["ssd_chunk"] = 0
+
+    clock.start("phase 12: card against CPU, reduced rwkv6-1.6b: cache-less "
+                "kernel forward (fp32 and bf16), cached steps (fp32)")
+    for dtype in ("float32", "bfloat16"):
+        phase_scoring_card_vs_cpu(torch, ops, "rwkv6-1.6b", dtype)
+    phase_rwkv_serve_card_vs_cpu(torch, ops)
+    clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",
                   "combine_gather": "prefill hop-2",
                   "grouped_ffn": "prefill",
                   "router_fused": "train hop-1",
                   "group_sort": "train hop-2",
-                  "grouped_ffn_ragged": "prefill hop-2"}
+                  "grouped_ffn_ragged": "prefill hop-2",
+                  "flash_attention": "qwen3 path",
+                  "rwkv6_scan": "rwkv6 path",
+                  "ssd_chunk": "zamba2 typical"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = next(x for x in rows[name] if x["shape"] == main_shape[name])

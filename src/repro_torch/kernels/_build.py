@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # name -> C functions it exports, with their ctypes argument types
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "dispatch_gather": {"dispatch_gather": [P, P, P, I, I, L, P]},
     "combine_gather": {"combine_gather": [P, P, P, P, I, I, I, I, P]},
@@ -35,6 +35,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "group_sort": {"group_sort": [P, L, I, I, L, P, P, P, P]},
     "router_fused": {"router_fused": [P, I, P, I, I, I, I, P, P, P, P, P, I,
                                       P, P, P]},
+    "flash_attn": {"flash_attention": [P, P, P, P, I, I, I, I, I, F, P]},
+    "rwkv6_scan": {"rwkv6_scan": [P, P, P, P, P, P, P, P, I, I, I, I, P]},
+    "ssd_chunk": {"ssd_chunk": [P, P, P, P, P, P, P, P, I, I, I, I, I, P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

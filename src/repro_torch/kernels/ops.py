@@ -7,11 +7,12 @@ The port of ``repro.kernels.ops``.  Every wrapper follows one rule:
 * a CUDA tensor launches the CUDA kernel (``csrc/<name>.cu``, built at
   first use by :mod:`repro_torch.kernels._build`) or raises.
 
-``dispatch_gather``, ``combine_gather``, ``grouped_ffn`` and
-``grouped_ffn_ragged`` have no backward: on the card they raise where
-autograd would need one, rather than return an output that silently carries
-no gradient.  The training step runs their plain tensor code
-(``use_kernel=False``), as the JAX package's does.
+``dispatch_gather``, ``combine_gather``, ``grouped_ffn``,
+``grouped_ffn_ragged``, ``flash_attention``, ``rwkv6_scan`` and
+``ssd_chunk`` have no backward (nor do their TPU kernels): on the card they
+raise where autograd would need one, rather than return an output that
+silently carries no gradient.  The training step runs their plain tensor
+code (``use_kernel=False``), as the JAX package's does.
 
 There is no fallback and no shape threshold: the JAX package's ``T < 16``
 gates existed for TPU interpret-mode overhead, and on the card the kernels
@@ -30,6 +31,7 @@ backward is the VJP of the plain chain.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -429,8 +431,158 @@ def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
     return y
 
 
+# flash_attn.cu: head sizes it is instantiated for
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal attention with GQA.  q: (B, T, H, hd); k/v: (B, T, KV, hd)
+    with KV | H; returns (B, T, H, hd) in q's dtype.  As the JAX package's
+    kernel, it takes ``T % min(128, T) == 0`` and raises otherwise, and
+    assumes the positions are ``0..T-1``.
+
+    On the CPU: the plain version on KV heads repeated H / KV times (as the
+    JAX wrapper repeats them).  On the card: bf16, hd in
+    :data:`FLASH_HEAD_DIMS`; the kernel reads each query head's KV head
+    directly, scales q in bf16 and rounds the probabilities to bf16 before
+    PV, as the Pallas body does.
+    """
+    _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
+             f"flash_attention: q (B, T, H, hd), k/v (B, T, KV, hd), got "
+             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    _require(k.shape[:2] == q.shape[:2] and k.shape[3] == hd and KV >= 1
+             and H % KV == 0, f"flash_attention: k/v {tuple(k.shape)} do "
+             f"not fit q {tuple(q.shape)} (KV must divide H)")
+    _require(T > 0 and T % min(128, T) == 0, f"flash_attention: T={T} must "
+             f"be a multiple of min(128, T), as the TPU kernel's blocks")
+    if _on_cpu(q, k, v):
+        if KV != H:
+            k = k.repeat_interleave(H // KV, dim=2)
+            v = v.repeat_interleave(H // KV, dim=2)
+        return ref.flash_attention_ref(q, k, v)
+    _forward_only("flash_attention", q, k, v)
+    for t in (q, k, v):
+        _require(t.dtype == torch.bfloat16, f"flash_attention: bfloat16 on "
+                 f"the card, got {t.dtype}")
+        _require(t.is_contiguous(), "flash_attention: inputs must be "
+                 "contiguous")
+    _require(hd in FLASH_HEAD_DIMS, f"flash_attention: hd must be one of "
+             f"{FLASH_HEAD_DIMS}, got {hd}")
+    _require(B <= 65535 and H <= 65535, f"flash_attention: at most 65535 "
+             f"batch rows and heads, got B={B}, H={H}")
+    # the Pallas body multiplies bf16 q by a Python float, which JAX rounds
+    # to bf16 first
+    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype))
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attn")
+    _check(lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr(), B, T, H, KV, hd, scale,
+                               _stream()), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+# rwkv6_scan.cu: the head size it is written for
+RWKV_HEAD_DIM = 64
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """The WKV6 recurrence.  r/k/v/w: (B, T, nh, hd); u: (nh, hd); s0:
+    (B, nh, hd, hd).  Returns ``(y (B, T, nh, hd), s_last (B, nh, hd,
+    hd))``, fp32 (see :func:`repro_torch.kernels.ref.rwkv6_scan_ref`).  On
+    the card: every input fp32 and contiguous, hd = 64."""
+    if _on_cpu(r, k, v, w, u, s0):
+        return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    _forward_only("rwkv6_scan", r, k, v, w, u, s0)
+    _require(r.dim() == 4, f"rwkv6_scan: r (B, T, nh, hd), got "
+             f"{tuple(r.shape)}")
+    B, T, nh, hd = r.shape
+    for name, t, want in (("k", k, r.shape), ("v", v, r.shape),
+                          ("w", w, r.shape), ("u", u, (nh, hd)),
+                          ("s0", s0, (B, nh, hd, hd))):
+        _require(tuple(t.shape) == tuple(want), f"rwkv6_scan: {name} shape "
+                 f"{tuple(t.shape)}, expected {tuple(want)}")
+    for t in (r, k, v, w, u, s0):
+        _require(t.dtype == torch.float32, f"rwkv6_scan: float32 on the "
+                 f"card, got {t.dtype}")
+        _require(t.is_contiguous(), "rwkv6_scan: inputs must be contiguous")
+    _require(hd == RWKV_HEAD_DIM, f"rwkv6_scan: the kernel takes hd="
+             f"{RWKV_HEAD_DIM}, got {hd}")
+    y = torch.empty_like(r)
+    s_last = torch.empty_like(s0)
+    lib = _build.load("rwkv6_scan")
+    _check(lib.rwkv6_scan(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          w.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                          y.data_ptr(), s_last.data_ptr(), B, T, nh, hd,
+                          _stream()), "rwkv6_scan")
+    rwkv6_scan.launches += 1
+    return y, s_last
+
+
+# ssd_chunk.cu: a block's dynamic shared memory, which must fit the 227 KB
+# a block can have (B^T and C^T, W^T, x, and three (Q,) vectors, fp32)
+SMEM_MAX_BYTES = 232448
+
+
+def ssd_smem_bytes(Q: int, hd: int, ds: int) -> int:
+    return 4 * (2 * ds * (Q + 4) + Q * (Q + 4) + Q * hd + 3 * Q)
+
+
+def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
+              Bc: torch.Tensor, Cc: torch.Tensor):
+    """Mamba2 SSD intra-chunk terms.  xh: (B, nc, Q, nh, hd); dt/loga:
+    (B, nc, Q, nh); Bc/Cc: (B, nc, Q, ds).  Returns ``(y_intra (B, nc, Q,
+    nh, hd), sB (B, nc, nh, hd, ds), a_chunk (B, nc, nh))``, fp32 (see
+    :func:`repro_torch.kernels.ref.ssd_chunk_ref`).  No model of the port
+    calls it (nor does one of the JAX package).  On the card: fp32,
+    contiguous, Q, hd and ds multiples of 4 whose working set fits a
+    block's shared memory (Q = 128 with hd, ds = 64 does)."""
+    if _on_cpu(xh, dt, loga, Bc, Cc):
+        return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+    _forward_only("ssd_chunk", xh, dt, loga, Bc, Cc)
+    _require(xh.dim() == 5, f"ssd_chunk: xh (B, nc, Q, nh, hd), got "
+             f"{tuple(xh.shape)}")
+    B, nc, Q, nh, hd = xh.shape
+    ds = Bc.shape[-1]
+    for name, t, want in (("dt", dt, (B, nc, Q, nh)),
+                          ("loga", loga, (B, nc, Q, nh)),
+                          ("Bc", Bc, (B, nc, Q, ds)),
+                          ("Cc", Cc, (B, nc, Q, ds))):
+        _require(tuple(t.shape) == want, f"ssd_chunk: {name} shape "
+                 f"{tuple(t.shape)}, expected {want}")
+    for t in (xh, dt, loga, Bc, Cc):
+        _require(t.dtype == torch.float32, f"ssd_chunk: float32 on the "
+                 f"card, got {t.dtype}")
+        _require(t.is_contiguous(), "ssd_chunk: inputs must be contiguous")
+    _require(all(n > 0 and n % 4 == 0 for n in (Q, hd, ds)),
+             f"ssd_chunk: Q, hd and ds must be positive multiples of 4, got "
+             f"Q={Q}, hd={hd}, ds={ds}")
+    _require(ssd_smem_bytes(Q, hd, ds) <= SMEM_MAX_BYTES, f"ssd_chunk: "
+             f"Q={Q}, hd={hd}, ds={ds} need {ssd_smem_bytes(Q, hd, ds)} "
+             f"bytes of shared memory, over {SMEM_MAX_BYTES}")
+    _require(nh <= 65535, f"ssd_chunk: at most 65535 heads, got {nh}")
+    dev = xh.device
+    y = torch.empty_like(xh)
+    sB = torch.empty((B, nc, nh, hd, ds), dtype=torch.float32, device=dev)
+    a_chunk = torch.empty((B, nc, nh), dtype=torch.float32, device=dev)
+    if a_chunk.numel() == 0:
+        return y, sB, a_chunk
+    lib = _build.load("ssd_chunk")
+    _check(lib.ssd_chunk(xh.data_ptr(), dt.data_ptr(), loga.data_ptr(),
+                         Bc.data_ptr(), Cc.data_ptr(), y.data_ptr(),
+                         sB.data_ptr(), a_chunk.data_ptr(), B * nc, Q, nh,
+                         hd, ds, _stream()), "ssd_chunk")
+    ssd_chunk.launches += 1
+    return y, sB, a_chunk
+
+
 KERNEL_WRAPPERS = (dispatch_gather, grouped_ffn, combine_gather,
-                   router_fused, group_sort, grouped_ffn_ragged)
+                   router_fused, group_sort, grouped_ffn_ragged,
+                   flash_attention, rwkv6_scan, ssd_chunk)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

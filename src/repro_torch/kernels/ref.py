@@ -175,3 +175,55 @@ def combine_gather_ref(rows: torch.Tensor, src: torch.Tensor,
                         torch.zeros((), device=rows.device))
         acc = acc + w[:, None] * rows[s.clamp(min=0).long()].float()
     return acc.to(rows.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Causal softmax attention in fp32, rounded to q's dtype once.
+    q/k/v: (B, T, H, hd), the same H (the wrapper repeats KV heads)."""
+    B, T, H, hd = q.shape
+    s = torch.einsum("bthk,bshk->bhts", q.float(), k.float()) / math.sqrt(hd)
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhts,bshk->bthk", p, v.float())
+    return o.to(q.dtype)
+
+
+def rwkv6_scan_ref(r, k, v, w, u, s0):
+    """Sequential WKV6 over T.  r/k/v/w: (B, T, nh, hd); u: (nh, hd); s0:
+    (B, nh, hd, hd).  Per step ``y = r^T (S + u*k v^T)``, then ``S <- w*S
+    + k v^T``, all fp32.  Returns ``(y (B, T, nh, hd), s_last)``, fp32."""
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = s0.float()
+    ys = []
+    for t in range(rf.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]       # (B, nh, i, j)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    y = torch.stack(ys, 1) if ys else rf.new_zeros(rf.shape)
+    return y, s
+
+
+def ssd_chunk_ref(xh, dt, loga, Bc, Cc):
+    """Mamba2 SSD intra-chunk terms, fp32.  xh: (B, nc, Q, nh, hd);
+    dt/loga: (B, nc, Q, nh); Bc/Cc: (B, nc, Q, ds).  Returns ``(y_intra
+    (B, nc, Q, nh, hd), sB (B, nc, nh, hd, ds), a_chunk (B, nc, nh))``.
+    The decay exponent is set to -inf above the diagonal before ``exp``,
+    so the entries that would overflow there are exact zeros."""
+    xq, dq, lq, Bq, Cq = (a.float() for a in (xh, dt, loga, Bc, Cc))
+    Q = xq.shape[2]
+    cs = torch.cumsum(lq, dim=2)                                # (B,nc,Q,nh)
+    scores = torch.einsum("bcin,bcjn->bcij", Cq, Bq)
+    decay = cs[:, :, :, None, :] - cs[:, :, None, :, :]         # (B,nc,i,j,nh)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xq.device).tril()
+    decay = torch.where(mask[None, None, :, :, None], decay,
+                        torch.full_like(decay, -math.inf))
+    w_ij = torch.exp(decay) * scores[..., None]
+    y_intra = torch.einsum("bcijh,bcjh,bcjhp->bcihp", w_ij, dq, xq)
+    tail = cs[:, :, -1:, :] - cs
+    sB = torch.einsum("bcjh,bcjh,bcjhp,bcjn->bchpn", torch.exp(tail), dq, xq,
+                      Bq)
+    a_chunk = torch.exp(cs[:, :, -1, :])
+    return y_intra, sB, a_chunk

@@ -6,7 +6,9 @@ lock-step (the fixed-batch path of ``repro.launch.serve``).
 
 Runs on the card unless ``--device cpu`` is given.  The path always runs
 the CUDA kernels (``use_kernel=True``): on the card every dispatch gather,
-grouped expert FFN and combine is a kernel launch.  ``serve(...,
+grouped expert FFN and combine is a kernel launch.  rwkv6-1.6b serves too;
+as in the JAX package, its cached steps run the plain WKV recurrence, so it
+launches no kernel (the WKV6 kernel belongs to the cache-less forward).  ``serve(...,
 moe_options={"dispatch_backend": "dropless"})`` serves without capacity
 (the options of :func:`repro_torch.configs.with_options`, as in the JAX
 package there is no flag for them): the expert FFN then runs the ragged
@@ -55,6 +57,7 @@ class ServeResult:
     batch: int
     launches: Dict[str, Dict[str, int]]  # phase -> kernel -> launches
     logits_finite: bool                 # every step's logits were finite
+    last_logits: np.ndarray             # (B, V) fp32, the last step's
     inputs: Optional[ServeInputs] = None  # set by serve()
 
 
@@ -119,7 +122,7 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     gen = torch.stack(out, dim=-1).cpu().numpy()
     return ServeResult(gen, t_prefill, t_decode, new_tokens - 1, batch,
                        {"prefill": _delta(c1, c0), "decode": _delta(c2, c1)},
-                       bool(finite))
+                       bool(finite), logits.float().cpu().numpy())
 
 
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,

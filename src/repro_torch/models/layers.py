@@ -12,8 +12,9 @@ caller casts them once at load
 projections and FFNs use them as given.  Norms and the LM head compute in
 fp32.
 
-This slice ports the cache-less and ring-buffer-cache attention paths; the
-paged cache (the serving engine), the sequence-sharded cache and MLA raise.
+The cache-less (with the flash kernel behind ``use_kernel``) and
+ring-buffer-cache attention paths are ported; the paged cache (the serving
+engine), the sequence-sharded cache and MLA raise.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.config import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
@@ -163,13 +165,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a running max and sum; the reference pads the last chunk with masked
     keys, which add exact zeros, so the port does not pad.
 
-    The flash kernel (``use_kernel`` with causal, unwindowed, ``Tq == Tk``
-    attention) is not ported yet; no path of this slice reaches it.
+    ``use_kernel`` with causal, unwindowed, ``Tq == Tk`` attention takes
+    the flash kernel (:func:`repro_torch.kernels.ops.flash_attention`), as
+    the reference's gate does; like the reference, that branch ignores the
+    positions and assumes ``0..T-1`` (the cache-less forward).
     """
     if use_kernel and causal and window == 0 and q.shape[1] == k.shape[1]:
-        raise NotImplementedError(
-            "the flash attention kernel is not ported yet; call "
-            "chunked_attention with use_kernel=False")
+        return kops.flash_attention(q, k, v)
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     dv = v.shape[-1]

@@ -6,9 +6,9 @@ runs them with ``lax.scan``; here a stage holds a list of per-block
 parameter dicts (``{"blocks": [...]}``) and a Python loop runs them.  Caches
 follow the same shape: one list of per-block cache dicts per stage.
 
-This slice ports the attention families the serving path needs: ``dense``,
-``moe`` and the paper's ``pair`` stage.  RWKV, Mamba2, MLA and the
-multimodal inputs raise.
+Ported stages: ``dense``, ``moe``, the paper's ``pair`` and ``rwkv``
+(rwkv6-1.6b).  Mamba2 (zamba2's ``mamba_group``), MLA and the multimodal
+inputs raise.
 
 Parameters are drawn from a seeded ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s, which is expected: the
@@ -16,8 +16,8 @@ tests carry the JAX package's weights across with
 :func:`repro_torch.weights.params_from_jax`.  Parameters are fp32; the
 activations are in :func:`compute_dtype` (``ModelConfig.dtype``, bf16 by
 default).  The matmul weights of the blocks (attention projections, dense,
-shared and expert FFNs) are used in the compute dtype, cast in one of two
-ways:
+shared and expert FFNs, and an rwkv block's time-mix output projection
+``tmix.wo``) are used in the compute dtype, cast in one of two ways:
 
 * serving casts them once at load (:func:`cast_for_compute`, the default of
   :func:`init_model`); the blocks then use them as they are;
@@ -27,7 +27,8 @@ ways:
   block being run (or recomputed) holds a cast copy.
 
 The reference casts them at every use, which gives the same bits.  Router
-weights, norm scales, the embedding table and the LM head stay fp32.
+weights, norm scales, the embedding table, the LM head and every other rwkv
+weight (both mixes compute in fp32) stay fp32.
 
 ``remat=True`` (``ModelConfig.remat``, on for training) runs each block
 under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
@@ -48,6 +49,7 @@ from repro_torch.core.moe import init_moe_params, moe_layer
 from repro_torch.core.pipeline import MoEStats, zero_stats
 from repro_torch.kernels.ref import activation
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RW
 from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
 
@@ -109,13 +111,16 @@ def _model_cfg(cfg: ModelConfig, plan: MeshPlan) -> ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attention not in ("full", "sliding"):
+    stages = build_stages(cfg)
+    attention_free = all(st.kind == "rwkv" for st in stages)
+    if not (cfg.attention in ("full", "sliding")
+            or (cfg.attention == "none" and attention_free)):
         raise NotImplementedError(f"attention={cfg.attention!r} is not "
                                   f"ported yet")
     if cfg.num_codebooks > 1 or cfg.vision_tokens or cfg.mtp_depth:
         raise NotImplementedError("multimodal inputs and MTP heads are not "
                                   "ported yet")
-    for st in build_stages(cfg):
+    for st in stages:
         if st.kind not in BLOCK_KINDS:
             raise NotImplementedError(f"{st.kind!r} stages are not ported "
                                       f"yet")
@@ -129,6 +134,14 @@ def init_block(cfg: ModelConfig, kind: str, plan: MeshPlan, *,
                generator: torch.Generator, device=None) -> Dict:
     d = cfg.d_model
     kw = dict(generator=generator, device=device)
+    if kind == "rwkv":
+        # both norms are LayerNorms whatever cfg.norm says, as the reference
+        return {
+            "ln1": L._norm_init(d, "layernorm", device),
+            "tmix": RW.init_rwkv_tmix(cfg, **kw),
+            "ln2": L._norm_init(d, "layernorm", device),
+            "cmix": RW.init_rwkv_cmix(cfg, **kw),
+        }
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet")
     p = {
@@ -201,8 +214,21 @@ def moe_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
     return x + y, stats, cache
 
 
-BLOCK_FNS = {"dense": dense_block, "moe": moe_block}
-BLOCK_KINDS = ("dense", "moe", "pair")
+def rwkv_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
+               token_valid=None):
+    h, cache = RW.rwkv_tmix_forward(p["tmix"],
+                                    L.apply_norm(p["ln1"], x, "layernorm"),
+                                    cfg, plan, cache=cache,
+                                    use_kernel=use_kernel)
+    x = x + h
+    h, cache = RW.rwkv_cmix_forward(p["cmix"],
+                                    L.apply_norm(p["ln2"], x, "layernorm"),
+                                    cfg, plan, cache=cache)
+    return x + h, zero_stats(x.device), cache
+
+
+BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "rwkv": rwkv_block}
+BLOCK_KINDS = ("dense", "moe", "pair", "rwkv")
 
 
 def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
@@ -221,8 +247,13 @@ def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
 def cast_block(p: Dict, dt: torch.dtype) -> Dict:
     """One block's matmul weights (attention, dense, shared and expert FFNs)
     cast to ``dt``; router weights and norm scales are left as they are.
-    A no-op on weights already in ``dt``."""
+    An rwkv block casts only ``tmix.wo``: the reference computes both mixes
+    in fp32 from fp32 weights and casts that one at its use.  A no-op on
+    weights already in ``dt``."""
     p = dict(p)
+    if "tmix" in p:
+        p["tmix"] = {**p["tmix"], "wo": p["tmix"]["wo"].to(dt)}
+        return p
     p["attn"] = {k: v.to(dt) for k, v in p["attn"].items()}
     if "ffn" in p:
         p["ffn"] = {k: v.to(dt) for k, v in p["ffn"].items()}
@@ -364,8 +395,9 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
 
 def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
                 *, device="cuda"):
-    """Per-stage lists of ring-buffer KV caches sized ``length`` (the window
-    for sliding attention)."""
+    """Per-stage lists of per-block caches: ring-buffer KV caches sized
+    ``length`` (the window for sliding attention), or an rwkv block's state
+    and last tokens (no length)."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)
@@ -378,7 +410,10 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
 
     out = []
     for st in build_stages(cfg):
-        if st.kind == "pair":
+        if st.kind == "rwkv":
+            out.append([RW.init_rwkv_cache(cfg, batch, plan, device=device)
+                        for _ in range(st.repeats)])
+        elif st.kind == "pair":
             out.append({"dense": attn_caches(st.repeats),
                         "moe": attn_caches(st.repeats)})
         else:

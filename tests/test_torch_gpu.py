@@ -269,7 +269,9 @@ def test_router_fused_kernel_ties_and_grad():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["dispatch_gather", "combine_gather",
-                                  "grouped_ffn", "grouped_ffn_ragged"])
+                                  "grouped_ffn", "grouped_ffn_ragged",
+                                  "flash_attention", "rwkv6_scan",
+                                  "ssd_chunk"])
 def test_forward_only_kernels_raise_under_autograd(name):
     # these kernels have no backward: under autograd they must raise, not
     # return an output that carries no gradient; under no_grad they launch
@@ -287,6 +289,15 @@ def test_forward_only_kernels_raise_under_autograd(name):
         "grouped_ffn_ragged": lambda x, w: ops.grouped_ffn_ragged(
             x, torch.tensor([0, 8, 16], dtype=torch.int32, device=dev), w,
             None, w, block=8, act="gelu"),
+        "flash_attention": lambda x, w: ops.flash_attention(
+            *(x.view(1, 16, 2, 32),) * 3),
+        "rwkv6_scan": lambda x, w: ops.rwkv6_scan(
+            *(x.float().view(1, 16, 1, 64),) * 4, w.float()[0, :1],
+            w.float()[:1].view(1, 1, 64, 64)),
+        "ssd_chunk": lambda x, w: ops.ssd_chunk(
+            x.float().view(1, 1, 16, 1, 64),
+            *(x.float()[:, :1].contiguous().view(1, 1, 16, 1),) * 2,
+            *(w.float()[0, :16, :4].contiguous().view(1, 1, 16, 4),) * 2),
     }
     before = ops.launch_counts()[name]
     with pytest.raises(RuntimeError, match="no backward"):
@@ -295,6 +306,11 @@ def test_forward_only_kernels_raise_under_autograd(name):
     with torch.no_grad():
         calls[name](x, w)
     assert ops.launch_counts()[name] == before + 1
+
+
+# serving always has a cache: the attention and the rwkv recurrence take
+# their plain branches, and nothing calls the SSD kernel
+NO_SCORING_KERNELS = {"flash_attention": 0, "rwkv6_scan": 0, "ssd_chunk": 0}
 
 
 @pytest.mark.gpu
@@ -307,7 +323,7 @@ def test_serve_launches_every_kernel():
     per_forward = {"dispatch_gather": 4, "grouped_ffn": 2,
                    "combine_gather": 4,            # 2 layers x 2 SMILE hops
                    "router_fused": 0, "group_sort": 0,   # unfused, argsort
-                   "grouped_ffn_ragged": 0}
+                   "grouped_ffn_ragged": 0, **NO_SCORING_KERNELS}
     assert res.launches["prefill"] == per_forward
     assert res.launches["decode"] == {k: 3 * v for k, v in per_forward.items()}
 
@@ -323,6 +339,132 @@ def test_serve_dropless_launches_the_ragged_kernel():
     per_forward = {"dispatch_gather": 4, "grouped_ffn": 0,
                    "combine_gather": 4,            # 2 layers x 2 SMILE hops
                    "router_fused": 0, "group_sort": 0,
-                   "grouped_ffn_ragged": 2}        # hop 2 of each layer
+                   "grouped_ffn_ragged": 2,        # hop 2 of each layer
+                   **NO_SCORING_KERNELS}
     assert res.launches["prefill"] == per_forward
     assert res.launches["decode"] == {k: 3 * v for k, v in per_forward.items()}
+
+
+# the kernel's q is scaled in bf16 and its probabilities rounded to bf16
+# before PV (as the Pallas body); the plain version does both in fp32.  Each
+# rounding moves a weight by at most 2**-9 of itself, so an output by at
+# most ~2**-9 of max |v|, plus the final bf16 rounding of both
+FLASH_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,KV,hd", [
+    (1, 1, 2, 2, 32), (2, 24, 4, 2, 64), (1, 128, 4, 4, 128),
+    (2, 256, 8, 2, 128), (1, 1024, 32, 4, 128)])
+def test_flash_attention_kernel(B, T, H, KV, hd):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T + H)
+    bf = torch.bfloat16
+    q = torch.randn((B, T, H, hd), generator=g, device=dev).to(bf)
+    k = torch.randn((B, T, KV, hd), generator=g, device=dev).to(bf)
+    v = torch.randn((B, T, KV, hd), generator=g, device=dev).to(bf)
+    n = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    assert ops.flash_attention.launches == n + 1
+    rep = H // KV
+    want = ref.flash_attention_ref(q, k.repeat_interleave(rep, dim=2),
+                                   v.repeat_interleave(rep, dim=2))
+    assert got.dtype == bf
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_limits():
+    dev = _card()
+    q = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="hd must be one of"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev),) * 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,nh", [(1, 1, 1), (2, 37, 3), (2, 300, 4)])
+def test_rwkv6_scan_kernel(B, T, nh):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(T)
+    hd = 64
+    r, k, v = (torch.randn((B, T, nh, hd), generator=g, device=dev)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, nh, hd), generator=g,
+                                         device=dev) * 0.5 - 1.0))
+    u = torch.randn((nh, hd), generator=g, device=dev)
+    s0 = torch.randn((B, nh, hd, hd), generator=g, device=dev)
+    n = ops.rwkv6_scan.launches
+    y, s_last = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert ops.rwkv6_scan.launches == n + 1
+    wy, ws = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
+    # the readout sums over i in another order: fp32 rounding of terms that
+    # reach ~30, so atol scales with the largest output
+    torch.testing.assert_close(y, wy, rtol=1e-5,
+                               atol=1e-6 * wy.abs().max().item())
+    # the state update rounds w * S, then + k v, as the plain version
+    assert torch.equal(s_last, ws)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ds", [(1, 2, 8, 2, 4, 4),
+                                             (2, 3, 16, 3, 8, 8),
+                                             (1, 2, 128, 2, 64, 64)])
+@pytest.mark.parametrize("loga_lo,loga_hi", [(-0.5, 0.0), (-8.0, -5.0)])
+def test_ssd_chunk_kernel(B, nc, Q, nh, hd, ds, loga_lo, loga_hi):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(Q + nh)
+    xh = torch.randn((B, nc, Q, nh, hd), generator=g, device=dev)
+    dt = torch.rand((B, nc, Q, nh), generator=g, device=dev) * 0.5 + 0.01
+    loga = loga_lo + (loga_hi - loga_lo) * torch.rand(
+        (B, nc, Q, nh), generator=g, device=dev)
+    Bc = torch.randn((B, nc, Q, ds), generator=g, device=dev)
+    Cc = torch.randn((B, nc, Q, ds), generator=g, device=dev)
+    n = ops.ssd_chunk.launches
+    got = ops.ssd_chunk(xh, dt, loga, Bc, Cc)
+    assert ops.ssd_chunk.launches == n + 1
+    want = ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        # the cumsums run in other orders (torch's on the card is a parallel
+        # scan): an ulp of |cs| (up to ~64 here in the mild case) is a
+        # relative error of the exponentials of up to ~1e-5 a term
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * max(b.abs().max().item(),
+                                                   1e-30))
+
+
+@pytest.mark.gpu
+def test_reduced_cacheless_forwards_launch_the_scoring_kernels():
+    _card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    plan = single_device_plan()
+    for arch, want in (("qwen3-moe-30b-a3b", {"flash_attention": 2,
+                                              "rwkv6_scan": 0}),
+                       ("rwkv6-1.6b", {"flash_attention": 0,
+                                       "rwkv6_scan": 2})):
+        cfg = get_reduced(arch)
+        params = T.init_model(cfg, plan, seed=0, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda")
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            _, logits, _, _ = T.forward(
+                params, toks, cfg, plan, use_kernel=True,
+                positions=torch.arange(64, device="cuda"))
+        counts = ops.launch_counts()
+        assert {k: counts[k] for k in want} == want, (arch, counts)
+        assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.gpu
+def test_rwkv6_serve_runs_the_plain_recurrence():
+    _card()
+    from repro_torch.launch.serve import serve
+    res = serve("rwkv6-1.6b", reduced=True, batch=2, prompt_len=16,
+                new_tokens=4, device="cuda")
+    assert res.logits_finite
+    for phase in ("prefill", "decode"):
+        assert all(n == 0 for n in res.launches[phase].values()), res.launches

@@ -208,10 +208,27 @@ def test_wrappers_on_cpu_take_plain_path_without_launches():
     assert torch.equal(
         ops.grouped_ffn_ragged(xr, gs, w1, None, w2, block=8, act="gelu"),
         ref.grouped_ffn_ragged_ref(xr, gs, w1, None, w2, act="gelu"))
+    q = torch.from_numpy(rng.standard_normal((1, 4, 2, 8)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, q[:, :, :1], q[:, :, :1]),
+                       ref.flash_attention_ref(q, *(q[:, :, :1].expand(
+                           -1, -1, 2, -1),) * 2))
+    r = torch.from_numpy(rng.random((1, 3, 1, 4)).astype(np.float32))
+    s0 = torch.zeros((1, 1, 4, 4))
+    for a, b in zip(ops.rwkv6_scan(r, r, r, r, r[0, 0], s0),
+                    ref.rwkv6_scan_ref(r, r, r, r, r[0, 0], s0)):
+        assert torch.equal(a, b)
+    xs = torch.from_numpy(rng.standard_normal((1, 1, 4, 1, 4)).astype(
+        np.float32))
+    dl = -torch.from_numpy(rng.random((1, 1, 4, 1)).astype(np.float32))
+    bcs = xs[:, :, :, 0]
+    for a, b in zip(ops.ssd_chunk(xs, -dl, dl, bcs, bcs),
+                    ref.ssd_chunk_ref(xs, -dl, dl, bcs, bcs)):
+        assert torch.equal(a, b)
     assert ops.launch_counts() == before
     assert set(before) == {"dispatch_gather", "grouped_ffn",
                            "combine_gather", "router_fused", "group_sort",
-                           "grouped_ffn_ragged"}
+                           "grouped_ffn_ragged", "flash_attention",
+                           "rwkv6_scan", "ssd_chunk"}
 
 
 def test_wrappers_reject_mixed_devices():

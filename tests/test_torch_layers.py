@@ -142,7 +142,3 @@ def test_unported_attention_paths_raise():
         TL.attention_forward(p, x, tcfg, tplan(),
                              positions=torch.arange(2),
                              cache={"pool_k": None})
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="flash"):
-        TL.chunked_attention(q, q, q, torch.arange(4), torch.arange(4),
-                             causal=True, use_kernel=True)
