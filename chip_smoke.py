@@ -171,9 +171,14 @@ FLASH_SHAPES = {"qwen3 path": (2, 4096, 32, 4, 128),
                 "T 128": (2, 128, 32, 4, 128),
                 "KV = H": (1, 2048, 16, 16, 128)}
 # the kernel scales q in bf16 and rounds the probabilities to bf16 before
-# PV (as the Pallas body); the plain version does both in fp32: each moves
-# an output by at most ~2**-9 of max |v|, plus both outputs' bf16 rounding
-FLASH_RTOL = FLASH_ATOL = 1e-2
+# PV (as the Pallas body); the plain version does both in fp32.  Each output
+# is held within one bf16 ulp of the plain one (both round once: values that
+# straddle a rounding boundary land an ulp apart) plus FLASH_ROW_ATOL of its
+# row's RMS over hd (the rounded weights' noise scales with the row, whose
+# size falls as 1/sqrt(t) along the sequence; a dropped 64-key tile moves a
+# row's largest error at t = 4,096 by tenths of its RMS).  Both readings
+# are printed
+FLASH_ROW_ATOL = 3e-2
 RWKV_SHAPE = (4, 4096, 32, 64)                       # (B, T, nh, hd)
 # y's sum over i runs in another order than the plain version's product:
 # fp32 rounding of terms of the outputs' size
@@ -187,7 +192,7 @@ SSD_RTOL, SSD_ATOL_REL = 1e-4, 1e-5
 # relative error at the 90th percentile, share of tokens over 3e-2) and of
 # tests/test_torch_rwkv6.py (rwkv6: max error over max |logit|, by dtype)
 QWEN_P90, QWEN_FLIPPED = 2e-2, 0.05
-RWKV_LOGITS_REL = {"float32": 1e-4, "bfloat16": 3e-2}
+RWKV_LOGITS_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 def card_line() -> str:
@@ -908,6 +913,28 @@ def phase_train_card_vs_cpu(torch):
             raise AssertionError(f"training card against CPU, step {i + 1}")
 
 
+def bf16_ulp(torch, x):
+    """The spacing of bf16 numbers at each element of ``x`` (8 significant
+    bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def flash_error(torch, got, want):
+    """Check the flash kernel's output against the plain one (see
+    FLASH_ROW_ATOL) and return the readings: the largest error in bf16
+    ulps of the plain output where it does not cancel (|ref| >= its row's
+    RMS), and the largest error beyond one ulp over its row's RMS."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ulp = bf16_ulp(torch, want)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp(min=1e-30)
+    over = (err - ulp).clamp(min=0) / rms
+    big = want.abs() >= rms
+    ulps = (err / ulp)[big].max().item() if bool(big.any()) else 0.0
+    return ulps, over.max().item()
+
+
 def phase_scoring_kernels(torch, ops, ref, rows):
     """The cache-less forward's kernels against their plain versions:
     flash attention at qwen3's shapes, the WKV6 scan at rwkv6's, and the
@@ -940,17 +967,20 @@ def phase_scoring_kernels(torch, ops, ref, rows):
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        if not bool((diff <= FLASH_ATOL + FLASH_RTOL
-                     * want.float().abs()).all()):
-            raise AssertionError(f"flash_attention {shape}: outside rtol "
-                                 f"{FLASH_RTOL} / atol {FLASH_ATOL}")
-        lib_err = (library().transpose(1, 2).float()
-                   - want.float()).abs().max().item()
+        ulps, over = flash_error(torch, got, want)
+        lib_ulps, lib_over = flash_error(
+            torch, library().transpose(1, 2), want)
         print(f"  flash_attention {shape}: (B, T, H, KV, hd) = "
-              f"{(B, T, H, KV, hd)}; scaled_dot_product_attention against "
-              f"the plain version: max abs err {lib_err:.3e}; device time "
+              f"{(B, T, H, KV, hd)}; against the plain version: at most "
+              f"{ulps:.0f} bf16 ulps where |ref| >= its row's RMS, at most "
+              f"{over:.3e} of a row's RMS beyond one ulp (bound "
+              f"{FLASH_ROW_ATOL}); scaled_dot_product_attention: {lib_ulps:.0f}"
+              f" ulps, {lib_over:.3e}; device time "
               f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
+        if not over <= FLASH_ROW_ATOL:
+            raise AssertionError(f"flash_attention {shape}: {over} of a row's "
+                                 f"RMS beyond one bf16 ulp, over "
+                                 f"{FLASH_ROW_ATOL}")
         nbytes = 2.0 * (2 * B * T * H * hd + 2 * B * T * KV * hd)
         flops = 4.0 * B * H * hd * T * (T + 1) / 2          # causal pairs
         add_row(rows, "flash_attention", shape, got, want, time_ms(kernel),
@@ -981,11 +1011,15 @@ def phase_scoring_kernels(torch, ops, ref, rows):
           f"max |y| {wy.abs().max().item():.3f}; device time "
           f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
     nbytes = 4.0 * (5 * B * T * nh * hd + nh * hd + 2 * B * nh * hd * hd)
+    # a step's least work: the readout sum_i r_i S_ij (an FMA per (i, j)),
+    # the state update w_i S_ij + k_i v_j (3 flops per (i, j)), and the
+    # bonus v_j sum_i r_i u_i k_i (5 flops per i)
+    flops = B * nh * T * (5.0 * hd * hd + 5.0 * hd)
     add_row(rows, "rwkv6_scan", "rwkv6 path", torch.cat([y.flatten(),
                                                          s_last.flatten()]),
             torch.cat([wy.flatten(), ws.flatten()]), time_ms(kernel),
             time_ms(plain, iters=2, warmup=1),
-            bound(nbytes, 7.0 * B * nh * T * hd * hd, FP32_FLOPS))
+            bound(nbytes, flops, FP32_FLOPS))
 
     B, nc, Q, nh, hd, ds = SSD_SHAPE
     for shape, (lo, hi) in SSD_LOGA.items():
@@ -1311,8 +1345,8 @@ def main() -> int:
     print(f"  dropless hop-2 shapes: grouped_ffn_ragged; tolerance rtol "
           f"{FFN_RTOL} + atol {FFN_ATOL}, tail tiles exact zeros")
     phase_ragged_ffn(torch, ops, ref, rows)
-    print(f"  cache-less forward shapes: flash_attention (rtol {FLASH_RTOL} "
-          f"+ atol {FLASH_ATOL}), rwkv6_scan (rtol {RWKV_RTOL} + atol "
+    print(f"  cache-less forward shapes: flash_attention (one bf16 ulp + "
+          f"{FLASH_ROW_ATOL} of the row's RMS), rwkv6_scan (rtol {RWKV_RTOL} + atol "
           f"{RWKV_ATOL_REL} of the largest value), ssd_chunk (rtol "
           f"{SSD_RTOL} + atol {SSD_ATOL_REL} of the largest value)")
     phase_scoring_kernels(torch, ops, ref, rows)
@@ -1360,9 +1394,10 @@ def main() -> int:
     score = phase_scoring_forward(torch, ops, SCORE_RWKV, RWKV_SCORE_LAUNCHES,
                                   shares=("rwkv6_scan",))
     launches["rwkv6_scan"] = score["rwkv6_scan"]
+    # no path of the port (or of the JAX package) calls the SSD kernel: the
+    # phases assert its count 0, and the line reports this forward's
+    launches["ssd_chunk"] = score["ssd_chunk"]
     phase_rwkv_serve(torch, ops)
-    # no path of the port (or of the JAX package) calls the SSD kernel
-    launches["ssd_chunk"] = 0
 
     clock.start("phase 12: card against CPU, reduced rwkv6-1.6b: cache-less "
                 "kernel forward (fp32 and bf16), cached steps (fp32)")

@@ -50,7 +50,8 @@ struct Dims {
   int ldt;  // leading dim of B^T, C^T and W^T rows: Q + 4
 };
 
-// the wrapper in ops.py computes the same size (SSD_SMEM_BYTES)
+// a block's dynamic shared memory, in floats; over the 227 KB a block can
+// have, cudaFuncSetAttribute fails and the launch returns its error
 inline size_t smem_floats(const Dims& d) {
   return (size_t)2 * d.ds * d.ldt + (size_t)d.Q * d.ldt +
          (size_t)d.Q * d.hd + 3 * (size_t)d.Q;

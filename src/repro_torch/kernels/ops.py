@@ -523,15 +523,6 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s_last
 
 
-# ssd_chunk.cu: a block's dynamic shared memory, which must fit the 227 KB
-# a block can have (B^T and C^T, W^T, x, and three (Q,) vectors, fp32)
-SMEM_MAX_BYTES = 232448
-
-
-def ssd_smem_bytes(Q: int, hd: int, ds: int) -> int:
-    return 4 * (2 * ds * (Q + 4) + Q * (Q + 4) + Q * hd + 3 * Q)
-
-
 def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
               Bc: torch.Tensor, Cc: torch.Tensor):
     """Mamba2 SSD intra-chunk terms.  xh: (B, nc, Q, nh, hd); dt/loga:
@@ -540,7 +531,8 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     :func:`repro_torch.kernels.ref.ssd_chunk_ref`).  No model of the port
     calls it (nor does one of the JAX package).  On the card: fp32,
     contiguous, Q, hd and ds multiples of 4 whose working set fits a
-    block's shared memory (Q = 128 with hd, ds = 64 does)."""
+    block's shared memory (Q = 128 with hd, ds = 64 does; the launch fails
+    with an error otherwise)."""
     if _on_cpu(xh, dt, loga, Bc, Cc):
         return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
     _forward_only("ssd_chunk", xh, dt, loga, Bc, Cc)
@@ -561,9 +553,6 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     _require(all(n > 0 and n % 4 == 0 for n in (Q, hd, ds)),
              f"ssd_chunk: Q, hd and ds must be positive multiples of 4, got "
              f"Q={Q}, hd={hd}, ds={ds}")
-    _require(ssd_smem_bytes(Q, hd, ds) <= SMEM_MAX_BYTES, f"ssd_chunk: "
-             f"Q={Q}, hd={hd}, ds={ds} need {ssd_smem_bytes(Q, hd, ds)} "
-             f"bytes of shared memory, over {SMEM_MAX_BYTES}")
     _require(nh <= 65535, f"ssd_chunk: at most 65535 heads, got {nh}")
     dev = xh.device
     y = torch.empty_like(xh)

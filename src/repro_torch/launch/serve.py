@@ -57,7 +57,6 @@ class ServeResult:
     batch: int
     launches: Dict[str, Dict[str, int]]  # phase -> kernel -> launches
     logits_finite: bool                 # every step's logits were finite
-    last_logits: np.ndarray             # (B, V) fp32, the last step's
     inputs: Optional[ServeInputs] = None  # set by serve()
 
 
@@ -122,7 +121,7 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     gen = torch.stack(out, dim=-1).cpu().numpy()
     return ServeResult(gen, t_prefill, t_decode, new_tokens - 1, batch,
                        {"prefill": _delta(c1, c0), "decode": _delta(c2, c1)},
-                       bool(finite), logits.float().cpu().numpy())
+                       bool(finite))
 
 
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,

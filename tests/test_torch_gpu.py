@@ -347,9 +347,20 @@ def test_serve_dropless_launches_the_ragged_kernel():
 
 # the kernel's q is scaled in bf16 and its probabilities rounded to bf16
 # before PV (as the Pallas body); the plain version does both in fp32.  Each
-# rounding moves a weight by at most 2**-9 of itself, so an output by at
-# most ~2**-9 of max |v|, plus the final bf16 rounding of both
-FLASH_TOL = dict(rtol=1e-2, atol=1e-2)
+# output is held within one bf16 ulp of the plain one (both round once)
+# plus FLASH_ROW_ATOL of its row's RMS over hd: the rounded weights' noise
+# scales with the row, whose size falls along the sequence.  chip_smoke.py
+# holds the path's shapes to the same bound and prints both readings
+FLASH_ROW_ATOL = 3e-2
+
+
+def _assert_flash_close(got, want):
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)       # 8 bits in bf16
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp(min=1e-30)
+    over = ((got - want).abs() - ulp).clamp(min=0) / rms
+    assert over.max().item() <= FLASH_ROW_ATOL, over.max().item()
 
 
 @pytest.mark.gpu
@@ -370,7 +381,7 @@ def test_flash_attention_kernel(B, T, H, KV, hd):
     want = ref.flash_attention_ref(q, k.repeat_interleave(rep, dim=2),
                                    v.repeat_interleave(rep, dim=2))
     assert got.dtype == bf
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL)
+    _assert_flash_close(got, want)
 
 
 @pytest.mark.gpu

@@ -15,10 +15,15 @@ Tolerances:
 * the reduced model's cache-less ``forward(use_kernel=True)`` against JAX's
   ``forward(use_kernel=False)``: within 1e-4 of max |logit| in fp32 (the
   tolerance tests/test_models.py holds rwkv6's decode to); in the config's
-  bf16 within 3e-2 (tests/test_use_kernel.py's bound): there the amplified
-  noise at the second position flips bf16 roundings of the block outputs,
-  whose one-ulp steps the next layer amplifies again and the WKV state
-  carries to every later position (EXPERIMENTS.md §Num-1);
+  bf16 within 1e-2 (measured 5.1e-3): there the amplified noise at the
+  second position flips bf16 roundings of the block outputs, whose one-ulp
+  steps the next layer amplifies again and the WKV state carries to every
+  later position (EXPERIMENTS.md §Num-1).  A second test splits that gap:
+  XLA's CPU compiler keeps some results in fp32 where the program rounds
+  to bf16 (its default ``xla_allow_excess_precision``), and the port
+  rounds as written; compiled with that option off, JAX lands 2.8e-3 from
+  the port, no more than the 3.3e-3 by which the port itself moves when
+  its fp32 weights move by one ulp;
 * decode token by token against the full forward, in the port: 1e-4 of
   max |logit|, as tests/test_models.py;
 * ``serve`` against ``repro.launch.serve.serve`` in fp32 (both packages'
@@ -160,7 +165,7 @@ def _model_pair(fp32, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 3e-2)])
+                                       ("bfloat16", 1e-2)])
 def test_reduced_cacheless_kernel_forward_matches_jax(dtype, tol,
                                                       monkeypatch):
     jcfg, tcfg, jparams, tparams = _model_pair(dtype == "float32",
@@ -179,6 +184,54 @@ def test_reduced_cacheless_kernel_forward_matches_jax(dtype, tol,
     a = np.asarray(want, np.float32)
     err = np.abs(a - got.numpy()).max() / np.abs(a).max()
     assert err < tol, err
+
+
+def _nudged(params, seed):
+    """``params`` with every fp32 weight one ulp up or down at random."""
+    g = torch.Generator().manual_seed(seed)
+
+    def nudge(t):
+        if t.dtype != torch.float32:
+            return t
+        up = torch.rand(t.shape, generator=g) < 0.5
+        inf = torch.full_like(t, float("inf"))
+        return torch.where(up, torch.nextafter(t, inf),
+                           torch.nextafter(t, -inf))
+    return torch.utils._pytree.tree_map(nudge, params)
+
+
+def test_reduced_bf16_gap_is_xla_precision_and_fp32_noise(monkeypatch):
+    jcfg, tcfg, jparams, tparams = _model_pair(False, monkeypatch)
+    B, S = 2, 48
+    toks = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    jt = jnp.asarray(toks)
+    fwd = jax.jit(lambda p, t: JT.forward(p, t, jcfg, jplan(),
+                                          positions=jnp.arange(S),
+                                          use_kernel=False)[1])
+    loose = np.asarray(fwd(jparams, jt), np.float32)
+    strict = np.asarray(fwd.lower(jparams, jt).compile(compiler_options={
+        "xla_allow_excess_precision": False})(jparams, jt), np.float32)
+
+    def port(params):
+        with torch.inference_mode():
+            _, lg, _, _ = TT.forward(
+                params, torch.from_numpy(toks), tcfg, tplan(),
+                positions=torch.arange(S, dtype=torch.int32),
+                use_kernel=True)
+        return lg.float().numpy()
+
+    got = port(tparams)
+    scale = np.abs(strict).max()
+
+    def gap(a):
+        return np.abs(a - got).max() / scale
+
+    # rounding where the program says brings JAX nearer the port, and what
+    # is left is no more than fp32 noise of one ulp makes in the port
+    assert gap(strict) < gap(loose)
+    assert gap(strict) <= 2 * gap(port(_nudged(tparams, 0)))
+    assert gap(strict) < 6e-3
 
 
 def test_reduced_decode_matches_full_forward():
@@ -213,17 +266,26 @@ def test_serve_matches_jax_serve(monkeypatch):
                    new_tokens=new)
     np.testing.assert_array_equal(res.tokens, want_tokens)
     assert res.launches["prefill"]["rwkv6_scan"] == 0
-    # the last step's logits, from JAX's forward fed the same tokens
-    caches = JT.init_caches(jcfg, B, S + new, jplan())
-    _, lg, _, caches = JT.forward(jparams, jnp.asarray(prompts), jcfg,
-                                  jplan(), positions=jnp.arange(S),
-                                  caches=caches)
-    for i in range(new - 1):
-        _, lg, _, caches = JT.forward(
-            jparams, jnp.asarray(want_tokens[:, i:i + 1]), jcfg, jplan(),
-            positions=jnp.array([S + i]), caches=caches)
-    want = np.asarray(lg[:, -1])
-    err = np.abs(res.last_logits - want).max() / np.abs(want).max()
+    # the last step's logits, from each package's forward with caches fed
+    # the same tokens
+    jc = JT.init_caches(jcfg, B, S + new, jplan())
+    tc = TT.init_caches(tcfg, B, S + new, tplan(), device="cpu")
+    _, want, _, jc = JT.forward(jparams, jnp.asarray(prompts), jcfg, jplan(),
+                                positions=jnp.arange(S), caches=jc)
+    with torch.inference_mode():
+        _, got, _, tc = TT.forward(tparams, torch.as_tensor(prompts), tcfg,
+                                   tplan(), positions=torch.arange(S),
+                                   caches=tc, use_kernel=True)
+        for i in range(new - 1):
+            step = want_tokens[:, i:i + 1]
+            _, want, _, jc = JT.forward(
+                jparams, jnp.asarray(step), jcfg, jplan(),
+                positions=jnp.array([S + i]), caches=jc)
+            _, got, _, tc = TT.forward(
+                tparams, torch.as_tensor(step), tcfg, tplan(),
+                positions=torch.tensor([S + i]), caches=tc, use_kernel=True)
+    want = np.asarray(want[:, -1])
+    err = np.abs(got[:, -1].float().numpy() - want).max() / np.abs(want).max()
     assert err < 1e-4, err
 
 
