@@ -17,8 +17,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    router over 128 experts, a bf16 case with ties, and a 2**20-key sort;
    and the ragged grouped FFN at the dropless serve's hop-2 shapes, on the
    layout of a real dispatch_ragged: 18,432 rows of which 8,192 real at
-   prefill, 1,344 of which 64 at decode): errors, and times from CUDA
-   events beside the least time the card could take.
+   prefill, 1,344 of which 64 at decode; and the grouped FFN at phase 9's
+   hop-2 capacity, 128 groups of 2,048 rows): errors, and times from CUDA
+   events beside the least time the card could take and the library
+   call's, with the kernel's ratio to each.
 3. The path: ``repro_torch.launch.serve.serve`` on qwen3-moe-30b-a3b at full
    width with the depth cut to 4 of 48 layers, random weights from seed 0,
    batch 8, prompt 128, 32 new tokens.  Every kernel must have launched in
@@ -56,7 +58,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launch the flash kernel 4 times and the MoE kernels as serving does
    (grouped_ffn 4, dispatch 8, combine 8), and give finite logits; then a
    warm forward (time, tokens/s, peak memory) and a profiled one (device
-   busy, flash's share).
+   busy, the shares of flash and of the grouped FFN's GEMM).
 10. Card against CPU: the reduced qwen3-moe config's cache-less kernel
     forward, within the tolerance of its CPU test against the JAX package.
 11. rwkv6-1.6b at full width and depth (24 layers, 1.6 B parameters): the
@@ -116,7 +118,10 @@ GATHER_SHAPES = {
     "decode hop-1": (8, 64, 4),
     "decode hop-2": (64, 256, 2),
 }
-FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2)}   # (G, T)
+# (G, T); "scoring" is phase 9's hop 2: 8,192 tokens x 8 experts over 128
+# groups at capacity factor 2
+FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2),
+              "scoring": (128, 2048)}
 # the dropless serve's hop 2: the hop-1 slab's rows (real ones), k=2 experts
 # of the arrival node's 8 each, over 128 expert groups
 RAGGED_SHAPES = {"prefill hop-2": (5120, 4096), "decode hop-2": (160, 32)}
@@ -247,11 +252,12 @@ def add_row(rows, name, shape, got, want, ms, plain_ms, b,
     rows.setdefault(name, []).append(dict(
         shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
-    lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
+    lib = ("n/a" if library_ms is None else f"{library_ms:.4f} ms, kernel "
+           f"{ms / library_ms:.2f}x of it")
     print(f"  {name:15s} {shape:13s} max abs err {err:.3e} (over max "
           f"|ref|: {rel:.2e})  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]})  library "
-          f"{lib} ms")
+          f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]}; kernel at "
+          f"{100 * b[0] / ms:.1f}% of it)  library {lib}")
 
 
 def phase_kernels(torch, ops, ref):
@@ -1330,7 +1336,8 @@ def main() -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "Used", "spill",
+                                       "wgmma", "arning")):
                 print(f"  [{name}] {line.strip()}")
 
     clock.start(f"phase 2: kernels against their plain versions ({card}); "
@@ -1381,7 +1388,7 @@ def main() -> int:
     clock.start(f"phase 9: qwen3-moe-30b-a3b cache-less kernel forward, full "
                 f"width, 4 of 48 layers, batch 2 x 4096 ({card})")
     score = phase_scoring_forward(torch, ops, SCORE_QWEN, QWEN_SCORE_LAUNCHES,
-                                  shares=("flash_attn", "gemm_kernel"))
+                                  shares=("flash_attn", "grouped_gemm_sm90"))
     launches["flash_attention"] = score["flash_attention"]
 
     clock.start("phase 10: card against CPU, reduced qwen3-moe-30b-a3b "

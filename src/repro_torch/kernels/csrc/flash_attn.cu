@@ -2,237 +2,387 @@
 //   o[b, t, h] = softmax_s(q[b, t, h] . k[b, s, h/g] / sqrt(hd), s <= t)
 //                . v[b, s, h/g]
 // q (B, T, H, hd), k/v (B, T, KV, hd) bf16 with g = H / KV query heads per
-// KV head (GQA); o (B, T, H, hd) bf16.
+// KV head (GQA); o (B, T, H, hd) bf16; hd 32, 64 or 128.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py
 // flash_attention_pallas: one grid step per (b, h, 128-row query tile),
-// looping over the KV tiles up to the causal frontier with an online-softmax
-// accumulator in VMEM; its wrapper repeats the KV heads for GQA.
+// looping over the 128-key KV tiles up to the causal frontier with an
+// online-softmax accumulator in VMEM; its wrapper repeats the KV heads for
+// GQA.
 //
 // What bounds it on the card: operations.  The causal products are
 // 4 * B * H * T^2 * hd / 2 flops (2.75e11 at qwen3's (2, 4096, 32, 128):
 // 0.28 ms at 989 TFLOP/s) against ~0.15 GB of bytes (0.045 ms).  Design for
-// that, kept simple: one 128-thread block per (query tile of 64 rows, h, b);
-// both products on the tensor cores (WMMA bf16 16x16x16, fp32 sums, with
-// padded shared tiles and 16-byte loads as in grouped_gemm.cuh); each warp
-// owns 16 query rows, so the softmax and the rescale of its rows need only
-// warp syncs, and the block syncs only around the shared K/V tile loads.
-// The KV head is read as h / g in place of the wrapper's repeat: the same
-// function, 8x fewer K/V bytes at qwen3's 32/4 heads.  Query tiles are
-// issued from the last (the longest loop) to the first.
+// that, FlashAttention-3's core without its ping-pong scheduling (sm90.cuh
+// holds the primitives):
+//  * one block per (128-row query tile, h, b), longest loops first: one
+//    producer warp and two consumer warpgroups of 64 query rows each;
+//  * the producer loads Q once and the K and V tiles of 128 keys through a
+//    ring of STAGES stages by TMA (4-D tensor maps over (hd, heads, T, B), so
+//    KV head h / g is read in place of the wrapper's repeat, and rows past T
+//    load as zeros), with full and empty barriers for K and for V apart: a
+//    K buffer goes back to the producer as soon as S is computed;
+//  * S = Q K^T is a wgmma with both operands in shared memory (K-major, as
+//    stored), accumulated in fp32 registers; the causal mask is applied on
+//    the diagonal tile only;
+//  * the online softmax runs in registers on wgmma's accumulator layout:
+//    each thread holds two rows, whose max and sum close with two shuffles
+//    inside the quad of lanes that shares them; O is rescaled in registers;
+//  * O += P V is a wgmma with P, rounded to bf16, as the A operand from
+//    registers (the S accumulator's layout is the A fragment's) and V as the
+//    MN-major B operand (hd contiguous) with the transpose bit;
+//  * a warpgroup runs its steps in order (S, softmax, P V); the two
+//    warpgroups overlap each other's softmax with their products, and the
+//    loads overlap both.  FlashAttention-3's overlap of the softmax with the
+//    next S inside a warpgroup needs S, P and O in registers at once, more
+//    than the 168 a thread that 288 threads leave: ptxas spills and
+//    serializes the wgmmas, also under setmaxnreg with a producer
+//    warpgroup, and P through shared memory instead costs more than the
+//    overlap gains (all three measured slower, PERF.md section 6);
+//  * O is normalised and rounded once, written swizzled into the warpgroup's
+//    own Q rows in shared memory, and stored by TMA (rows past T are not
+//    written).
+// A row of hd 128 is 256 bytes: it comes in two 64-column boxes of the
+// 128-byte swizzle; hd 64 is one such box and hd 32 one box of the 64-byte
+// swizzle.
 //
 // The arithmetic follows the Pallas body where it changes bits: q is scaled
-// in its own dtype before QK^T (the wrapper passes the scale rounded to
-// bf16, as JAX rounds a Python float multiplying a bf16 array); masked
-// scores are -1e30 and the running max starts at -1e30; the running sum adds
-// the fp32 probabilities; the probabilities are rounded to v's dtype before
-// PV; the output is acc / max(l, 1e-30), rounded once.  KV tiles are 64 keys
-// wide here (128 in Pallas), which changes only the order of the fp32 sums.
+// in its own dtype before QK^T (the consumers scale their rows in shared
+// memory after the TMA load, then fence the async proxy, since the wrapper's
+// scale, rounded to bf16 as JAX rounds a Python float multiplying a bf16
+// array, is not a power of two at hd 128); masked scores are -1e30 and the
+// running max starts at -1e30; the running sum adds the fp32
+// probabilities; the probabilities are rounded to v's dtype before PV; the
+// output is acc / max(l, 1e-30), rounded once.  KV tiles are 128 keys wide,
+// as Pallas's bk.  The exponentials are exp2 of the scores scaled by
+// log2(e) in one fused multiply-add (FlashAttention's form): a few fp32 ulps
+// from exp, far under the bf16 rounding of p; the order of the fp32 sums
+// differs too.
 //
-// Rows past T (T < 64) load as zeros and are not stored; keys past T sit
-// past every real query, so the causal mask removes them.  No row is ever
-// fully masked: key 0 is in every query's first tile.
+// Query rows past T (T < 128) load as zeros and are not stored; keys past T
+// sit past every real query, so the causal mask removes them.  No row is
+// ever fully masked: key 0 is in every query's first tile.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes; returns the cudaError_t of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace sm90;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;        // query rows per block (16 per warp)
-constexpr int BKV = 64;       // keys per KV tile
-constexpr int THREADS = 128;
-constexpr int LDS = BKV + 4;  // fp32 scores
-constexpr int LDP = BKV + 8;  // bf16 probabilities
+constexpr int BQ = 128;                  // query rows per block
+constexpr int BK = 128;                  // keys per KV tile
+constexpr int STAGES = 2;                // K/V ring depth
+constexpr int CONSUMERS = 256;           // two warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 
 template <int HD>
-struct Smem {
-  static constexpr int LDQ = HD + 8;  // bf16 q / k / v rows (16-byte rows)
-  static constexpr int LDO = HD + 4;  // fp32 accumulator rows
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + (size_t)BQ * LDQ * 2;
-  static constexpr size_t v = k + (size_t)BKV * LDQ * 2;
-  static constexpr size_t s = v + (size_t)BKV * LDQ * 2;
-  static constexpr size_t p = s + (size_t)BQ * LDS * 4;
-  static constexpr size_t o = p + (size_t)BQ * LDP * 2;
-  static constexpr size_t bytes = o + (size_t)BQ * LDO * 4;
+struct Cfg {
+  static constexpr int SWZ = HD >= 64 ? 128 : 64;  // swizzle span (bytes)
+  static constexpr int BOX = SWZ / 2;              // hd columns per box
+  static constexpr int NBOX = HD / BOX;
+  static constexpr int LAYOUT = layout_of(SWZ);
+  static constexpr int BOX_BYTES = 128 * SWZ;      // one box of 128 rows
+  static constexpr int TILE = 128 * HD * 2;        // a Q, K or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  // + 1024 for aligning the dynamic shared memory's start
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-// rows [row0, row0 + 64) of one head of a (B, T, heads, HD) tensor into
-// shared memory (ld LDQ), 16 bytes a thread; rows past T load as zeros.
-// With SCALE each element is multiplied by `scale` and rounded to bf16.
-template <int HD, bool SCALE>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
-                                          int row0, int T, int heads,
-                                          int head, float scale) {
-  constexpr int VEC = HD / 8;
-  for (int e = threadIdx.x; e < 64 * VEC; e += THREADS) {
-    const int r = e / VEC, c = (e % VEC) * 8;
-    const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * T + t) * heads + head) * HD + c);
-      if (SCALE) {
-        __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(&val);
+// S (64 query rows x 128 keys) = Q K^T over hd in steps of 16, both from
+// shared memory (K-major)
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&sc)[64],
+                                         const uint8_t* q_rows,
+                                         const uint8_t* ks) {
+  using C = Cfg<HD>;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(pv[i]);
-          pv[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::LDQ + c) = val;
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off =
+        (kk / (C::BOX / 16)) * C::BOX_BYTES + (kk % (C::BOX / 16)) * 32;
+    wgmma_ss_n128<0>(sc, desc(q_rows + off, 16, 8 * C::SWZ, C::LAYOUT),
+                     desc(ks + off, 16, 8 * C::SWZ, C::LAYOUT), kk > 0);
   }
 }
 
+// O (64 x hd) += P (64 x 128 keys, bf16 registers) V over the keys in steps
+// of 16; V (keys, hd) is the MN-major B operand
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int T,
-                  int H, int KV, float scale) {
-  using S = Smem<HD>;
-  constexpr int LDQ = S::LDQ, LDO = S::LDO;
-  constexpr int NF = HD / 16;  // 16-column fragments across hd
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + S::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + S::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + S::v);
-  float* Ss = reinterpret_cast<float*>(smem + S::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + S::p);
-  float* Os = reinterpret_cast<float*>(smem + S::o);
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         const uint8_t* vs) {
+  using C = Cfg<HD>;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs<HD, 1>(o, pa[kk],
+                    desc(vs + kk * 16 * C::SWZ, C::BOX_BYTES, 8 * C::SWZ,
+                         C::LAYOUT),
+                    1);
+}
+
+// P rounded to bf16, as wgmma's A fragments of 16 keys each
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[8][4],
+                                        const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+// The online softmax of a thread's two rows (row and row + 8 of wgmma's
+// accumulator layout); the quad of lanes that shares a row closes its max
+// and sum with two shuffles.
+struct Softmax {
+  float m0 = -1e30f, m1 = -1e30f, l0 = 0.0f, l1 = 0.0f;
+  float corr0 = 1.0f, corr1 = 1.0f;
+
+  // one tile's scores in place -> probabilities.  diag: the causal tile,
+  // where the key of column c of the first row lies c + c0 past its query
+  __device__ __forceinline__ void step(float (&sc)[64], bool diag, int c0) {
+    if (diag) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c0 + 8 * n + e > 0) sc[4 * n + e] = -1e30f;
+          if (c0 + 8 * n + e > 8) sc[4 * n + 2 + e] = -1e30f;
+        }
+    }
+    float mx0 = -1e30f, mx1 = -1e30f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    constexpr float L2E = 1.4426950408889634f;  // log2(e)
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    corr0 = exp2f((m0 - mn0) * L2E);
+    corr1 = exp2f((m1 - mn1) * L2E);
+    const float b0 = mn0 * L2E, b1 = mn1 * L2E;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      sc[4 * n] = exp2f(fmaf(sc[4 * n], L2E, -b0));
+      sc[4 * n + 1] = exp2f(fmaf(sc[4 * n + 1], L2E, -b0));
+      sc[4 * n + 2] = exp2f(fmaf(sc[4 * n + 2], L2E, -b1));
+      sc[4 * n + 3] = exp2f(fmaf(sc[4 * n + 3], L2E, -b1));
+      sum0 += sc[4 * n] + sc[4 * n + 1];
+      sum1 += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  // O's rows times the last step's corrections
+  template <int R>
+  __device__ __forceinline__ void rescale(float (&o)[R]) const {
+#pragma unroll
+    for (int n = 0; n < R / 4; ++n) {
+      o[4 * n] *= corr0;
+      o[4 * n + 1] *= corr0;
+      o[4 * n + 2] *= corr1;
+      o[4 * n + 3] *= corr1;
+    }
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                const __grid_constant__ CUtensorMap tm_o, int T, int H,
+                int KV, float scale) {
+  using C = Cfg<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* k_empty = bars + 1 + 2 * STAGES;
+  uint64_t* v_empty = bars + 1 + 3 * STAGES;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest loops first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;        // the warp's first row in the tile
-  const int rr = lane >> 1;        // the lane's row among the warp's 16
-  const int half = lane & 1;       // which half of the row the lane takes
-  const int qpos = q0 + r0 + rr;
+  const int n_kv = qt + 1;  // KV tiles up to the diagonal
 
-  load_tile<HD, true>(Qs, q, b, q0, T, H, h, scale);
-  for (int e = lane; e < 16 * LDO; e += 32) Os[r0 * LDO + e] = 0.0f;
-  float m = -1e30f, l = 0.0f;  // the lane's row: running max and sum
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], CONSUMERS);
+      mbar_init(&v_empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int j = 0; j <= qt; ++j) {
-    const int k0 = j * BKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<HD, false>(Ks, k, b, k0, T, KV, kvh, 0.0f);
-    load_tile<HD, false>(Vs, v, b, k0, T, KV, kvh, 0.0f);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows: 4 fragments of 16 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BKV / 16];
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + r0 * LDQ + kk, LDQ);
-#pragma unroll
-        for (int n = 0; n < BKV / 16; ++n) {
-          // K^T as a column-major B operand: element (kk, key) at
-          // Ks[key * LDQ + kk]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-              bt;
-          wmma::load_matrix_sync(bt, Ks + n * 16 * LDQ + kk, LDQ);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
-        }
+  if (threadIdx.x >= CONSUMERS) {
+    // the producer warp: one lane issues every load
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, C::TILE);
+      for (int x = 0; x < C::NBOX; ++x)
+        tma_load_4d(smem + C::Q_OFF + x * C::BOX_BYTES, &tm_q, q_full,
+                    x * C::BOX, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        const uint32_t parity = ((j / STAGES) - 1) & 1;  // the last use's
+        if (j >= STAGES) mbar_wait(&k_empty[s], parity);
+        mbar_expect_tx(&k_full[s], C::TILE);
+        for (int x = 0; x < C::NBOX; ++x)
+          tma_load_4d(smem + C::K_OFF + s * C::TILE + x * C::BOX_BYTES, &tm_k,
+                      &k_full[s], x * C::BOX, kvh, j * BK, b);
+        if (j >= STAGES) mbar_wait(&v_empty[s], parity);
+        mbar_expect_tx(&v_full[s], C::TILE);
+        for (int x = 0; x < C::NBOX; ++x)
+          tma_load_4d(smem + C::V_OFF + s * C::TILE + x * C::BOX_BYTES, &tm_v,
+                      &v_full[s], x * C::BOX, kvh, j * BK, b);
       }
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n)
-        wmma::store_matrix_sync(Ss + r0 * LDS + n * 16, acc[n], LDS,
-                                wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax: each lane takes half of one row (32 keys)
-    float* srow = Ss + (r0 + rr) * LDS + half * 32;
-    float mx = -1e30f;
-    for (int c = 0; c < 32; ++c) {
-      float s = srow[c];
-      if (k0 + half * 32 + c > qpos) s = -1e30f;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float sum = 0.0f;
-    bf16* prow = Ps + (r0 + rr) * LDP + half * 32;
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(srow[c] - m_new);
-      sum += p;
-      prow[c] = __float2bfloat16_rn(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * corr + sum;
-    m = m_new;
-    float* orow = Os + (r0 + rr) * LDO + half * (HD / 2);
-    for (int c = 0; c < HD / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O = O * corr + P V for the warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-      for (int n = 0; n < NF; ++n)
-        wmma::load_matrix_sync(acc[n], Os + r0 * LDO + n * 16, LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + r0 * LDP + kk, LDP);
-#pragma unroll
-        for (int n = 0; n < NF; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              bv;
-          wmma::load_matrix_sync(bv, Vs + kk * LDQ + n * 16, LDQ);
-          wmma::mma_sync(acc[n], a, bv, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NF; ++n)
-        wmma::store_matrix_sync(Os + r0 * LDO + n * 16, acc[n], LDO,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
   }
 
-  // out = O / max(l, 1e-30), rounded to bf16 once; each lane half a row
-  if (qpos < T) {
-    const float inv_l = 1.0f / fmaxf(l, 1e-30f);
-    const float* orow = Os + (r0 + rr) * LDO + half * (HD / 2);
-    bf16* dst = out + (((size_t)b * T + qpos) * H + h) * HD + half * (HD / 2);
-    for (int c = 0; c < HD / 2; c += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-          __floats2bfloat162_rn(orow[c] * inv_l, orow[c + 1] * inv_l);
+  // consumer warpgroup wg takes query rows q0 + 64 wg .. + 63
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int row = 16 * (t / 32) + lane / 4;  // and row + 8, of the 64
+  const int qpos = q0 + 64 * wg + row;
+  uint8_t* q_rows = smem + C::Q_OFF + 64 * wg * C::SWZ;  // in box 0
+
+  // q * scale, rounded to bf16, in place (the swizzle does not matter for
+  // an elementwise pass); then make the writes visible to wgmma
+  mbar_wait(q_full, 0);
+  for (int x = 0; x < C::NBOX; ++x) {
+    uint4* p = reinterpret_cast<uint4*>(q_rows + x * C::BOX_BYTES);
+    for (int e = t; e < 64 * C::SWZ / 16; e += 128) {
+      uint4 val = p[e];
+      __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(v2[i]);
+        v2[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      p[e] = val;
     }
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float sc[64];       // S of the tile, then its probabilities
+  uint32_t pa[8][4];  // the probabilities in bf16, as A fragments
+  Softmax sm;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    // S = Q K_j^T; the K buffer goes back to the producer at once
+    mbar_wait(&k_full[s], parity);
+    wgmma_fence();
+    issue_qk<HD>(sc, q_rows, smem + C::K_OFF + s * C::TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(&k_empty[s]);
+    sm.step(sc, j == qt, j * BK + 2 * (lane % 4) - qpos);
+    sm.rescale(o);
+    to_bf16(pa, sc);
+    // O += P V_j
+    mbar_wait(&v_full[s], parity);
+    wgmma_fence();
+    issue_pv<HD>(o, pa, smem + C::V_OFF + s * C::TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&v_empty[s]);
+  }
+
+  // out = O / max(l, 1e-30), rounded once, written swizzled into the
+  // warpgroup's own Q rows (every wgmma that read them is done), then
+  // stored by TMA
+  const float lm0 = fmaxf(sm.l0, 1e-30f), lm1 = fmaxf(sm.l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = 8 * n + 2 * (lane % 4);
+    const int x = col / C::BOX, cb = (col % C::BOX) * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half;
+      const int sw = C::SWZ == 128 ? ((cb >> 4) ^ (r & 7))
+                                   : ((cb >> 4) ^ ((r >> 1) & 3));
+      const float lm = half ? lm1 : lm0;
+      *reinterpret_cast<uint32_t*>(q_rows + x * C::BOX_BYTES + r * C::SWZ +
+                                   sw * 16 + (cb & 15)) =
+          pack_bf16(o[4 * n + 2 * half] / lm, o[4 * n + 2 * half + 1] / lm);
+    }
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+  if (t == 0 && q0 + 64 * wg < T) {
+    for (int x = 0; x < C::NBOX; ++x)
+      tma_store_4d(&tm_o, q_rows + x * C::BOX_BYTES, x * C::BOX, h,
+                   q0 + 64 * wg, b);
+    tma_store_commit_and_wait();
   }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int T, int H, int KV, float scale, cudaStream_t stream) {
-  const size_t bytes = Smem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
+  using C = Cfg<HD>;
+  // (hd, heads, T, B), innermost first
+  const uint64_t dq[4] = {HD, (uint64_t)H, (uint64_t)T, (uint64_t)B};
+  const uint64_t sq[3] = {HD * 2, (uint64_t)H * HD * 2,
+                          (uint64_t)T * H * HD * 2};
+  const uint64_t dk[4] = {HD, (uint64_t)KV, (uint64_t)T, (uint64_t)B};
+  const uint64_t sk[3] = {HD * 2, (uint64_t)KV * HD * 2,
+                          (uint64_t)T * KV * HD * 2};
+  const uint32_t box_in[4] = {C::BOX, 1, BQ, 1};
+  const uint32_t box_out[4] = {C::BOX, 1, 64, 1};
+  CUtensorMap mq, mk, mv, mo;
+  int err;
+  if ((err = make_map(&mq, q, 4, dq, sq, box_in, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mk, k, 4, dk, sk, box_in, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mv, v, 4, dk, sk, box_in, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mo, out, 4, dq, sq, box_out, C::SWZ)) != 0) return err;
+  static bool sized = false;  // the shared-memory limit, set once
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attn_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_attn_kernel<HD><<<grid, THREADS, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, T, H, KV,
-      scale);
+  flash_attn_sm90<HD><<<grid, THREADS, C::BYTES, stream>>>(mq, mk, mv, mo, T,
+                                                            H, KV, scale);
   return (int)cudaGetLastError();
 }
 

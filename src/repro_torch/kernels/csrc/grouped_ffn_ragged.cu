@@ -22,10 +22,10 @@
 // 77 GFLOP (0.08 ms at 989 TFLOP/s) and the weights of the experts they
 // touch, up to 1.2 GB of bf16 (0.36 ms at 3.35 TB/s): bound by the weight
 // bytes, as at decode, where 64 real rows touch at most 64 experts.
-// Design for that, kept simple in this first version: the two passes of
-// grouped_ffn.cu through an h scratch (R, f) (CUDA blocks share nothing, so
-// the Pallas kernel's f-axis accumulation becomes pass 2's fp32 sum over all
-// of f), on the same grouped GEMM (grouped_gemm.cuh), with one indirection:
+// Design for that, kept simple in this first version: two passes through
+// an h scratch (R, f) (CUDA blocks share nothing, so the Pallas kernel's
+// f-axis accumulation becomes pass 2's fp32 sum over all of f), on the WMMA
+// grouped GEMM of grouped_gemm.cuh, with one indirection:
 // a block takes min(block, 64) rows of one tile and finds the tile's expert
 // by a binary search over group_starts, the ids of
 // repro.core.dispatch.ragged_tile_gids (searchsorted side="right" minus one,
@@ -61,11 +61,11 @@ extern "C" int grouped_ffn_ragged(const void* x, const int* group_starts,
              *b2 = (const bf16*)w2;
   cudaStream_t s = (cudaStream_t)stream;
   if (step <= 16)
-    return ffn_two_pass<16>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, R, d, f, 0, 0,
-                            g1, g2, act, rows, s);
+    return ffn_two_pass<16>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, d, f, g1, g2,
+                            act, rows, s);
   if (step <= 32)
-    return ffn_two_pass<32>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, R, d, f, 0, 0,
-                            g1, g2, act, rows, s);
-  return ffn_two_pass<64>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, R, d, f, 0, 0,
-                          g1, g2, act, rows, s);
+    return ffn_two_pass<32>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, d, f, g1, g2,
+                            act, rows, s);
+  return ffn_two_pass<64>(xb, b1, b3, b2, (bf16*)h, (bf16*)y, d, f, g1, g2,
+                          act, rows, s);
 }

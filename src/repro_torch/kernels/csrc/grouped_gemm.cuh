@@ -1,6 +1,7 @@
-// The grouped bf16 GEMM that both expert-FFN kernels launch twice
-// (grouped_ffn.cu over the capacity layout, grouped_ffn_ragged.cu over the
-// dropless ragged layout):
+// The grouped bf16 GEMM that the ragged expert-FFN kernel
+// (grouped_ffn_ragged.cu, the dropless layout) launches twice, until that
+// kernel's redesign for Hopper moves it onto grouped_gemm_sm90.cuh as
+// grouped_ffn.cu was:
 //   C = epilogue(A @ B [, A @ B2])    A (M, K), B/B2 (K, N), C (M, N), bf16
 // with fp32 accumulation on the tensor cores (WMMA bf16 16x16x16 fragments).
 // A 128-thread block computes a BM x 64 output tile of one group; K is
@@ -11,18 +12,15 @@
 // product.  act: 0 = SiLU (x * sigmoid(x)), 1 = GELU in its tanh form
 // (jax.nn.gelu's default).
 //
-// Which rows a block takes, and which group's B, comes from its Rows:
-//  * capacity layout (starts == nullptr): group blockIdx.z, rows
-//    blockIdx.y * BM .. + BM of that group's (M, K) slice; rows past M load
-//    as zeros and are never stored;
-//  * ragged layout: A and C are flat (M = R rows); block y takes the `step`
-//    rows from y * step (step <= BM, step divides the layout's row tile), and
-//    its group is the tile's owner, clip(searchsorted(starts, tile_row0,
-//    side="right") - 1, 0, G - 1) over the (G+1,) aligned offsets `starts`,
-//    the ids repro.core.dispatch.ragged_tile_gids gives.  A block past
-//    starts[G] holds only zero rows (the dispatch gather writes zeros there),
-//    so the FFN gives zeros: the first pass skips it and the second writes
-//    its zeros without reading any weight.
+// Which rows a block takes, and which group's B, comes from its Rows: A
+// and C are flat (M = R rows); block y takes the `step` rows from y * step
+// (step <= BM, step divides the layout's row tile), and its group is the
+// tile's owner, clip(searchsorted(starts, tile_row0, side="right") - 1, 0,
+// G - 1) over the (G+1,) aligned offsets `starts`, the ids
+// repro.core.dispatch.ragged_tile_gids gives.  A block past starts[G] holds
+// only zero rows (the dispatch gather writes zeros there), so the FFN gives
+// zeros: the first pass skips it and the second writes its zeros without
+// reading any weight.
 
 #pragma once
 
@@ -46,10 +44,10 @@ constexpr int THREADS = 128;
 enum Epilogue { EPI_NONE = 0, EPI_ACT = 1, EPI_GLU = 2 };
 
 struct Rows {
-  const int* starts;  // ragged: (G+1,) aligned segment offsets; else nullptr
-  int G;              // ragged: groups
-  int tile;           // ragged: the layout's row tile
-  int step;           // ragged: rows per block
+  const int* starts;  // (G+1,) aligned segment offsets
+  int G;              // groups
+  int tile;           // the layout's row tile
+  int step;           // rows per block
 };
 
 __device__ __forceinline__ float act_fn(float v, int act) {
@@ -72,44 +70,34 @@ __device__ __forceinline__ int tile_group(const int* starts, int G, int t0) {
   return g < 0 ? 0 : (g > G - 1 ? G - 1 : g);
 }
 
-// sA/sB/sC: element strides between groups (sA and sC unused when ragged).
-// N % 64 == 0 and K % 32 == 0.  BM is 16, 32 or 64.
+// sB: the element stride between groups' weights.  N % 64 == 0 and
+// K % 32 == 0.  BM is 16, 32 or 64.
 template <int EPI, int BM>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-            const bf16* __restrict__ B2, bf16* __restrict__ C, int M, int N,
-            int K, long long sA, long long sB, long long sC, int act,
-            Rows rows) {
+            const bf16* __restrict__ B2, bf16* __restrict__ C, int N, int K,
+            long long sB, int act, Rows rows) {
   constexpr int WARPS_M = BM >= 32 ? 2 : 1;  // 4 warps: WARPS_M x WARPS_N
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int FM = BM / 16 / WARPS_M;      // fragments per warp
   constexpr int FN = BN / 16 / WARPS_N;
   const int n0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
-  int g, m0, mrows;
-  if (rows.starts == nullptr) {
-    g = blockIdx.z;
-    m0 = blockIdx.y * BM;
-    mrows = min(BM, M - m0);
-    A += g * sA;
-    C += g * sC;
-  } else {
-    m0 = blockIdx.y * rows.step;
-    mrows = rows.step;
-    if (m0 >= __ldg(rows.starts + rows.G)) {
-      // past the last segment: zero rows in, zeros out
-      if (EPI == EPI_NONE) {
-        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-        for (int v = tid; v < mrows * BN / 8; v += THREADS) {
-          const int r = v / (BN / 8);
-          const int c = (v % (BN / 8)) * 8;
-          *reinterpret_cast<uint4*>(C + (size_t)(m0 + r) * N + n0 + c) = z;
-        }
+  const int m0 = blockIdx.y * rows.step;
+  const int mrows = rows.step;
+  if (m0 >= __ldg(rows.starts + rows.G)) {
+    // past the last segment: zero rows in, zeros out
+    if (EPI == EPI_NONE) {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int v = tid; v < mrows * BN / 8; v += THREADS) {
+        const int r = v / (BN / 8);
+        const int c = (v % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(C + (size_t)(m0 + r) * N + n0 + c) = z;
       }
-      return;
     }
-    g = tile_group(rows.starts, rows.G, m0 - m0 % rows.tile);
+    return;
   }
+  const int g = tile_group(rows.starts, rows.G, m0 - m0 % rows.tile);
   B += g * sB;
   if (EPI == EPI_GLU) B2 += g * sB;
 
@@ -215,28 +203,27 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 }
 
 // Both passes of the FFN:
-//   pass 1: h = act(x @ w1) [* (x @ w3)]      (M rows, N = f, K = d)
-//   pass 2: y = h @ w2                         (M rows, N = d, K = f)
-// grid1/grid2 are the passes' grids; strides as gemm_kernel's.  Returns the
-// cudaError_t of the first failing launch.
+//   pass 1: h = act(x @ w1) [* (x @ w3)]      (N = f, K = d)
+//   pass 2: y = h @ w2                         (N = d, K = f)
+// grid1/grid2 are the passes' grids.  Returns the cudaError_t of the first
+// failing launch.
 template <int BM>
 int ffn_two_pass(const bf16* x, const bf16* w1, const bf16* w3,
-                 const bf16* w2, bf16* h, bf16* y, int M, int d, int f,
-                 long long sx, long long sh, dim3 grid1, dim3 grid2, int act,
-                 Rows rows, cudaStream_t s) {
+                 const bf16* w2, bf16* h, bf16* y, int d, int f, dim3 grid1,
+                 dim3 grid2, int act, Rows rows, cudaStream_t s) {
   const dim3 block(THREADS);
   const long long sw = (long long)d * f;
   if (w3 != nullptr) {
-    gemm_kernel<EPI_GLU, BM><<<grid1, block, 0, s>>>(x, w1, w3, h, M, f, d,
-                                                     sx, sw, sh, act, rows);
+    gemm_kernel<EPI_GLU, BM><<<grid1, block, 0, s>>>(x, w1, w3, h, f, d, sw,
+                                                     act, rows);
   } else {
-    gemm_kernel<EPI_ACT, BM><<<grid1, block, 0, s>>>(x, w1, nullptr, h, M, f,
-                                                     d, sx, sw, sh, act, rows);
+    gemm_kernel<EPI_ACT, BM><<<grid1, block, 0, s>>>(x, w1, nullptr, h, f, d,
+                                                     sw, act, rows);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gemm_kernel<EPI_NONE, BM><<<grid2, block, 0, s>>>(h, w2, nullptr, y, M, d, f,
-                                                    sh, sw, sx, act, rows);
+  gemm_kernel<EPI_NONE, BM><<<grid2, block, 0, s>>>(h, w2, nullptr, y, d, f,
+                                                    sw, act, rows);
   return (int)cudaGetLastError();
 }
 

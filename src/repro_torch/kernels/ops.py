@@ -69,6 +69,16 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _aligned16(name: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as
+    the TMA tensor maps of the Hopper kernels need."""
+    for t in ts:
+        if t is not None and t.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: TMA needs 16-byte aligned data, got "
+                             f"a tensor at {t.data_ptr():#x} (a view at an "
+                             f"odd offset? pass a fresh copy)")
+
+
 def _forward_only(name: str, *ts: Optional[torch.Tensor]) -> None:
     """Raise if autograd would need the gradient of a kernel that has no
     backward."""
@@ -316,7 +326,8 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     """Grouped expert FFN ``act(x @ w1) [* (x @ w3)] @ w2`` per group.
     x: (G, T, d); w1/w3: (G, d, f); w2: (G, f, d); ``w3=None`` is the plain
     MLP.  The weights come in x's dtype (the model casts them once at
-    load); on the card that is bf16, and d, f are multiples of 64."""
+    load); on the card that is bf16, d and f are multiples of 64, G is at
+    most 65,535, and every tensor's data is 16-byte aligned (TMA)."""
     ws = (w1, w2) + (() if w3 is None else (w3,))
     _require(all(w.dtype == x.dtype for w in ws), f"grouped_ffn: weights "
              f"must have x's dtype {x.dtype}, got {[w.dtype for w in ws]}")
@@ -340,6 +351,8 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
         _require(t.is_contiguous(), "grouped_ffn: inputs must be contiguous")
     _require(d % 64 == 0 and f % 64 == 0, f"grouped_ffn: d and f must be "
              f"multiples of 64, got d={d}, f={f}")
+    _require(G <= 65535, f"grouped_ffn: at most 65535 groups, got {G}")
+    _aligned16("grouped_ffn", x, w1, w3, w2)
     y = torch.empty_like(x)
     if G == 0 or T == 0:
         return y
@@ -444,9 +457,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     On the CPU: the plain version on KV heads repeated H / KV times (as the
     JAX wrapper repeats them).  On the card: bf16, hd in
-    :data:`FLASH_HEAD_DIMS`; the kernel reads each query head's KV head
-    directly, scales q in bf16 and rounds the probabilities to bf16 before
-    PV, as the Pallas body does.
+    :data:`FLASH_HEAD_DIMS`, 16-byte aligned data (TMA); the kernel reads
+    each query head's KV head directly, scales q in bf16 and rounds the
+    probabilities to bf16 before PV, as the Pallas body does.
     """
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
              f"flash_attention: q (B, T, H, hd), k/v (B, T, KV, hd), got "
@@ -473,6 +486,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
              f"{FLASH_HEAD_DIMS}, got {hd}")
     _require(B <= 65535 and H <= 65535, f"flash_attention: at most 65535 "
              f"batch rows and heads, got B={B}, H={H}")
+    _aligned16("flash_attention", q, k, v)
     # the Pallas body multiplies bf16 q by a Python float, which JAX rounds
     # to bf16 first
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=q.dtype))

@@ -55,6 +55,14 @@ def test_combine_gather_kernel(t, k, R, d):
     (3, 2, 64, 128, True, "silu"),
     (4, 70, 256, 128, False, "gelu"),
     (8, 256, 2048, 768, True, "silu"),
+    # the 128-row tiles: one row; one row past a tile; d and f one 64-column
+    # box (narrower than a tile of either pass); one group; f 192 (a tile
+    # and a half); the scoring forward's rows at 16 groups
+    (5, 1, 256, 128, True, "silu"),
+    (3, 129, 256, 192, True, "gelu"),
+    (2, 5, 64, 64, True, "silu"),
+    (1, 300, 128, 256, False, "gelu"),
+    (16, 2048, 2048, 768, True, "silu"),
 ])
 def test_grouped_ffn_kernel(G, T, d, f, glu, act):
     dev = _card()
@@ -68,6 +76,21 @@ def test_grouped_ffn_kernel(G, T, d, f, glu, act):
     got = ops.grouped_ffn(x, w1, w3, w2, act=act)
     want = ref.grouped_ffn_ref(x, w1, w3, w2, act=act)
     torch.testing.assert_close(got.float(), want.float(), **FFN_TOL)
+
+
+@pytest.mark.gpu
+def test_grouped_ffn_kernel_limits():
+    dev = _card()
+    bf = torch.bfloat16
+    w = torch.zeros((2, 64, 64), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        ops.grouped_ffn(torch.zeros((2, 4, 32), dtype=bf, device=dev),
+                        torch.zeros((2, 32, 64), dtype=bf, device=dev), None,
+                        torch.zeros((2, 64, 32), dtype=bf, device=dev))
+    # TMA reads from 16-byte boundaries: a view 2 bytes in is refused
+    flat = torch.zeros(2 * 4 * 64 + 1, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.grouped_ffn(flat[1:].view(2, 4, 64), w, w, w)
 
 
 def _ragged_rows(G, block, lens, tail, d, dev, g):
@@ -366,7 +389,12 @@ def _assert_flash_close(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,H,KV,hd", [
     (1, 1, 2, 2, 32), (2, 24, 4, 2, 64), (1, 128, 4, 4, 128),
-    (2, 256, 8, 2, 128), (1, 1024, 32, 4, 128)])
+    (2, 256, 8, 2, 128), (1, 1024, 32, 4, 128),
+    # the 64-byte swizzle (hd 32) and one 128-byte box (hd 64) over many KV
+    # tiles; 8 query heads per KV head; T 384, an odd number of 128-row
+    # query and KV tiles (so the 2-stage K/V ring wraps mid-loop)
+    (2, 512, 4, 2, 32), (1, 640, 4, 1, 64), (1, 512, 16, 2, 128),
+    (2, 384, 8, 2, 128), (1, 384, 4, 4, 64)])
 def test_flash_attention_kernel(B, T, H, KV, hd):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(T + H)
@@ -392,6 +420,11 @@ def test_flash_attention_kernel_limits():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev),) * 3)
+    # TMA reads from 16-byte boundaries: a view 2 bytes in is refused
+    flat = torch.zeros(8 * 2 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, q, q)
 
 
 @pytest.mark.gpu
