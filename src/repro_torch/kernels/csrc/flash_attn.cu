@@ -2,7 +2,7 @@
 //   o[b, t, h] = softmax_s(q[b, t, h] . k[b, s, h/g] / sqrt(hd), s <= t)
 //                . v[b, s, h/g]
 // q (B, T, H, hd), k/v (B, T, KV, hd) bf16 with g = H / KV query heads per
-// KV head (GQA); o (B, T, H, hd) bf16; hd 32, 64 or 128.
+// KV head (GQA); o (B, T, H, hd) bf16; hd any multiple of 8 up to 192.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py
 // flash_attention_pallas: one grid step per (b, h, 128-row query tile),
@@ -17,14 +17,14 @@
 // holds the primitives):
 //  * one block per (128-row query tile, h, b), longest loops first: one
 //    producer warp and two consumer warpgroups of 64 query rows each;
-//  * the producer loads Q once and the K and V tiles of 128 keys through a
-//    ring of STAGES stages by TMA (4-D tensor maps over (hd, heads, T, B), so
+//  * the producer loads Q once and the K and V tiles of BK keys (128; 64 at
+//    a padded head of 192) through a ring of STAGES stages by TMA (4-D tensor maps over (hd, heads, T, B), so
 //    KV head h / g is read in place of the wrapper's repeat, and rows past T
 //    load as zeros), with full and empty barriers for K and for V apart: a
 //    K buffer goes back to the producer as soon as S is computed;
 //  * S = Q K^T is a wgmma with both operands in shared memory (K-major, as
-//    stored), accumulated in fp32 registers; the causal mask is applied on
-//    the diagonal tile only;
+//    stored), accumulated in fp32 registers; the causal mask is applied
+//    only on the tiles that reach past the warpgroup's first query;
 //  * the online softmax runs in registers on wgmma's accumulator layout:
 //    each thread holds two rows, whose max and sum close with two shuffles
 //    inside the quad of lanes that shares them; O is rescaled in registers;
@@ -44,7 +44,18 @@
 //    written).
 // A row of hd 128 is 256 bytes: it comes in two 64-column boxes of the
 // 128-byte swizzle; hd 64 is one such box and hd 32 one box of the 64-byte
-// swizzle.
+// swizzle.  Other head sizes run at the next of those widths, or at 192
+// (three boxes): the kernel is instantiated at a padded head HDP (hd <= 32
+// -> 32, else hd rounded up to a multiple of 64), while the tensor maps keep
+// the true hd as their innermost dimension, so TMA loads the columns past hd
+// as zeros (which add nothing to Q K^T or to P V) and the store of O stops
+// at hd.  Rows stay hd * 2 bytes apart, a multiple of 16 for every hd that
+// is a multiple of 8.  At HDP 192 the KV tile is 64 keys wide: O (96 fp32
+// registers a thread) and a 128-key S (64) would not fit the 168 registers
+// a thread that 288 threads leave, nor two stages of 128-key K and V tiles
+// the shared memory; with 64 keys S takes 32 registers, and three stages
+// take 192 KB.  The online softmax then rescales every 64 keys, not every
+// 128 as Pallas's bk; the bf16 output is held to the same bound.
 //
 // The arithmetic follows the Pallas body where it changes bits: q is scaled
 // in its own dtype before QK^T (the consumers scale their rows in shared
@@ -54,14 +65,17 @@
 // running max starts at -1e30; the running sum adds the fp32
 // probabilities; the probabilities are rounded to v's dtype before PV; the
 // output is acc / max(l, 1e-30), rounded once.  KV tiles are 128 keys wide,
-// as Pallas's bk.  The exponentials are exp2 of the scores scaled by
-// log2(e) in one fused multiply-add (FlashAttention's form): a few fp32 ulps
-// from exp, far under the bf16 rounding of p; the order of the fp32 sums
-// differs too.
+// as Pallas's bk, up to HDP 128.  The exponentials are exp2 of the scores
+// scaled by log2(e) in one fused multiply-add (FlashAttention's form): a few
+// fp32 ulps from exp, far under the bf16 rounding of p; the order of the
+// fp32 sums differs too.
 //
 // Query rows past T (T < 128) load as zeros and are not stored; keys past T
-// sit past every real query, so the causal mask removes them.  No row is
-// ever fully masked: key 0 is in every query's first tile.
+// sit past every real query, so the causal mask removes them, and no KV
+// tile starts past T.  No row is fully masked in the first tile: key 0 is
+// in every query's first tile.  With 64-key tiles the first
+// warpgroup's rows see every key of the block's last tile masked, which
+// leaves their max and sum as they were and adds zeros to O.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes; returns the cudaError_t of the launch.
@@ -74,63 +88,76 @@ using namespace sm90;
 typedef __nv_bfloat16 bf16;
 
 constexpr int BQ = 128;                  // query rows per block
-constexpr int BK = 128;                  // keys per KV tile
-constexpr int STAGES = 2;                // K/V ring depth
 constexpr int CONSUMERS = 256;           // two warpgroups of 64 query rows
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int MAX_HD = 192;              // the widest padded head
 
+// the padded head a head size runs at (0: none)
+constexpr int padded_head(int hd) {
+  return hd <= 0 || hd % 8 != 0 || hd > MAX_HD ? 0
+         : hd <= 32                            ? 32
+                                               : (hd + 63) / 64 * 64;
+}
+
+// HD is the padded head (32, 64, 128 or 192)
 template <int HD>
 struct Cfg {
   static constexpr int SWZ = HD >= 64 ? 128 : 64;  // swizzle span (bytes)
   static constexpr int BOX = SWZ / 2;              // hd columns per box
   static constexpr int NBOX = HD / BOX;
   static constexpr int LAYOUT = layout_of(SWZ);
-  static constexpr int BOX_BYTES = 128 * SWZ;      // one box of 128 rows
-  static constexpr int TILE = 128 * HD * 2;        // a Q, K or V tile
+  static constexpr int BK = HD > 128 ? 64 : 128;   // keys per KV tile
+  static constexpr int STAGES = HD > 128 ? 3 : 2;  // K/V ring depth
+  static constexpr int Q_BOX = BQ * SWZ;           // one box of the Q tile
+  static constexpr int KV_BOX = BK * SWZ;          // one box of a K/V tile
+  static constexpr int Q_TILE = BQ * HD * 2;
+  static constexpr int KV_TILE = BK * HD * 2;
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = TILE;
-  static constexpr int V_OFF = K_OFF + STAGES * TILE;
-  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  static constexpr int K_OFF = Q_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
   // + 1024 for aligning the dynamic shared memory's start
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-// S (64 query rows x 128 keys) = Q K^T over hd in steps of 16, both from
+// S (64 query rows x BK keys) = Q K^T over hd in steps of 16, both from
 // shared memory (K-major)
 template <int HD>
-__device__ __forceinline__ void issue_qk(float (&sc)[64],
+__device__ __forceinline__ void issue_qk(float (&sc)[Cfg<HD>::BK / 2],
                                          const uint8_t* q_rows,
                                          const uint8_t* ks) {
   using C = Cfg<HD>;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const int off =
-        (kk / (C::BOX / 16)) * C::BOX_BYTES + (kk % (C::BOX / 16)) * 32;
-    wgmma_ss_n128<0>(sc, desc(q_rows + off, 16, 8 * C::SWZ, C::LAYOUT),
-                     desc(ks + off, 16, 8 * C::SWZ, C::LAYOUT), kk > 0);
+    const int x = kk / (C::BOX / 16), in_box = (kk % (C::BOX / 16)) * 32;
+    wgmma_ss<C::BK, 0>(
+        sc, desc(q_rows + x * C::Q_BOX + in_box, 16, 8 * C::SWZ, C::LAYOUT),
+        desc(ks + x * C::KV_BOX + in_box, 16, 8 * C::SWZ, C::LAYOUT),
+        kk > 0);
   }
 }
 
-// O (64 x hd) += P (64 x 128 keys, bf16 registers) V over the keys in steps
+// O (64 x hd) += P (64 x BK keys, bf16 registers) V over the keys in steps
 // of 16; V (keys, hd) is the MN-major B operand
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[8][4],
-                                         const uint8_t* vs) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 2], const uint32_t (&pa)[Cfg<HD>::BK / 16][4],
+    const uint8_t* vs) {
   using C = Cfg<HD>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < C::BK / 16; ++kk)
     wgmma_rs<HD, 1>(o, pa[kk],
-                    desc(vs + kk * 16 * C::SWZ, C::BOX_BYTES, 8 * C::SWZ,
+                    desc(vs + kk * 16 * C::SWZ, C::KV_BOX, 8 * C::SWZ,
                          C::LAYOUT),
                     1);
 }
 
 // P rounded to bf16, as wgmma's A fragments of 16 keys each
-__device__ __forceinline__ void to_bf16(uint32_t (&pa)[8][4],
-                                        const float (&sc)[64]) {
+template <int KS>
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[KS][4],
+                                        const float (&sc)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
@@ -143,12 +170,14 @@ struct Softmax {
   float m0 = -1e30f, m1 = -1e30f, l0 = 0.0f, l1 = 0.0f;
   float corr0 = 1.0f, corr1 = 1.0f;
 
-  // one tile's scores in place -> probabilities.  diag: the causal tile,
-  // where the key of column c of the first row lies c + c0 past its query
-  __device__ __forceinline__ void step(float (&sc)[64], bool diag, int c0) {
+  // one tile's scores (R of them a thread) in place -> probabilities.
+  // diag: a tile that reaches past the rows' first query, where the key of
+  // column c of the first row lies c + c0 past its query
+  template <int R>
+  __device__ __forceinline__ void step(float (&sc)[R], bool diag, int c0) {
     if (diag) {
 #pragma unroll
-      for (int n = 0; n < 16; ++n)
+      for (int n = 0; n < R / 4; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           if (c0 + 8 * n + e > 0) sc[4 * n + e] = -1e30f;
@@ -157,7 +186,7 @@ struct Softmax {
     }
     float mx0 = -1e30f, mx1 = -1e30f;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < R / 4; ++n) {
       mx0 = fmaxf(mx0, fmaxf(sc[4 * n], sc[4 * n + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * n + 2], sc[4 * n + 3]));
     }
@@ -173,7 +202,7 @@ struct Softmax {
     const float b0 = mn0 * L2E, b1 = mn1 * L2E;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < R / 4; ++n) {
       sc[4 * n] = exp2f(fmaf(sc[4 * n], L2E, -b0));
       sc[4 * n + 1] = exp2f(fmaf(sc[4 * n + 1], L2E, -b0));
       sc[4 * n + 2] = exp2f(fmaf(sc[4 * n + 2], L2E, -b1));
@@ -213,6 +242,7 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_o, int T, int H,
                 int KV, float scale) {
   using C = Cfg<HD>;
+  constexpr int BK = C::BK, STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
@@ -226,7 +256,8 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
-  const int n_kv = qt + 1;  // KV tiles up to the diagonal
+  // KV tiles up to the diagonal, none past T
+  const int n_kv = (min(q0 + BQ, T) + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -243,22 +274,22 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x >= CONSUMERS) {
     // the producer warp: one lane issues every load
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, C::TILE);
+      mbar_expect_tx(q_full, C::Q_TILE);
       for (int x = 0; x < C::NBOX; ++x)
-        tma_load_4d(smem + C::Q_OFF + x * C::BOX_BYTES, &tm_q, q_full,
+        tma_load_4d(smem + C::Q_OFF + x * C::Q_BOX, &tm_q, q_full,
                     x * C::BOX, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % STAGES;
         const uint32_t parity = ((j / STAGES) - 1) & 1;  // the last use's
         if (j >= STAGES) mbar_wait(&k_empty[s], parity);
-        mbar_expect_tx(&k_full[s], C::TILE);
+        mbar_expect_tx(&k_full[s], C::KV_TILE);
         for (int x = 0; x < C::NBOX; ++x)
-          tma_load_4d(smem + C::K_OFF + s * C::TILE + x * C::BOX_BYTES, &tm_k,
+          tma_load_4d(smem + C::K_OFF + s * C::KV_TILE + x * C::KV_BOX, &tm_k,
                       &k_full[s], x * C::BOX, kvh, j * BK, b);
         if (j >= STAGES) mbar_wait(&v_empty[s], parity);
-        mbar_expect_tx(&v_full[s], C::TILE);
+        mbar_expect_tx(&v_full[s], C::KV_TILE);
         for (int x = 0; x < C::NBOX; ++x)
-          tma_load_4d(smem + C::V_OFF + s * C::TILE + x * C::BOX_BYTES, &tm_v,
+          tma_load_4d(smem + C::V_OFF + s * C::KV_TILE + x * C::KV_BOX, &tm_v,
                       &v_full[s], x * C::BOX, kvh, j * BK, b);
       }
     }
@@ -277,7 +308,7 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   // an elementwise pass); then make the writes visible to wgmma
   mbar_wait(q_full, 0);
   for (int x = 0; x < C::NBOX; ++x) {
-    uint4* p = reinterpret_cast<uint4*>(q_rows + x * C::BOX_BYTES);
+    uint4* p = reinterpret_cast<uint4*>(q_rows + x * C::Q_BOX);
     for (int e = t; e < 64 * C::SWZ / 16; e += 128) {
       uint4 val = p[e];
       __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(&val);
@@ -295,9 +326,10 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   float o[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
-  float sc[64];       // S of the tile, then its probabilities
-  uint32_t pa[8][4];  // the probabilities in bf16, as A fragments
+  float sc[BK / 2];         // S of the tile, then its probabilities
+  uint32_t pa[BK / 16][4];  // the probabilities in bf16, as A fragments
   Softmax sm;
+  const int first_q = q0 + 64 * wg;  // the warpgroup's first query row
 
   for (int j = 0; j < n_kv; ++j) {
     const int s = j % STAGES;
@@ -305,18 +337,18 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
     // S = Q K_j^T; the K buffer goes back to the producer at once
     mbar_wait(&k_full[s], parity);
     wgmma_fence();
-    issue_qk<HD>(sc, q_rows, smem + C::K_OFF + s * C::TILE);
+    issue_qk<HD>(sc, q_rows, smem + C::K_OFF + s * C::KV_TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(&k_empty[s]);
-    sm.step(sc, j == qt, j * BK + 2 * (lane % 4) - qpos);
+    sm.step(sc, j * BK + BK - 1 > first_q, j * BK + 2 * (lane % 4) - qpos);
     sm.rescale(o);
     to_bf16(pa, sc);
     // O += P V_j
     mbar_wait(&v_full[s], parity);
     wgmma_fence();
-    issue_pv<HD>(o, pa, smem + C::V_OFF + s * C::TILE);
+    issue_pv<HD>(o, pa, smem + C::V_OFF + s * C::KV_TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -338,7 +370,7 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
       const int sw = C::SWZ == 128 ? ((cb >> 4) ^ (r & 7))
                                    : ((cb >> 4) ^ ((r >> 1) & 3));
       const float lm = half ? lm1 : lm0;
-      *reinterpret_cast<uint32_t*>(q_rows + x * C::BOX_BYTES + r * C::SWZ +
+      *reinterpret_cast<uint32_t*>(q_rows + x * C::Q_BOX + r * C::SWZ +
                                    sw * 16 + (cb & 15)) =
           pack_bf16(o[4 * n + 2 * half] / lm, o[4 * n + 2 * half + 1] / lm);
     }
@@ -347,30 +379,33 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tm_q,
   named_barrier(1 + wg, 128);
   if (t == 0 && q0 + 64 * wg < T) {
     for (int x = 0; x < C::NBOX; ++x)
-      tma_store_4d(&tm_o, q_rows + x * C::BOX_BYTES, x * C::BOX, h,
+      tma_store_4d(&tm_o, q_rows + x * C::Q_BOX, x * C::BOX, h,
                    q0 + 64 * wg, b);
     tma_store_commit_and_wait();
   }
 }
 
+// HD: the padded head; hd: the true one, the maps' innermost dimension
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int T, int H, int KV, float scale, cudaStream_t stream) {
+           int T, int H, int KV, int hd, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   // (hd, heads, T, B), innermost first
-  const uint64_t dq[4] = {HD, (uint64_t)H, (uint64_t)T, (uint64_t)B};
-  const uint64_t sq[3] = {HD * 2, (uint64_t)H * HD * 2,
-                          (uint64_t)T * H * HD * 2};
-  const uint64_t dk[4] = {HD, (uint64_t)KV, (uint64_t)T, (uint64_t)B};
-  const uint64_t sk[3] = {HD * 2, (uint64_t)KV * HD * 2,
-                          (uint64_t)T * KV * HD * 2};
-  const uint32_t box_in[4] = {C::BOX, 1, BQ, 1};
+  const uint64_t row = (uint64_t)hd * 2;
+  const uint64_t dq[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)T,
+                          (uint64_t)B};
+  const uint64_t sq[3] = {row, H * row, (uint64_t)T * H * row};
+  const uint64_t dk[4] = {(uint64_t)hd, (uint64_t)KV, (uint64_t)T,
+                          (uint64_t)B};
+  const uint64_t sk[3] = {row, KV * row, (uint64_t)T * KV * row};
+  const uint32_t box_q[4] = {C::BOX, 1, BQ, 1};
+  const uint32_t box_kv[4] = {C::BOX, 1, C::BK, 1};
   const uint32_t box_out[4] = {C::BOX, 1, 64, 1};
   CUtensorMap mq, mk, mv, mo;
   int err;
-  if ((err = make_map(&mq, q, 4, dq, sq, box_in, C::SWZ)) != 0) return err;
-  if ((err = make_map(&mk, k, 4, dk, sk, box_in, C::SWZ)) != 0) return err;
-  if ((err = make_map(&mv, v, 4, dk, sk, box_in, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mq, q, 4, dq, sq, box_q, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mk, k, 4, dk, sk, box_kv, C::SWZ)) != 0) return err;
+  if ((err = make_map(&mv, v, 4, dk, sk, box_kv, C::SWZ)) != 0) return err;
   if ((err = make_map(&mo, out, 4, dq, sq, box_out, C::SWZ)) != 0) return err;
   static bool sized = false;  // the shared-memory limit, set once
   if (!sized) {
@@ -395,10 +430,11 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (KV <= 0 || H % KV != 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hd) {
-    case 32: return launch<32>(q, k, v, out, B, T, H, KV, scale, s);
-    case 64: return launch<64>(q, k, v, out, B, T, H, KV, scale, s);
-    case 128: return launch<128>(q, k, v, out, B, T, H, KV, scale, s);
+  switch (padded_head(hd)) {
+    case 32: return launch<32>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 64: return launch<64>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 128: return launch<128>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 192: return launch<192>(q, k, v, out, B, T, H, KV, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

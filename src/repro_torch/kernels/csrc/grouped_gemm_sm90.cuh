@@ -1,8 +1,11 @@
-// The grouped bf16 GEMM for Hopper (sm_90a) that grouped_ffn.cu launches
-// twice, over the capacity layout:
-//   C[g] = epilogue(A[g] @ B[g] [, A[g] @ B2[g]])
-//   A (G, M, K), B/B2 (G, K, N), C (G, M, N), bf16, fp32 accumulation
-// with the primitives of sm90.cuh:
+// The grouped bf16 GEMM for Hopper (sm_90a) that grouped_ffn.cu (capacity
+// layout) and grouped_ffn_ragged.cu (ragged layout) launch twice each:
+//   capacity: C[g] = epilogue(A[g] @ B[g] [, A[g] @ B2[g]])
+//             A (G, M, K), B/B2 (G, K, N), C (G, M, N)
+//   ragged:   C[rows] = epilogue(A[rows] @ B[g] [, A[rows] @ B2[g]]) for
+//             every row tile, g the group that owns the tile
+//             A (R, K), B/B2 (G, K, N), C (R, N)
+// bf16, fp32 accumulation, with the primitives of sm90.cuh:
 //  * one block per output tile of 64 WGS rows: one producer warp and WGS
 //    consumer warpgroups of 64 rows each (WGS = 2; 1 where M <= 64, as at
 //    decode, so no warpgroup runs on rows that are all padding);
@@ -18,6 +21,20 @@
 //  * blocks are numbered with the row tiles of one group and column tile
 //    next to each other, so a group's weights come from HBM once and from
 //    L2 for its other row tiles.
+// The ragged layout (repro_torch.core.dispatch.dispatch_ragged): each
+// group's rows start at a multiple of the layout's row tile (`tile` rows);
+// the rows of the alignment padding and past starts[G] are zeros.  A block
+// has one consumer warpgroup and takes `step` = min(tile, 64) rows of one
+// tile, so a block never straddles two groups: at prefill (tile 64) two
+// warpgroups of one 128-row block would often belong to two experts, whose
+// weights they would not share.  A's tensor map is 2-D over the flat rows
+// with a box of `step` rows: at decode (tile 8) the warpgroup's wgmma tile
+// is 64 rows of which the first 8 are the tile's and the other 56 hold
+// whatever the ring's stage held before; their rows of the product are
+// never stored (rows past m0 + step are not written).  The producer looks up
+// the tile's group in starts (tile_group) and loads that group's B.  Blocks
+// past starts[G] hold only zero rows, whose output is zero: they load
+// nothing; the first pass (h) skips them, the second writes their zeros.
 // Epilogues, on the fp32 accumulators before the one rounding to bf16:
 //  * EPI_GLU: act(A@B) * (A@B2), both accumulators of a 128-column tile
 //    side by side, so A is read once for both;
@@ -61,36 +78,74 @@ struct Tile {
 
 enum Epilogue { EPI_NONE = 0, EPI_ACT = 1, EPI_GLU = 2 };
 
+// the ragged layout's rows: starts == nullptr is the capacity layout
+struct Ragged {
+  const int* starts;  // (G+1,) aligned segment offsets
+  int G;              // groups
+  int tile;           // the layout's row tile
+  int step;           // rows per block, min(tile, 64)
+};
+
+// the group owning the tile that starts at row t0:
+// searchsorted(starts[0..G], t0, side="right") - 1, clipped to [0, G - 1]
+// (the ids repro.core.dispatch.ragged_tile_gids gives)
+__device__ __forceinline__ int tile_group(const int* starts, int G, int t0) {
+  int lo = 0, hi = G + 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(starts + mid) <= t0)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int g = lo - 1;
+  return g < 0 ? 0 : (g > G - 1 ? G - 1 : g);
+}
+
 __device__ __forceinline__ float act_fn(float v, int act) {
   if (act == 0) return v / (1.0f + expf(-v));  // SiLU
   const float c = 0.7978845608028654f;         // sqrt(2 / pi)
   return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
 }
 
-template <int EPI, int WGS>
+// RAGGED: rg describes the rows (M = R, and A's map is 2-D); otherwise the
+// capacity layout (A's map 3-D over (G, M, K)) and rg is unused
+template <int EPI, int WGS, bool RAGGED>
 __global__ void __launch_bounds__(Tile<WGS>::THREADS, 1)
 grouped_gemm_sm90(const __grid_constant__ CUtensorMap tm_a,
                   const __grid_constant__ CUtensorMap tm_b,
                   const __grid_constant__ CUtensorMap tm_b2,
                   bf16* __restrict__ C, int M, int N, int K, int m_tiles,
-                  int n_tiles, int act) {
+                  int n_tiles, int act, Ragged rg) {
   using L = Tile<WGS>;
-  constexpr int BM = L::BM, A_BYTES = L::A_BYTES;
   constexpr int STAGE_BYTES = L::STAGE_BYTES, CONSUMERS = L::CONSUMERS;
   constexpr int TN = EPI == EPI_NONE ? 2 * BN : BN;  // columns per tile
   constexpr bool TWO = EPI != EPI_ACT;                // a second B operand
+  static_assert(!RAGGED || WGS == 1, "a ragged block has one warpgroup");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* empty = full + STAGES;
 
+  const int rows = RAGGED ? rg.step : L::BM;  // rows the block loads, stores
   int id = blockIdx.x;  // row tiles fastest, then column tiles, then groups
-  const int m0 = (id % m_tiles) * BM;
+  const int m0 = (id % m_tiles) * rows;
   id /= m_tiles;
   const int n0 = (id % n_tiles) * TN;
-  const int g = id / n_tiles;
   const int nb2 = EPI == EPI_NONE ? n0 + BN : n0;  // B2's first column
   const int nk = K / BK;
+  if (RAGGED && m0 >= __ldg(rg.starts + rg.G)) {
+    // past the last segment: zero rows in, zeros out, no weight read
+    if (EPI == EPI_NONE)
+      for (int e = threadIdx.x; e < rows * (TN / 8); e += blockDim.x) {
+        const int col = n0 + (e % (TN / 8)) * 8;
+        if (col < N)
+          *reinterpret_cast<uint4*>(C + (size_t)(m0 + e / (TN / 8)) * N +
+                                    col) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    return;
+  }
+  const int g = RAGGED ? 0 : id / n_tiles;  // the capacity layout's group
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -108,20 +163,24 @@ grouped_gemm_sm90(const __grid_constant__ CUtensorMap tm_a,
     if (threadIdx.x == CONSUMERS) {
       const int nbox = n0 + 64 < N ? 2 : 1;
       const int nbox2 = !TWO ? 0 : (nb2 >= N ? 0 : nb2 + 64 < N ? 2 : 1);
-      const uint32_t bytes = A_BYTES + (nbox + nbox2) * BOX_B;
+      const uint32_t bytes = rows * BK * 2 + (nbox + nbox2) * BOX_B;
       const CUtensorMap* m2 = EPI == EPI_GLU ? &tm_b2 : &tm_b;
+      // A's group coordinate, and B's group
+      const int ga = RAGGED ? 0 : g;
+      const int gb =
+          RAGGED ? tile_group(rg.starts, rg.G, m0 - m0 % rg.tile) : g;
       for (int k = 0; k < nk; ++k) {
         const int s = k % STAGES;
         if (k >= STAGES) mbar_wait(&empty[s], ((k / STAGES) - 1) & 1);
         uint8_t* st = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], bytes);
-        tma_load_3d(st, &tm_a, &full[s], k * BK, m0, g);
+        tma_load_3d(st, &tm_a, &full[s], k * BK, m0, ga);
         for (int x = 0; x < nbox; ++x)
-          tma_load_3d(st + A_BYTES + x * BOX_B, &tm_b, &full[s], n0 + 64 * x,
-                      k * BK, g);
+          tma_load_3d(st + L::A_BYTES + x * BOX_B, &tm_b, &full[s],
+                      n0 + 64 * x, k * BK, gb);
         for (int x = 0; x < nbox2; ++x)
-          tma_load_3d(st + A_BYTES + B_BYTES + x * BOX_B, m2, &full[s],
-                      nb2 + 64 * x, k * BK, g);
+          tma_load_3d(st + L::A_BYTES + B_BYTES + x * BOX_B, m2, &full[s],
+                      nb2 + 64 * x, k * BK, gb);
       }
     }
     return;
@@ -146,11 +205,11 @@ grouped_gemm_sm90(const __grid_constant__ CUtensorMap tm_a,
       const uint64_t da = desc(a + 32 * kk, 16, 1024, 1);
       const int accumulate = k > 0 || kk > 0;
       wgmma_ss_n128<1>(acc, da,
-                       desc(st + A_BYTES + kk * 2048, BOX_B, 1024, 1),
+                       desc(st + L::A_BYTES + kk * 2048, BOX_B, 1024, 1),
                        accumulate);
       if constexpr (TWO)
         wgmma_ss_n128<1>(acc2, da,
-                         desc(st + A_BYTES + B_BYTES + kk * 2048, BOX_B,
+                         desc(st + L::A_BYTES + B_BYTES + kk * 2048, BOX_B,
                               1024, 1),
                          accumulate);
     }
@@ -165,15 +224,17 @@ grouped_gemm_sm90(const __grid_constant__ CUtensorMap tm_a,
   fence_regs(acc2);
   mbar_arrive(&empty[(nk - 1) % STAGES]);
 
-  // epilogue in registers, one rounding, 4-byte stores of column pairs
+  // epilogue in registers, one rounding, 4-byte stores of column pairs;
+  // ragged: only the block's own rows
   bf16* Cg = C + (size_t)g * M * N;
+  const int m_end = RAGGED ? m0 + rows : M;
 #pragma unroll
   for (int n = 0; n < BN / 8; ++n) {
     const int col = n0 + 8 * n + 2 * (lane % 4);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = m0 + 64 * wg + row + 8 * half;
-      if (r >= M) continue;
+      if (r >= m_end) continue;
       const int i = 4 * n + 2 * half;
       float v0 = acc[i], v1 = acc[i + 1];
       if (EPI == EPI_GLU) {
@@ -192,16 +253,19 @@ grouped_gemm_sm90(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-// One launch: C (G, M, N) = epilogue(A (G, M, K) @ B (G, K, N) [, B2]).
-// K and N multiples of 64.  Returns a cudaError_t.
-template <int EPI, int WGS>
+// One launch: C (G, M, N) = epilogue(A (G, M, K) @ B (G, K, N) [, B2]);
+// RAGGED: C (M, N) = epilogue(A (M, K) @ B (G, K, N) [, B2]) over rg's
+// tiles.  K and N multiples of 64.  Returns a cudaError_t.
+template <int EPI, int WGS, bool RAGGED>
 int launch(const bf16* A, const bf16* B, const bf16* B2, bf16* C, int G,
-           int M, int N, int K, int act, cudaStream_t stream) {
+           int M, int N, int K, int act, Ragged rg, cudaStream_t stream) {
   using L = Tile<WGS>;
-  constexpr int BM = L::BM, TN = EPI == EPI_NONE ? 2 * BN : BN;
-  const uint64_t da[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)G};
+  constexpr int TN = EPI == EPI_NONE ? 2 * BN : BN;
+  const int rows = RAGGED ? rg.step : L::BM;
+  const int ga = RAGGED ? 1 : G;  // A's groups
+  const uint64_t da[3] = {(uint64_t)K, (uint64_t)M, (uint64_t)ga};
   const uint64_t sa[2] = {(uint64_t)K * 2, (uint64_t)M * K * 2};
-  const uint32_t boxa[3] = {BK, BM, 1};
+  const uint32_t boxa[3] = {BK, (uint32_t)rows, 1};
   const uint64_t db[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)G};
   const uint64_t sb[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
   const uint32_t boxb[3] = {64, BK, 1};
@@ -215,25 +279,38 @@ int launch(const bf16* A, const bf16* B, const bf16* B2, bf16* C, int G,
   static bool sized = false;  // the shared-memory limit, set once
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
-        grouped_gemm_sm90<EPI, WGS>,
+        grouped_gemm_sm90<EPI, WGS, RAGGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
-  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + TN - 1) / TN;
-  const long long blocks = (long long)G * m_tiles * n_tiles;
+  const int m_tiles = (M + rows - 1) / rows, n_tiles = (N + TN - 1) / TN;
+  const long long blocks = (long long)ga * m_tiles * n_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  grouped_gemm_sm90<EPI, WGS>
+  grouped_gemm_sm90<EPI, WGS, RAGGED>
       <<<(unsigned)blocks, L::THREADS, L::SMEM_BYTES, stream>>>(
-          ma, mb, mb2, C, M, N, K, m_tiles, n_tiles, act);
+          ma, mb, mb2, C, M, N, K, m_tiles, n_tiles, act, rg);
   return (int)cudaGetLastError();
 }
 
+// the capacity layout: A (G, M, K), C (G, M, N)
 template <int EPI>
 int grouped_gemm(const bf16* A, const bf16* B, const bf16* B2, bf16* C,
                  int G, int M, int N, int K, int act, cudaStream_t stream) {
-  return M <= 64 ? launch<EPI, 1>(A, B, B2, C, G, M, N, K, act, stream)
-                 : launch<EPI, 2>(A, B, B2, C, G, M, N, K, act, stream);
+  const Ragged none{nullptr, 0, 0, 0};
+  return M <= 64
+             ? launch<EPI, 1, false>(A, B, B2, C, G, M, N, K, act, none,
+                                     stream)
+             : launch<EPI, 2, false>(A, B, B2, C, G, M, N, K, act, none,
+                                     stream);
+}
+
+// the ragged layout: A (R, K), C (R, N), B's group per row tile from rg
+template <int EPI>
+int ragged_gemm(const bf16* A, const bf16* B, const bf16* B2, bf16* C,
+                int R, int N, int K, int act, Ragged rg,
+                cudaStream_t stream) {
+  return launch<EPI, 1, true>(A, B, B2, C, rg.G, R, N, K, act, rg, stream);
 }
 
 }  // namespace ffn90

@@ -71,12 +71,12 @@ def _require(cond: bool, msg: str) -> None:
 
 def _aligned16(name: str, *ts: Optional[torch.Tensor]) -> None:
     """Raise unless every tensor's data starts on a 16-byte boundary, as
-    the TMA tensor maps of the Hopper kernels need."""
+    the kernels' 16-byte copies (TMA tensor maps, cp.async) need."""
     for t in ts:
         if t is not None and t.data_ptr() % 16 != 0:
-            raise ValueError(f"{name}: TMA needs 16-byte aligned data, got "
-                             f"a tensor at {t.data_ptr():#x} (a view at an "
-                             f"odd offset? pass a fresh copy)")
+            raise ValueError(f"{name}: the kernel needs 16-byte aligned "
+                             f"data, got a tensor at {t.data_ptr():#x} (a "
+                             f"view at an odd offset? pass a fresh copy)")
 
 
 def _forward_only(name: str, *ts: Optional[torch.Tensor]) -> None:
@@ -366,7 +366,8 @@ def grouped_ffn(x: torch.Tensor, w1: torch.Tensor, w3: Optional[torch.Tensor],
     return y
 
 
-# grouped_ffn_ragged.cu: a block takes min(block, 64) rows of one tile
+# grouped_ffn_ragged.cu: a block takes min(block, 64) rows of one tile (one
+# wgmma warpgroup)
 RAGGED_MAX_ROWS_PER_BLOCK = 64
 
 
@@ -384,9 +385,10 @@ def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
     (G+1,) int32 ascending segment offsets, each a multiple of ``block``;
     w1/w3: (G, d, f); w2: (G, f, d), in rows' dtype.  On the card: bf16,
     d and f multiples of 64, ``block`` a multiple of 8 that is at most 64
-    or a multiple of 64.  The kernel writes zeros for the tiles past
-    ``group_starts[G]`` without reading their weights: their rows are
-    zeros, so the FFN would give zeros there too.
+    or a multiple of 64, and every tensor's data 16-byte aligned (TMA).
+    The kernel writes zeros for the tiles past ``group_starts[G]`` without
+    reading their weights: their rows are zeros, so the FFN would give
+    zeros there too.
     """
     ws = (w1, w2) + (() if w3 is None else (w3,))
     _require(all(w.dtype == rows.dtype for w in ws), f"grouped_ffn_ragged: "
@@ -427,8 +429,7 @@ def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
              f"most 64 or a multiple of 64, got {block}")
     _require(R % block == 0, f"grouped_ffn_ragged: R={R} is not a multiple "
              f"of block={block}")
-    _require(R // step <= 65535, f"grouped_ffn_ragged: at most 65535 row "
-             f"blocks, got {R // step}")
+    _aligned16("grouped_ffn_ragged", rows, w1, w3, w2)
     y = torch.empty_like(rows)
     if R == 0:
         return y
@@ -444,8 +445,20 @@ def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
     return y
 
 
-# flash_attn.cu: head sizes it is instantiated for
-FLASH_HEAD_DIMS = (32, 64, 128)
+# flash_attn.cu: the widest padded head it is instantiated at
+FLASH_MAX_HEAD_DIM = 192
+
+
+def flash_padded_head(hd: int) -> int:
+    """The head size the flash kernel runs ``hd`` at: 32 for hd <= 32,
+    else hd rounded up to a multiple of 64 (the 64-column TMA box), up to
+    :data:`FLASH_MAX_HEAD_DIM`; the columns past hd load as zeros.  hd must
+    be a positive multiple of 8 (rows of 16 bytes, as TMA strides need);
+    anything else raises ``ValueError``."""
+    _require(0 < hd <= FLASH_MAX_HEAD_DIM and hd % 8 == 0,
+             f"flash_attention: hd must be a positive multiple of 8 up to "
+             f"{FLASH_MAX_HEAD_DIM}, got {hd}")
+    return 32 if hd <= 32 else -(-hd // 64) * 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -456,10 +469,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     assumes the positions are ``0..T-1``.
 
     On the CPU: the plain version on KV heads repeated H / KV times (as the
-    JAX wrapper repeats them).  On the card: bf16, hd in
-    :data:`FLASH_HEAD_DIMS`, 16-byte aligned data (TMA); the kernel reads
-    each query head's KV head directly, scales q in bf16 and rounds the
-    probabilities to bf16 before PV, as the Pallas body does.
+    JAX wrapper repeats them).  On the card: bf16, hd a multiple of 8 up to
+    :data:`FLASH_MAX_HEAD_DIM` (run at :func:`flash_padded_head`), 16-byte
+    aligned data (TMA); the kernel reads each query head's KV head
+    directly, scales q in bf16 and rounds the probabilities to bf16 before
+    PV, as the Pallas body does.
     """
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
              f"flash_attention: q (B, T, H, hd), k/v (B, T, KV, hd), got "
@@ -482,8 +496,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                  f"the card, got {t.dtype}")
         _require(t.is_contiguous(), "flash_attention: inputs must be "
                  "contiguous")
-    _require(hd in FLASH_HEAD_DIMS, f"flash_attention: hd must be one of "
-             f"{FLASH_HEAD_DIMS}, got {hd}")
+    flash_padded_head(hd)
     _require(B <= 65535 and H <= 65535, f"flash_attention: at most 65535 "
              f"batch rows and heads, got B={B}, H={H}")
     _aligned16("flash_attention", q, k, v)
@@ -508,7 +521,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The WKV6 recurrence.  r/k/v/w: (B, T, nh, hd); u: (nh, hd); s0:
     (B, nh, hd, hd).  Returns ``(y (B, T, nh, hd), s_last (B, nh, hd,
     hd))``, fp32 (see :func:`repro_torch.kernels.ref.rwkv6_scan_ref`).  On
-    the card: every input fp32 and contiguous, hd = 64."""
+    the card: every input fp32, contiguous and 16-byte aligned (the
+    kernel reads them 16 bytes at a time), hd = 64."""
     if _on_cpu(r, k, v, w, u, s0):
         return ref.rwkv6_scan_ref(r, k, v, w, u, s0)
     _forward_only("rwkv6_scan", r, k, v, w, u, s0)
@@ -526,6 +540,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require(t.is_contiguous(), "rwkv6_scan: inputs must be contiguous")
     _require(hd == RWKV_HEAD_DIM, f"rwkv6_scan: the kernel takes hd="
              f"{RWKV_HEAD_DIM}, got {hd}")
+    _aligned16("rwkv6_scan", r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_last = torch.empty_like(s0)
     lib = _build.load("rwkv6_scan")

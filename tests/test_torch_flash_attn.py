@@ -79,9 +79,12 @@ def _as(dtype, *arrays):
             [torch.from_numpy(a).to(td) for a in arrays])
 
 
-# (B, T, H, KV, hd): T = 1, ragged T < 128, T = 128, two 128-blocks, GQA
+# (B, T, H, KV, hd): T = 1, ragged T < 128, T = 128, two 128-blocks, GQA;
+# then the head sizes of zamba2-2.7b (80), phi3-vision (96) and stablelm-12b
+# (160), which the card's kernel runs padded (see ops.flash_padded_head)
 SHAPES = [(1, 1, 2, 2, 16), (2, 24, 4, 2, 64), (1, 128, 4, 1, 64),
-          (2, 256, 2, 2, 128), (1, 128, 8, 2, 128)]
+          (2, 256, 2, 2, 128), (1, 128, 8, 2, 128),
+          (1, 128, 4, 4, 80), (2, 64, 4, 2, 96), (1, 256, 4, 1, 160)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -122,6 +125,22 @@ def test_chunked_attention_kernel_branch_matches_jax(T, H, KV, dtype, hd):
                                    rtol=1e-5, atol=1e-5)
     else:
         assert_within_one_bf16_ulp(got, want)
+
+
+# the flash kernel's head-size rule: any positive multiple of 8 up to 192,
+# run at 32 (hd <= 32) or at hd rounded up to the 64-column TMA box
+@pytest.mark.parametrize("hd,padded", [(8, 32), (16, 32), (32, 32), (40, 64),
+                                       (64, 64), (72, 128), (80, 128),
+                                       (96, 128), (128, 128), (136, 192),
+                                       (160, 192), (192, 192)])
+def test_flash_padded_head(hd, padded):
+    assert ops.flash_padded_head(hd) == padded
+
+
+@pytest.mark.parametrize("hd", [0, -8, 4, 12, 52, 100, 200, 256])
+def test_flash_padded_head_refuses(hd):
+    with pytest.raises(ValueError, match="multiple of 8 up to 192"):
+        ops.flash_padded_head(hd)
 
 
 @pytest.mark.parametrize("T", [130, 200, 384 + 64])

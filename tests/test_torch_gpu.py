@@ -119,6 +119,13 @@ def _ragged_rows(G, block, lens, tail, d, dev, g):
     ([20, 40, 0, 33], 16, 1, 64, 128, True, "gelu"),
     ([70, 5, 64], 32, 2, 256, 128, True, "silu"),
     ([130, 0, 64, 1], 128, 1, 128, 64, True, "gelu"),  # 64 rows a block
+    # 8-row tiles of different experts next to each other: a tile's 64-row
+    # wgmma tile holds the next 7 tiles (other experts, then tail zeros),
+    # none of which it may store
+    ([8, 3, 8, 1, 7, 8, 2, 5, 8, 4], 8, 2, 128, 128, True, "silu"),
+    # a full 64-row segment, then other experts, an empty one among them
+    ([64, 10, 0, 64, 1], 64, 1, 128, 128, True, "gelu"),
+    ([0, 64, 0, 0, 30], 64, 0, 64, 192, False, "silu"),  # empty first experts
 ])
 def test_grouped_ffn_ragged_kernel(lens, block, tail, d, f, glu, act):
     dev = _card()
@@ -394,7 +401,14 @@ def _assert_flash_close(got, want):
     # tiles; 8 query heads per KV head; T 384, an odd number of 128-row
     # query and KV tiles (so the 2-stage K/V ring wraps mid-loop)
     (2, 512, 4, 2, 32), (1, 640, 4, 1, 64), (1, 512, 16, 2, 128),
-    (2, 384, 8, 2, 128), (1, 384, 4, 4, 64)])
+    (2, 384, 8, 2, 128), (1, 384, 4, 4, 64),
+    # head sizes run padded (TMA loads the columns past hd as zeros): 80 and
+    # 96 at 128, 160 at 192 with 64-key tiles and a 3-stage ring; 8 and 40
+    # at 32 and 64; GQA, T 384 (the ring wraps), T < 128
+    (1, 256, 4, 4, 80), (2, 384, 8, 2, 96), (1, 384, 8, 2, 160),
+    (2, 512, 4, 4, 160), (1, 64, 2, 1, 160), (2, 96, 4, 2, 160),
+    (1, 24, 2, 2, 96),
+    (1, 128, 2, 2, 8), (1, 256, 4, 2, 40)])
 def test_flash_attention_kernel(B, T, H, KV, hd):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(T + H)
@@ -415,9 +429,11 @@ def test_flash_attention_kernel(B, T, H, KV, hd):
 @pytest.mark.gpu
 def test_flash_attention_kernel_limits():
     dev = _card()
-    q = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="hd must be one of"):
-        ops.flash_attention(q, q, q)
+    # head sizes the rule refuses: not a multiple of 8, past the widest
+    for hd in (52, 200):
+        q = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="multiple of 8 up to 192"):
+            ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev),) * 3)
     # TMA reads from 16-byte boundaries: a view 2 bytes in is refused
@@ -428,7 +444,9 @@ def test_flash_attention_kernel_limits():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,T,nh", [(1, 1, 1), (2, 37, 3), (2, 300, 4)])
+@pytest.mark.parametrize("B,T,nh", [(1, 1, 1), (2, 37, 3), (2, 300, 4),
+                                    (4, 512, 32),
+                                    (3, 1000, 5)])   # T off the 32-step chunk
 def test_rwkv6_scan_kernel(B, T, nh):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(T)
@@ -443,8 +461,9 @@ def test_rwkv6_scan_kernel(B, T, nh):
     y, s_last = ops.rwkv6_scan(r, k, v, w, u, s0)
     assert ops.rwkv6_scan.launches == n + 1
     wy, ws = ref.rwkv6_scan_ref(r, k, v, w, u, s0)
-    # the readout sums over i in another order: fp32 rounding of terms that
-    # reach ~30, so atol scales with the largest output
+    # the readout sums over i in another order, with the bonus factored out
+    # as v_j * sum_i r_i u_i k_i: fp32 rounding of terms that reach ~30, so
+    # atol scales with the largest output
     torch.testing.assert_close(y, wy, rtol=1e-5,
                                atol=1e-6 * wy.abs().max().item())
     # the state update rounds w * S, then + k v, as the plain version
