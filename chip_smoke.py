@@ -14,13 +14,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (smile-3.7b at full width, grid (16, 8), batch 16 x seq 128: the routers
    (2048, 768) x (768, 16) and (4096, 768) x (768, 8), the sorts 2,048 keys
    over 17 values and 4,096 over 129; plus the Switch baseline's flat
-   router over 128 experts, a bf16 case with ties, and a 2**20-key sort;
-   and the ragged grouped FFN at the dropless serve's hop-2 shapes, on the
-   layout of a real dispatch_ragged: 18,432 rows of which 8,192 real at
-   prefill, 1,344 of which 64 at decode; and the grouped FFN at phase 9's
-   hop-2 capacity, 128 groups of 2,048 rows): errors, and times from CUDA
-   events beside the least time the card could take and the library
-   call's, with the kernel's ratio to each.
+   router over 128 experts, a bf16 case with ties, sorts at the edge of the
+   one-launch route (4,096 keys) and one past it, one with every key
+   equal, and 2**20-key sorts over 129 and 8,192 values; and the ragged grouped FFN at the dropless
+   serve's hop-2 shapes, on the layout of a real dispatch_ragged: 18,432
+   rows of which 8,192 real at prefill, 1,344 of which 64 at decode; and
+   the grouped FFN at phase 9's hop-2 capacity, 128 groups of 2,048 rows):
+   errors, and times from CUDA events beside the least time the card could
+   take and the library call's, with the kernel's ratio to each.  The
+   gathers are timed cold (an L2 flush before each call).  Each routing
+   call's CUDA kernels are listed by name with their device times: one a
+   call at the training shapes, or the run fails.  Then both routes of the
+   counting sort, each forced, up to the one-launch edge; last, the launch
+   floor: an empty kernel through the same ctypes path.
 3. The path: ``repro_torch.launch.serve.serve`` on qwen3-moe-30b-a3b at full
    width with the depth cut to 4 of 48 layers, random weights from seed 0,
    batch 8, prompt 128, 32 new tokens.  Every kernel must have launched in
@@ -35,9 +41,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    grid (16, 8), ``router_impl="fused"``, ``sort_impl="radix"``, batch 16 x
    seq 128, random weights from seed 0: one warm-up step, 3 timed steps,
    then 2 more steps of the same run under the profiler, for the device
-   time by kernel.  Both routing kernels must launch 24 times a step (6 MoE
-   layers x 2 hops, forward and remat recompute), loss and gradient norm
-   must be finite.
+   time by kernel and the routing kernels' CUDA launches a step.  Both
+   routing wrappers must be called 24 times a step (6 MoE layers x 2 hops,
+   forward and remat recompute), loss and gradient norm must be finite.
 6. Card against CPU, training: reduced smile-3.7b, 3 steps from the same
    weights and batches on the CPU (plain versions) and on the card
    (kernels), each step's loss within 3e-2.
@@ -137,8 +143,24 @@ ROUTER_SHAPES = [("train hop-1", 2048, 16, 1, "bf16", False),
                  ("train hop-2", 4096, 8, 1, "bf16", False),
                  ("switch flat", 2048, 128, 1, "bf16", False),
                  ("bf16 ties k2", 2048, 16, 2, "bf16", True)]
-SORT_SHAPES = [("train hop-1", 2048, 17), ("train hop-2", 4096, 129),
-               ("2**20 keys", 1 << 20, 129)]
+# (name, A, keys, draw): "skew" puts a third of the keys on one value, as a
+# hot expert; "equal" puts them all on one.  4,096 is the largest A the
+# one-launch route takes (ops.SORT_ONE_MAX_A), one more the smallest that
+# takes three launches; 2**20 keys run three launches at 129 key values
+# and at the most the kernel takes
+SORT_SHAPES = [("train hop-1", 2048, 17, "skew"),
+               ("train hop-2", 4096, 129, "skew"),
+               ("all equal", 4096, 129, "equal"),
+               ("one-launch edge", 4096, 17, "skew"),
+               ("past the edge", 4097, 17, "skew"),
+               ("2**20 keys", 1 << 20, 129, "skew"),
+               ("2**20 over 8192", 1 << 20, 8192, "skew")]
+# both sort routes, each forced, at these key counts (up to the one-launch
+# edge) and key values: whether one launch still pays at its edge
+SORT_CROSSOVER_A = (1024, 2048, 3072, 4096)
+SORT_CROSSOVER_K = (17, 129, 1024)
+# the training path's shapes, where one call must launch one kernel
+ONE_KERNEL_SHAPES = ("train hop-1", "train hop-2")
 # the router's logits are fp32 sums of 768 products; the kernel and cuBLAS
 # (TF32 off) each land up to ~1e-6 from the fp64 product at these shapes
 # (measured on the card: 8.8e-7 and 9.7e-7), in other directions, so their
@@ -207,6 +229,10 @@ QWEN_P90, QWEN_FLIPPED = 2e-2, 0.05
 RWKV_LOGITS_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
+# profiler windows kernel_times takes before it falls back to per-launch means
+PROFILE_WINDOWS = 5
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,35 +241,135 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, flush=None) -> float:
+    """CUDA-event time per call of ``fn``: over ``iters`` calls in a row,
+    or, with ``flush``, over each call alone after ``flush()`` has pushed
+    its data out of L2."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters: int = 20) -> float:
-    """Device time per call of the kernels ``fn`` launches (profiler, CUDA
-    activity only): the card's own time, without the host's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    if flush is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
+        return start.elapsed_time(end) / iters
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def kernel_times(torch, fn, iters: int = 20, flush=None):
+    """``{kernel name: (device ms, launches)}`` per call of ``fn``, from the
+    profiler's CUDA activity: the card's own time, without the host's.
+    With ``flush``, ``flush()`` runs before each call and its kernels are
+    left out by name (:class:`L2Flush`)."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    skip = flush.names if flush is not None else set()
+
+    def body():
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+
+    # the profiler at times drops launches from a window (17 of 20 calls'
+    # kernels, three windows in a row, late in phase 2): each window is
+    # padded with idle host time at both ends, and a window in which a
+    # kernel did not launch a whole number of times a call is taken again
+    best = {}
+    for window in range(PROFILE_WINDOWS):
+        out = {}
+        for e in profile_window(torch, body).key_averages():
+            if e.device_type == DeviceType.CUDA and e.key not in skip:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                us0, n = out.get(e.key, (0.0, 0))
+                out[e.key] = (us0 + us, n + e.count)
+        if out and all(n % iters == 0 for _, n in out.values()):
+            if window:
+                print(f"    (the profiler dropped launches in {window} "
+                      f"window(s) before this one)")
+            return {k: (us / iters / 1e3, n // iters)
+                    for k, (us, n) in out.items()}
+        if (sum(n for _, n in out.values())
+                > sum(n for _, n in best.values())):
+            best = out
+    # every window lost some: each kernel's launches a call rounded, its
+    # time the mean of the launches the profiler kept
+    got = {k: (us / n * max(1, round(n / iters)) / 1e3,
+               max(1, round(n / iters))) for k, (us, n) in best.items()}
+    if not got:
+        raise RuntimeError("the profiler saw no kernel in "
+                           f"{PROFILE_WINDOWS} windows")
+    print(f"    (the profiler dropped launches in {PROFILE_WINDOWS} "
+          f"windows; kept {sum(n for _, n in best.values())} of "
+          f"{iters * sum(c for _, c in got.values())}: per-launch means)")
+    return got
+
+
+def profile_window(torch, body, pad_s: float = 0.005):
+    """A profiler window of CUDA activity around ``body()``, with
+    ``pad_s`` of idle host time before the first launch and after the
+    last kernel has finished."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        body()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    return prof
+
+
+def device_ms(torch, fn, iters: int = 20, flush=None) -> float:
+    """Device time per call of the kernels ``fn`` launches (see
+    :func:`kernel_times`)."""
+    return sum(ms for ms, _ in kernel_times(torch, fn, iters, flush).values())
+
+
+class L2Flush:
+    """A write of zeros over a buffer twice the card's 50 MB L2, so that
+    the next call finds its data in device memory, as a call on the path
+    does after the layer's other work.  ``names`` holds its kernels' names,
+    which :func:`kernel_times` leaves out."""
+
+    def __init__(self, torch):
+        from torch.autograd import DeviceType
+        self.buf = torch.empty((100 << 20,), dtype=torch.uint8, device="cuda")
+        self()
+        torch.cuda.synchronize()
+
+        def body():
+            for _ in range(5):
+                self()
+
+        self.names = {e.key for e in profile_window(torch, body)
+                      .key_averages() if e.device_type == DeviceType.CUDA}
+
+    def __call__(self):
+        self.buf.zero_()
+
+
+def split_line(split) -> str:
+    """A kernel split as 'n kernels a call: name ms (launches), ...'."""
+    n = sum(c for _, c in split.values())
+    parts = ", ".join(f"{name[:60]} {ms:.4f} ms x{c:g}"
+                      for name, (ms, c) in sorted(split.items(),
+                                                  key=lambda kv: -kv[1][0]))
+    return f"{n:g} kernels a call: {parts}"
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -278,6 +404,10 @@ def phase_kernels(torch, ops, ref):
     def record(name, shape, got, want, ms, plain_ms, b, library_ms=None):
         add_row(rows, name, shape, got, want, ms, plain_ms, b, library_ms)
 
+    # the gathers are timed cold (an L2 flush before each call): on the
+    # path the layer's other work has pushed their rows out of L2, and
+    # warm, the rows of a 1,024-token hop fit in it and beat HBM's bound
+    flush = L2Flush(torch)
     for shape, (t, R, k) in GATHER_SHAPES.items():
         # dispatch: x (t, d) -> (R, d); a quarter of the slots empty
         x = torch.randn((t, D_MODEL), generator=gen, device=dev).to(bf)
@@ -292,12 +422,16 @@ def phase_kernels(torch, ops, ref):
             raise AssertionError(f"dispatch_gather {shape}: not bit-exact")
         used = torch.unique(src[src >= 0]).numel()
         nbytes = used * D_MODEL * 2 + R * 4 + R * D_MODEL * 2
-        print(f"  dispatch_gather {shape}: device time "
-              f"{device_ms(torch, lambda: ops.dispatch_gather(x, src)):.4f} "
-              f"ms a call")
+
+        def dispatch():
+            return ops.dispatch_gather(x, src)
+
+        print(f"  dispatch_gather {shape}: device time, L2 flushed before "
+              f"each call {device_ms(torch, dispatch, flush=flush):.4f} ms, "
+              f"warm {device_ms(torch, dispatch):.4f} ms a call")
         record("dispatch_gather", shape, got, want,
-               time_ms(lambda: ops.dispatch_gather(x, src)),
-               time_ms(lambda: ref.dispatch_gather_ref(x, src)),
+               time_ms(dispatch, flush=flush),
+               time_ms(lambda: ref.dispatch_gather_ref(x, src), flush=flush),
                bound(nbytes, 0, FP32_FLOPS))
 
         # combine: the hop's R buffer rows back to its t tokens, k each
@@ -319,13 +453,19 @@ def phase_kernels(torch, ops, ref):
         valid = int((csrc >= 0).sum())
         used = torch.unique(csrc[csrc >= 0]).numel()
         nbytes = used * D_MODEL * 2 + t * k * 8 + t * D_MODEL * 2
-        print(f"  combine_gather  {shape}: device time "
-              f"{device_ms(torch, lambda: ops.combine_gather(buf, csrc, scale)):.4f}"
-              f" ms a call")
+
+        def combine():
+            return ops.combine_gather(buf, csrc, scale)
+
+        print(f"  combine_gather  {shape}: device time, L2 flushed before "
+              f"each call {device_ms(torch, combine, flush=flush):.4f} ms, "
+              f"warm {device_ms(torch, combine):.4f} ms a call")
         record("combine_gather", shape, got, want,
-               time_ms(lambda: ops.combine_gather(buf, csrc, scale)),
-               time_ms(lambda: ref.combine_gather_ref(buf, csrc, scale)),
+               time_ms(combine, flush=flush),
+               time_ms(lambda: ref.combine_gather_ref(buf, csrc, scale),
+                       flush=flush),
                bound(nbytes, 2.0 * valid * D_MODEL, FP32_FLOPS))
+    del flush
 
     for shape, (G, T) in FFN_SHAPES.items():
         x = torch.randn((G, T, D_MODEL), generator=gen, device=dev).to(bf)
@@ -461,10 +601,22 @@ def check_router(torch, ref, got, want, k, shape):
 
 
 def phase_routing_kernels(torch, ops, ref, rows):
-    """The training path's two kernels against their plain versions."""
+    """The training path's two kernels against their plain versions, each
+    call's kernels by name from the profiler (a call at the path's shapes
+    must launch exactly one)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
     d = 768
+
+    def split(what, shape, fn):
+        got = kernel_times(torch, fn)
+        print(f"    {what} {shape}: {split_line(got)}")
+        n = sum(c for _, c in got.values())
+        if shape in ONE_KERNEL_SHAPES and n != 1:
+            raise AssertionError(f"{what} {shape}: {n:g} kernels a call, "
+                                 f"expected 1")
+        return sum(ms for ms, _ in got.values())
+
     for shape, t, E, k, _, ties in ROUTER_SHAPES:
         x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn((d, E), generator=gen, device=dev) / d ** 0.5
@@ -477,44 +629,99 @@ def phase_routing_kernels(torch, ops, ref, rows):
         torch.cuda.synchronize()
         closer = check_router(torch, ref, got, want, k, shape)
         exact = x.double() @ w.double()
+
+        def kernel():
+            return ops.router_fused(x, w, k)
+
+        dms = split("router_fused", shape, kernel)
         print(f"  router_fused    {shape}: {closer} of {t} rows have top-"
               f"{k + 1} probabilities within 1e-6; logits max abs err "
               f"against fp64: kernel "
               f"{(got[3].double() - exact).abs().max().item():.3e}, plain "
               f"{(want[3].double() - exact).abs().max().item():.3e}; device "
-              f"time {device_ms(torch, lambda: ops.router_fused(x, w, k)):.4f}"
-              f" ms a call")
+              f"time {dms:.4f} ms a call")
         nbytes = (t * d * 2 + d * E * 4 + 2 * t * E * 4 + 3 * t * k * 4
                   + (E + 1) * 4)
         add_row(rows, "router_fused", shape,
                 torch.cat([got[3].flatten(), got[2].flatten()]),
                 torch.cat([want[3].flatten(), want[2].flatten()]),
-                time_ms(lambda: ops.router_fused(x, w, k)),
-                time_ms(lambda: ref.router_fused_ref(x, w, k)),
+                time_ms(kernel), time_ms(lambda: ref.router_fused_ref(x, w, k)),
                 bound(nbytes, 2.0 * t * d * E, FP32_FLOPS))
-    for shape, A, K in SORT_SHAPES:
-        keys = torch.randint(0, K, (A,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        # a skewed draw: a third of the keys on one value, as a hot expert
-        hot = torch.rand((A,), generator=gen, device=dev) < 1 / 3
-        keys = torch.where(hot, torch.full_like(keys, K // 3), keys)
+    for shape, A, K, draw in SORT_SHAPES:
+        keys = sort_keys(torch, gen, A, K, draw)
         got = ops.group_sort(keys, K, impl="radix")
         want = ref.group_sort_ref(keys, K)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                              want[1])):
             raise AssertionError(f"group_sort {shape}: not bit-exact")
-        dms = device_ms(torch, lambda: ops.group_sort(keys, K, impl="radix"))
+
+        def kernel():
+            return ops.group_sort(keys, K, impl="radix")
+
+        dms = split("group_sort", shape, kernel)
         lib_dms = device_ms(torch, lambda: torch.sort(keys, stable=True))
-        print(f"  group_sort      {shape}: device time {dms:.4f} ms a call; "
-              f"torch.sort(stable=True) {lib_dms:.4f} ms (kernel "
-              f"{dms / lib_dms:.2f}x of it)")
+        print(f"  group_sort      {shape}: {A} keys over {K}, "
+              f"{ops.sort_route(A, K)}; bit-exact; device "
+              f"time {dms:.4f} ms a call; torch.sort(stable=True) "
+              f"{lib_dms:.4f} ms (kernel {dms / lib_dms:.2f}x of it)")
         add_row(rows, "group_sort", shape, torch.cat(got).float(),
-                torch.cat(want).float(),
-                time_ms(lambda: ops.group_sort(keys, K, impl="radix")),
+                torch.cat(want).float(), time_ms(kernel),
                 time_ms(lambda: ref.group_sort_ref(keys, K)),
                 bound(8.0 * A + 4.0 * (K + 1), 0, FP32_FLOPS),
                 time_ms(lambda: torch.sort(keys, stable=True)))
+
+
+def sort_keys(torch, gen, A, K, draw):
+    """A keys in [0, K) as SORT_SHAPES' ``draw`` says."""
+    dev = torch.device("cuda")
+    if draw == "equal":
+        return torch.full((A,), K // 3, dtype=torch.int32, device=dev)
+    keys = torch.randint(0, K, (A,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    hot = torch.rand((A,), generator=gen, device=dev) < 1 / 3
+    return torch.where(hot, torch.full_like(keys, K // 3), keys)
+
+
+def phase_sort_crossover(torch, ops, ref):
+    """Both routes of the counting sort, each forced, held bit-exact and
+    timed on the device at SORT_CROSSOVER_A x SORT_CROSSOVER_K, up to
+    the one-launch route's edge."""
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    for K in SORT_CROSSOVER_K:
+        cells = []
+        for A in SORT_CROSSOVER_A:
+            keys = sort_keys(torch, gen, A, K, "skew")
+            want = ref.group_sort_ref(keys, K)
+            times = []
+            for route in (ops._one_launch_route(A),
+                          ops._three_launch_route(A, K)):
+                got = ops._group_sort_cuda(keys, K, route)
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"group_sort {A} keys over {K}, "
+                                         f"{route}: not bit-exact")
+                times.append(device_ms(
+                    torch, lambda: ops._group_sort_cuda(keys, K, route)))
+            cells.append(f"{A} {times[0]:.4f}/{times[1]:.4f}")
+        print(f"  group_sort routes over {K} values, keys one/three-launch "
+              f"device ms: {', '.join(cells)}")
+
+
+def phase_launch_floor(torch, ops):
+    """An empty kernel launched through the kernels' ctypes path: the least
+    device time and CUDA-event time that any one-launch kernel pays."""
+    from repro_torch.kernels import _build
+    lib = _build.load("group_sort")
+
+    def empty():
+        ops._check(lib.launch_floor(ops._stream()), "launch_floor")
+
+    dms = device_ms(torch, empty, iters=100)
+    ms = time_ms(empty, iters=100)
+    print(f"  launch floor (an empty kernel through ctypes): device "
+          f"{dms:.4f} ms, CUDA events {ms:.4f} ms a call")
+    return dms, ms
 
 
 SERVE = dict(arch="qwen3-moe-30b-a3b", reduced=False, num_layers=4,
@@ -590,14 +797,16 @@ def phase_warm(torch, first, profiled_tokens=None):
 
 
 def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
-                    shares=()):
+                    shares=(), counted=()):
     """Device time by kernel, idle share, and the host's op, launch and
     synchronization counts per ``unit`` from a profiled run of ``n`` units
     that took ``wall_us``; for each name in ``shares``, the share of the
-    busy time of the kernels whose names hold it.  Returns the device busy
-    time in us."""
+    busy time of the kernels whose names hold it; for each name in
+    ``counted``, the launches per ``unit`` of the kernels whose names hold
+    it.  Returns the device busy time in us and ``{name: launches per
+    unit}`` for ``counted``."""
     from torch.autograd import DeviceType
-    dev, runtime = {}, {}
+    dev, runtime, count = {}, {}, {}
     for e in prof.key_averages():
         # device-side kernel entries only: a CPU op's entry repeats the time
         # of the kernels it launched, and a profiler range's device span
@@ -607,6 +816,7 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             dev[e.key] = dev.get(e.key, 0.0) + us
+            count[e.key] = count.get(e.key, 0) + e.count
         elif e.key.startswith("cuda"):
             runtime[e.key] = runtime.get(e.key, 0) + e.count
     busy = sum(dev.values())
@@ -628,7 +838,14 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
         us = sum(v for k, v in dev.items() if part in k)
         print(f"  {part}: {us / 1e3:.3f} ms of device time per {n} {unit}s, "
               f"{100 * us / max(busy, 1e-9):.1f}% of busy")
-    return busy
+    per_unit = {}
+    for part in counted:
+        names = {k: c for k, c in count.items() if part in k}
+        per_unit[part] = sum(names.values()) / n
+        print(f"  kernels named *{part}*: {per_unit[part]:g} "
+              f"launches and {sum(dev[k] for k in names) / n / 1e3:.3f} ms "
+              f"of device time a {unit} ({len(names)} kernels)")
+    return busy, per_unit
 
 
 def phase_card_vs_cpu(torch, ops, moe_options=None):
@@ -810,6 +1027,9 @@ TRAIN_LAUNCHES = {"router_fused": 24, "group_sort": 24,
                   **NO_SCORING_KERNELS}
 
 
+# the routing kernels' names (router_fused.cu's and group_sort.cuh's), whose
+# CUDA launches phase 5 counts a step
+ROUTING_KERNELS = ("router_kernel", "group_sort_phases")
 # one warm-up step, 3 timed steps, then 2 steps under the profiler
 TRAIN_TIMED, TRAIN_PROFILED = 3, 2
 
@@ -871,7 +1091,20 @@ def phase_train(torch, ops):
           f"{span['peak_timed'] / 2**30:.2f} GiB over steps 1-{first}, "
           f"{peak / 2**30:.2f} GiB over all {last}")
     print(f"  profile of steps {first + 1}-{last} of the same run (warm):")
-    profile_summary(prof, span["wall_us"], TRAIN_PROFILED, "step", top=15)
+    _, counted = profile_summary(prof, span["wall_us"], TRAIN_PROFILED,
+                                 "step", top=15, counted=ROUTING_KERNELS)
+    print(f"  routing wrapper calls a step: router_fused "
+          f"{TRAIN_LAUNCHES['router_fused']}, group_sort "
+          f"{TRAIN_LAUNCHES['group_sort']}; their CUDA kernels a step: "
+          f"{counted['router_kernel']:g} and "
+          f"{counted['group_sort_phases']:g}")
+    # one CUDA kernel a wrapper call (rounded: the profiler at times drops
+    # a launch, see kernel_times)
+    if (round(counted["router_kernel"] / TRAIN_LAUNCHES["router_fused"]) != 1
+            or round(counted["group_sort_phases"]
+                     / TRAIN_LAUNCHES["group_sort"]) != 1):
+        raise AssertionError(f"routing CUDA kernels a step {counted}, "
+                             f"expected one a wrapper call")
     # each range shows twice: its host span (CPU) and its device span, from
     # its first kernel's start to its last kernel's end (CUDA)
     from torch.autograd import DeviceType
@@ -1373,6 +1606,8 @@ def main() -> int:
           f"(TF32 off in the plain version), ids/ranks/starts exact; "
           f"group_sort bit-exact")
     phase_routing_kernels(torch, ops, ref, rows)
+    phase_sort_crossover(torch, ops, ref)
+    phase_launch_floor(torch, ops)
     print(f"  dropless hop-2 shapes: grouped_ffn_ragged; tolerance rtol "
           f"{FFN_RTOL} + atol {FFN_ATOL}, tail tiles exact zeros")
     phase_ragged_ffn(torch, ops, ref, rows)

@@ -32,9 +32,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "grouped_ffn": {"grouped_ffn": [P, P, P, P, P, P, I, I, I, I, I, P]},
     "grouped_ffn_ragged": {"grouped_ffn_ragged": [P, P, P, P, P, P, P, I, I,
                                                   I, I, I, I, P]},
-    "group_sort": {"group_sort": [P, L, I, I, L, P, P, P, P]},
+    "group_sort": {"group_sort_one": [P, L, I, I, I, P, P, P],
+                   "group_sort_three": [P, L, I, I, L, P, P, P, P],
+                   "launch_floor": [P]},
     "router_fused": {"router_fused": [P, I, P, I, I, I, I, P, P, P, P, P, I,
-                                      P, P, P]},
+                                      P, P, P, P]},
     "flash_attn": {"flash_attention": [P, P, P, P, I, I, I, I, I, F, P]},
     "rwkv6_scan": {"rwkv6_scan": [P, P, P, P, P, P, P, P, I, I, I, I, P]},
     "ssd_chunk": {"ssd_chunk": [P, P, P, P, P, P, P, P, I, I, I, I, I, P]},

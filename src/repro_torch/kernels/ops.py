@@ -32,7 +32,7 @@ backward is the VJP of the plain chain.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -89,22 +89,67 @@ def _forward_only(name: str, *ts: Optional[torch.Tensor]) -> None:
                            f"version (use_kernel=False) to train")
 
 
-# group_sort.cu: 256 keys per step of a block, at most 1,024 blocks and
-# 2**20 per-block counters, shared counters for at most 8,192 keys
+# group_sort.cu's three-launch route: 256 keys per step of a block, at most
+# 1,024 blocks and 2**20 per-block counters, shared counters for at most
+# 8,192 keys
 SORT_TILE = 256
 SORT_MAX_BLOCKS = 1024
 SORT_MAX_COUNTERS = 1 << 20
 SORT_MAX_KEYS = 8192
+# its one-launch route: one block of at most 16 warps, each lane holding at
+# most 8 keys, over at most 1,024 key values.  Up to 4,096 keys it is as
+# fast on the device as three launches or faster, and saves two launches of
+# host time; past that three launches, spread over the SMs, are faster
+# (chip_smoke.py's sort crossover, PERF.md)
+SORT_ONE_MAX_WARPS = 16
+SORT_ONE_STEPS = 8
+SORT_ONE_MAX_KEYS = 1024
+SORT_ONE_MAX_A = SORT_ONE_MAX_WARPS * 32 * SORT_ONE_STEPS            # 4,096
+
+
+class SortRoute(NamedTuple):
+    """How ``group_sort`` runs on the card (see :func:`sort_route`)."""
+    launches: int      # 1: one block; 3: hist, scan, rank
+    blocks: int        # 1, or the three-launch nb
+    warps: int         # warps a block
+    steps: int         # one launch: keys a lane holds
+    chunk: int         # three launches: keys a block walks
 
 
 def _sort_blocks(A: int, num_keys: int):
-    """``(nb, chunk)``: the counting sort's blocks and the keys each walks
-    (a multiple of :data:`SORT_TILE`)."""
+    """``(nb, chunk)``: the three-launch route's blocks and the keys each
+    walks (a multiple of :data:`SORT_TILE`)."""
     nb = min(-(-A // SORT_TILE), SORT_MAX_BLOCKS,
              max(1, SORT_MAX_COUNTERS // num_keys))
     chunk = -(-A // nb)
     chunk = -(-chunk // SORT_TILE) * SORT_TILE
     return -(-A // chunk), chunk
+
+
+def _one_launch_route(A: int) -> SortRoute:
+    """The one-launch layout of ``1 <= A <= SORT_ONE_MAX_A`` keys: the
+    fewest warps (a power of two) that hold them at
+    :data:`SORT_ONE_STEPS` keys a lane, the keys spread evenly over them:
+    warp ``w`` holds keys ``[w * steps * 32, + steps * 32)``."""
+    warps = 1 << (-(-A // (32 * SORT_ONE_STEPS)) - 1).bit_length()
+    return SortRoute(1, 1, warps, -(-A // (warps * 32)), 0)
+
+
+def _three_launch_route(A: int, num_keys: int) -> SortRoute:
+    nb, chunk = _sort_blocks(A, num_keys)
+    return SortRoute(3, nb, SORT_TILE // 32, 0, chunk)
+
+
+def sort_route(A: int, num_keys: int) -> SortRoute:
+    """The counting sort's route for ``A >= 1`` keys over ``num_keys``
+    values: one launch where the keys fit one block's registers
+    (``A <= SORT_ONE_MAX_A``) and their counters its shared memory
+    (``num_keys <= SORT_ONE_MAX_KEYS``), else three."""
+    if A < 1:
+        raise ValueError(f"sort_route: A must be >= 1, got {A}")
+    if A <= SORT_ONE_MAX_A and num_keys <= SORT_ONE_MAX_KEYS:
+        return _one_launch_route(A)
+    return _three_launch_route(A, num_keys)
 
 
 def group_sort(keys: torch.Tensor, num_keys: int, *, impl: str = "argsort"):
@@ -113,9 +158,9 @@ def group_sort(keys: torch.Tensor, num_keys: int, *, impl: str = "argsort"):
 
     ``impl="argsort"`` runs the plain stable sort wherever ``keys`` lie;
     ``impl="radix"`` launches the counting-sort kernel on the card (keys
-    int32 in ``[0, num_keys)``, ``num_keys <= 8192``, ``A < 2**31``) and
-    runs the plain version on the CPU.  Both give the same bits: a stable
-    integer sort is unique.
+    int32 in ``[0, num_keys)``, ``num_keys <= 8192``, ``A < 2**31``; one
+    launch or three, by :func:`sort_route`) and runs the plain version on
+    the CPU.  Both give the same bits: a stable integer sort is unique.
     """
     if impl not in SORT_IMPLS:
         raise ValueError(f"unknown sort_impl {impl!r}; "
@@ -132,17 +177,31 @@ def group_sort(keys: torch.Tensor, num_keys: int, *, impl: str = "argsort"):
              f"most {SORT_MAX_KEYS} keys, got num_keys={num_keys}")
     A = keys.shape[0]
     _require(A < 2 ** 31, f"group_sort: at most 2**31 - 1 keys, got {A}")
-    dev = keys.device
-    starts = torch.empty((num_keys + 1,), dtype=torch.int32, device=dev)
     if A == 0:
-        return torch.empty((0,), dtype=torch.int32, device=dev), starts.zero_()
+        return (torch.empty((0,), dtype=torch.int32, device=keys.device),
+                torch.zeros((num_keys + 1,), dtype=torch.int32,
+                            device=keys.device))
+    return _group_sort_cuda(keys, num_keys, sort_route(A, num_keys))
+
+
+def _group_sort_cuda(keys: torch.Tensor, num_keys: int, route: SortRoute):
+    """Launch the counting sort of ``A >= 1`` card keys on ``route``."""
+    A, dev = keys.shape[0], keys.device
     ranks = torch.empty((A,), dtype=torch.int32, device=dev)
-    nb, chunk = _sort_blocks(A, num_keys)
-    counts = torch.empty((num_keys * nb,), dtype=torch.int32, device=dev)
+    starts = torch.empty((num_keys + 1,), dtype=torch.int32, device=dev)
     lib = _build.load("group_sort")
-    _check(lib.group_sort(keys.data_ptr(), A, num_keys, nb, chunk,
-                          counts.data_ptr(), ranks.data_ptr(),
-                          starts.data_ptr(), _stream()), "group_sort")
+    if route.launches == 1:
+        err = lib.group_sort_one(keys.data_ptr(), A, num_keys, route.warps,
+                                 route.steps, ranks.data_ptr(),
+                                 starts.data_ptr(), _stream())
+    else:
+        counts = torch.empty((num_keys * route.blocks,), dtype=torch.int32,
+                             device=dev)
+        err = lib.group_sort_three(keys.data_ptr(), A, num_keys, route.blocks,
+                                   route.chunk, counts.data_ptr(),
+                                   ranks.data_ptr(), starts.data_ptr(),
+                                   _stream())
+    _check(err, "group_sort")
     group_sort.launches += 1
     return ranks, starts
 
@@ -150,6 +209,22 @@ def group_sort(keys: torch.Tensor, num_keys: int, *, impl: str = "argsort"):
 # router_fused.cu: 16 tokens per block, at most 256 experts
 ROUTER_ROWS = 16
 ROUTER_MAX_EXPERTS = 256
+# (device index, stream) -> router_fused.cu's last-block counter
+_ROUTER_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _router_ticket(dev: torch.device) -> torch.Tensor:
+    """The router kernel's arrival counter for the current stream: one
+    int32, zero when it is made, counted up by each block of a launch and
+    set back to zero by the launch's last block.  One per stream, so that
+    launches on two streams, which may overlap, never share one; launches
+    on one stream run in order."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    ticket = _ROUTER_TICKETS.get(key)
+    if ticket is None:
+        ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+        _ROUTER_TICKETS[key] = ticket
+    return ticket
 
 
 def _router_fused_cuda(x: torch.Tensor, w: torch.Tensor, k: int,
@@ -174,17 +249,20 @@ def _router_fused_cuda(x: torch.Tensor, w: torch.Tensor, k: int,
     probs = torch.empty((t, E), dtype=f32, device=dev)
     logits = torch.empty((t, E), dtype=f32, device=dev)
     ranks = torch.empty((t * k,), dtype=i32, device=dev)
-    starts = torch.zeros((E + 1,), dtype=i32, device=dev)
     if t == 0:
+        starts = torch.zeros((E + 1,), dtype=i32, device=dev)
         return gates, idx, probs, logits, ranks, starts
+    starts = torch.empty((E + 1,), dtype=i32, device=dev)   # the kernel's
     nb = -(-t // ROUTER_ROWS)
     counts = torch.empty((E * nb,), dtype=i32, device=dev)
+    ticket = _router_ticket(dev)
     lib = _build.load("router_fused")
     _check(lib.router_fused(x.data_ptr(), int(x.dtype == torch.bfloat16),
                             w.data_ptr(), t, d, E, k, logits.data_ptr(),
                             probs.data_ptr(), gates.data_ptr(),
                             idx.data_ptr(), counts.data_ptr(), nb,
-                            ranks.data_ptr(), starts.data_ptr(), _stream()),
+                            ranks.data_ptr(), starts.data_ptr(),
+                            ticket.data_ptr(), _stream()),
            "router_fused")
     router_fused.launches += 1
     if renorm and k > 1:

@@ -215,6 +215,57 @@ def test_group_sort_kernel(A, K):
     assert torch.equal(ranks, want_r) and torch.equal(starts, want_s)
 
 
+def _sort_keys(A, K, draw, dev):
+    g = torch.Generator(device=dev).manual_seed(A + K)
+    if draw == "equal":
+        return torch.full((A,), K // 2, dtype=torch.int32, device=dev)
+    keys = torch.randint(0, K, (A,), generator=g, device=dev,
+                         dtype=torch.int32)
+    return torch.where(torch.rand((A,), generator=g, device=dev) < 0.5,
+                       torch.full_like(keys, K // 2), keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,K,draw,launches", [
+    (4096, 17, "skew", 1),         # the one-launch edge: a full block
+    (4097, 17, "skew", 3),         # one key past it
+    (4096, 1024, "skew", 1),       # the most keys and key values
+    (2048, 1024, "skew", 1),       # the most key values one launch takes
+    (2048, 1025, "skew", 3),       # one more
+    (4096, 129, "equal", 1),       # every key on one value
+    (16384, 129, "equal", 3),      # ... on three launches
+    (140000, 129, "equal", 3),     # ... over more blocks
+    (1 << 20, 8192, "skew", 3),    # three launches at the most key values
+    (4000, 1, "equal", 1),         # K = 1
+    (1, 129, "skew", 1),           # A = 1
+])
+def test_group_sort_kernel_routes(A, K, draw, launches):
+    dev = _card()
+    keys = _sort_keys(A, K, draw, dev)
+    assert ops.sort_route(A, K).launches == launches
+    ranks, starts = ops.group_sort(keys, K, impl="radix")
+    want_r, want_s = ref.group_sort_ref(keys, K)
+    assert torch.equal(ranks, want_r) and torch.equal(starts, want_s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,K", [(4096, 129), (16385, 17)])
+def test_group_sort_kernel_out_of_domain(A, K):
+    """On either route a key outside [0, K) gets rank -1 and is not
+    counted."""
+    dev = _card()
+    keys = _sort_keys(A, K, "skew", dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    bad = torch.rand((A,), generator=g, device=dev) < 0.1
+    keys = torch.where(bad, torch.where(torch.rand((A,), generator=g,
+                                                   device=dev) < 0.5,
+                                        -1, K + 3), keys).to(torch.int32)
+    ranks, starts = ops.group_sort(keys, K, impl="radix")
+    assert bool((ranks[bad] == -1).all())
+    want_r, want_s = ref.group_sort_ref(keys[~bad], K)
+    assert torch.equal(ranks[~bad], want_r) and torch.equal(starts, want_s)
+
+
 @pytest.mark.gpu
 def test_group_sort_kernel_limits():
     dev = _card()
@@ -253,6 +304,14 @@ def check_router_fused(got, want, k):
     (2048, 768, 128, 1, False, torch.bfloat16),
     (300, 64, 256, 8, True, torch.float32),
     (33, 100, 3, 3, False, torch.float32),
+    # t not a multiple of the 16 rows a block; E = 1; E = 256; k = E = 256;
+    # bf16 rows of 200 bytes, staged element by element (not 16-byte
+    # copies)
+    (2047, 768, 16, 1, False, torch.bfloat16),
+    (100, 64, 1, 1, False, torch.float32),
+    (2048, 768, 256, 2, True, torch.bfloat16),
+    (777, 96, 256, 256, False, torch.float32),
+    (129, 100, 5, 2, False, torch.bfloat16),
 ])
 def test_router_fused_kernel(t, d, E, k, renorm, dtype):
     dev = _card()
@@ -269,6 +328,33 @@ def test_router_fused_kernel(t, d, E, k, renorm, dtype):
     if renorm and k > 1:
         gates = ref.renorm_gates(gates)
     assert torch.equal(got[0], gates)
+
+
+@pytest.mark.gpu
+def test_router_fused_kernel_repeats_and_streams():
+    """The same inputs give the same bits call after call, on the current
+    stream and on two others one after the other (the last block to arrive
+    varies; each stream has its own arrival counter, zero after every
+    launch)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((4096, 768), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((768, 8), generator=g, device=dev) / 768 ** 0.5
+    first = ops.router_fused(x, w, 1)
+    runs = [ops.router_fused(x, w, 1) for _ in range(3)]
+    for stream in (torch.cuda.Stream(), torch.cuda.Stream()):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            runs.append(ops.router_fused(x, w, 1))
+        stream.synchronize()
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, want in zip(run, first):
+            assert torch.equal(got, want)
+    tickets = [t for (i, _), t in ops._ROUTER_TICKETS.items()
+               if i == dev.index or (dev.index is None and i == 0)]
+    assert len(tickets) >= 3
+    assert all(int(t) == 0 for t in tickets)
 
 
 @pytest.mark.gpu

@@ -4,10 +4,10 @@ fixed cases and a hypothesis search of lengths, domains and skew.  On the
 CPU the wrapper runs its plain version; the CUDA kernel is held against the
 same plain version on the card (``tests/test_torch_gpu.py``).
 
-The kernel's block layout is Python (``ops._sort_blocks``), and its three
-phases (per-block histogram, key-major exclusive scan, in-order ranks) are
-emulated here in numpy over that layout, so the algorithm the card runs is
-checked against the oracle too.
+The kernel's route and layout are Python (``ops.sort_route``: one launch
+of one block, or three over ``ops._sort_blocks``' blocks),
+and both routes' phases are emulated here in numpy over that layout, so
+the algorithm the card runs is checked against the oracle too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +28,8 @@ def _check(keys: np.ndarray, K: int):
     return np.asarray(jr), np.asarray(js)
 
 
-def _emulate_kernel(keys: np.ndarray, K: int):
-    """group_sort.cuh's three phases over ops._sort_blocks' layout."""
+def _emulate_three(keys: np.ndarray, K: int):
+    """group_sort.cuh's three launches over ops._sort_blocks' layout."""
     A = keys.shape[0]
     nb, chunk = ops._sort_blocks(A, K)
     counts = np.zeros((K, nb), np.int64)             # key-major, block-minor
@@ -46,6 +46,30 @@ def _emulate_kernel(keys: np.ndarray, K: int):
             ranks[a] = run[keys[a]]
             run[keys[a]] += 1
     return ranks, starts
+
+
+def _emulate_one(keys: np.ndarray, K: int):
+    """group_sort.cuh's one_launch_kernel over ops.sort_route's layout:
+    each warp's rank in its segment, the per-(warp, key) prefix over the
+    warps, one scan over the keys."""
+    A = keys.shape[0]
+    route = ops.sort_route(A, K)
+    assert route.launches == 1
+    W, seg = route.warps, route.steps * 32
+    hist = np.zeros((W, K), np.int64)
+    within = np.empty(A, np.int64)
+    for w in range(W):
+        for a in range(w * seg, min((w + 1) * seg, A)):   # 1. in one pass
+            within[a] = hist[w, keys[a]]
+            hist[w, keys[a]] += 1
+    warp_pre = np.cumsum(hist, axis=0) - hist        # 2. over the warps
+    tot = hist.sum(axis=0)
+    base = np.cumsum(tot) - tot                      # 3. over the keys
+    ranks = np.empty(A, np.int64)
+    for a in range(A):                               # 4.
+        w = a // seg
+        ranks[a] = base[keys[a]] + warp_pre[w, keys[a]] + within[a]
+    return ranks, np.append(base, A)
 
 
 @pytest.mark.parametrize("A,K", [(0, 3), (1, 1), (5, 3), (255, 2),
@@ -69,15 +93,64 @@ def test_group_sort_radix_property(A, K, hot, seed):
 
 
 @pytest.mark.parametrize("A,K", [(1, 1), (700, 5), (2048, 17),
-                                 (4096, 129), (70001, 257)])
+                                 (4096, 129), (70001, 257), (16385, 3),
+                                 (40000, 1024), (3000, 1025),
+                                 (4096, 1024), (3001, 129)])
 def test_kernel_phases_match_oracle(A, K):
+    """The route ops.sort_route picks, emulated, against the oracle; the
+    three-launch route at every shape too."""
     rng = np.random.default_rng(A * K)
     keys = rng.integers(0, K, A)
     keys = np.where(rng.random(A) < 0.3, K - 1, keys).astype(np.int32)
     want_r, want_s = _check(keys, K)
-    got_r, got_s = _emulate_kernel(keys, K)
-    np.testing.assert_array_equal(got_r, want_r)
-    np.testing.assert_array_equal(got_s, want_s)
+    emulations = [_emulate_three]
+    if ops.sort_route(A, K).launches == 1:
+        emulations.append(_emulate_one)
+    for emulate in emulations:
+        got_r, got_s = emulate(keys, K)
+        np.testing.assert_array_equal(got_r, want_r)
+        np.testing.assert_array_equal(got_s, want_s)
+
+
+@pytest.mark.parametrize("A,K,want", [
+    # the training path's sorts: one block, 8 keys a lane
+    (2048, 17, (1, 1, 8, 8, 0)),
+    (4096, 129, (1, 1, 16, 8, 0)),
+    # few keys: as few warps as hold them at 8 keys a lane
+    (1, 1, (1, 1, 1, 1, 0)),
+    (257, 3, (1, 1, 2, 5, 0)),
+    (3000, 129, (1, 1, 16, 6, 0)),
+    # the edge: a block holds 4,096 keys (16 warps x 32 lanes x 8); one key
+    # more, or one key value more than 1,024, takes three launches
+    (4096, 17, (1, 1, 16, 8, 0)),
+    (4096, 1024, (1, 1, 16, 8, 0)),
+    (4097, 17, (3,)),
+    (4096, 1025, (3,)),
+    (8192, 3, (3,)),
+    (16384, 17, (3,)),
+    (131072, 17, (3,)),
+    (2048, 1025, (3,)),
+    (1 << 20, 129, (3,)),
+    (3000, 8192, (3,)),
+])
+def test_sort_route(A, K, want):
+    route = ops.sort_route(A, K)
+    assert tuple(route)[:len(want)] == want
+    if route.launches == 1:
+        W, steps = route.warps, route.steps
+        assert route.blocks == 1 and route.chunk == 0
+        assert W & (W - 1) == 0 and 1 <= W <= ops.SORT_ONE_MAX_WARPS
+        assert 1 <= steps <= ops.SORT_ONE_STEPS
+        assert (steps - 1) * W * 32 < A <= steps * W * 32  # fewest steps
+        assert A <= ops.SORT_ONE_MAX_A and K <= ops.SORT_ONE_MAX_KEYS
+    else:
+        assert (route.blocks, route.chunk) == ops._sort_blocks(A, K)
+        assert route.warps == ops.SORT_TILE // 32
+
+
+def test_sort_route_rejects_no_keys():
+    with pytest.raises(ValueError, match="A must be >= 1"):
+        ops.sort_route(0, 3)
 
 
 @pytest.mark.parametrize("A,K", [(1, 1), (2048, 17), (4096, 129),
