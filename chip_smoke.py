@@ -85,10 +85,11 @@ their plain versions: flash attention at the qwen3 phase's shapes (and at
 T 128, with as many KV heads as query heads, and at head sizes 80, 96 and
 160, against ``scaled_dot_product_attention`` as the library's time), the
 WKV6 scan at rwkv6's (4, 4,096, 32, 64) with a nonzero state and bonus
-(its final state bit for bit), and the Mamba2
-SSD intra-chunk kernel, which no model calls, at zamba2-2.7b's shapes with
-a typical and a strongly negative log-decay.  Each phase prints its wall
-time.
+(its final state bit for bit), and the Mamba2 SSD intra-chunk kernel, which
+no model calls: its grouped route at zamba2-2.7b's shapes with a typical, a
+strongly negative and a steep log-decay (with its blocks, head group and
+shared memory), and its general route at chunks of 64 steps; two calls
+must give the same bits.  Each phase prints its wall time.
 
 It needs one CUDA card; without one, or without the repository's ``src``
 beside it, it exits non-zero and prints no result.
@@ -217,10 +218,19 @@ RWKV_SHAPE = (4, 4096, 32, 64)                       # (B, T, nh, hd)
 # y's sum over i runs in another order than the plain version's product:
 # fp32 rounding of terms of the outputs' size
 RWKV_RTOL, RWKV_ATOL_REL = 1e-5, 1e-6
-SSD_SHAPE = (4, 32, 128, 80, 64, 64)                 # (B, nc, Q, nh, hd, ds)
-SSD_LOGA = {"zamba2 typical": (-1.0, 0.0), "zamba2 loga<=-5": (-8.0, -5.0)}
-# the cumsums run in other orders (torch's on the card is a parallel scan):
-# an ulp of |cs| per step, carried by the exponentials as a relative error
+# (B, nc, Q, nh, hd, ds, loga low, loga high) per SSD call: zamba2-2.7b's
+# chunks (Q 128, 80 heads of 64, d_state 64) with a typical, a strongly
+# negative and a steep log-decay a step (the grouped route; at the last,
+# three steps' growth exp(cs_i - cs_j), i < j, overflows), and chunks of 64
+# steps, which only the general route takes
+SSD_SHAPES = {"zamba2 typical": (4, 32, 128, 80, 64, 64, -1.0, 0.0),
+              "zamba2 loga<=-5": (4, 32, 128, 80, 64, 64, -8.0, -5.0),
+              "zamba2 loga<=-30": (4, 32, 128, 80, 64, 64, -40.0, -30.0),
+              "Q 64 (general)": (4, 32, 64, 80, 64, 64, -1.0, 0.0)}
+# the matrix products sum in other orders than the plain version's, and a
+# cumsum in another order would round cs by up to an ulp of |cs| a step,
+# which the exponentials carry as a relative error (both kernels keep the
+# plain version's step order)
 SSD_RTOL, SSD_ATOL_REL = 1e-4, 1e-5
 # the tolerances of tests/test_torch_flash_attn.py (qwen3, bf16: per-token
 # relative error at the 90th percentile, share of tokens over 3e-2) and of
@@ -1284,49 +1294,74 @@ def phase_scoring_kernels(torch, ops, ref, rows):
             time_ms(plain, iters=2, warmup=1),
             bound(nbytes, flops, FP32_FLOPS))
 
-    B, nc, Q, nh, hd, ds = SSD_SHAPE
-    for shape, (lo, hi) in SSD_LOGA.items():
-        xh = randn(B, nc, Q, nh, hd)
-        dt = 0.001 + 0.099 * torch.rand((B, nc, Q, nh), generator=gen,
-                                        device=dev)
-        loga = lo + (hi - lo) * torch.rand((B, nc, Q, nh), generator=gen,
-                                           device=dev)
-        Bc, Cc = randn(B, nc, Q, ds), randn(B, nc, Q, ds)
+    for shape, (B, nc, Q, nh, hd, ds, lo, hi) in SSD_SHAPES.items():
+        phase_ssd(torch, ops, ref, rows, gen, shape, B, nc, Q, nh, hd, ds,
+                  lo, hi)
 
-        def kernel():
-            return ops.ssd_chunk(xh, dt, loga, Bc, Cc)
 
-        def plain():
-            return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+def phase_ssd(torch, ops, ref, rows, gen, shape, B, nc, Q, nh, hd, ds, lo,
+              hi):
+    """The SSD kernel against its plain version at one shape: its route
+    (ops.ssd_route), blocks, head group and shared memory, its errors, its
+    device time and share of the bound."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    xh = torch.randn((B, nc, Q, nh, hd), generator=gen, device=dev)
+    dt = 0.001 + 0.099 * torch.rand((B, nc, Q, nh), generator=gen,
+                                    device=dev)
+    loga = lo + (hi - lo) * torch.rand((B, nc, Q, nh), generator=gen,
+                                       device=dev)
+    Bc, Cc = (torch.randn((B, nc, Q, ds), generator=gen, device=dev)
+              for _ in range(2))
 
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        for what, a, b in zip(("y_intra", "sB", "a_chunk"), got, want):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"ssd_chunk {shape}: {what} not finite")
-            tol = SSD_RTOL * b.abs() + SSD_ATOL_REL * b.abs().max()
-            if not bool(((a - b).abs() <= tol).all()):
-                raise AssertionError(f"ssd_chunk {shape}: {what} outside "
-                                     f"rtol {SSD_RTOL} / atol {SSD_ATOL_REL} "
-                                     f"of its largest value")
-        rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
-               for a, b in zip(got, want)]
-        print(f"  ssd_chunk {shape}: loga in [{lo}, {hi}] a step; max err "
-              f"over max |ref| of y_intra, sB, a_chunk: "
-              f"{', '.join(f'{e:.2e}' for e in rel)}; device time "
-              f"{device_ms(torch, kernel, iters=5):.4f} ms a call")
-        nbytes = 4.0 * (2 * B * nc * Q * nh * hd + 2 * B * nc * Q * nh
-                        + 2 * B * nc * Q * ds + B * nc * nh * hd * ds
-                        + B * nc * nh)
-        tri = Q * (Q + 1) / 2.0
-        flops = (B * nc * 2.0 * ds * tri          # C B^T, once a chunk
-                 + B * nc * nh * (tri * (2.0 * hd + 4.0)   # W and W x
-                                  + 2.0 * Q * hd * ds + 3.0 * Q))  # sB
-        add_row(rows, "ssd_chunk", shape, torch.cat([t.flatten()
-                                                     for t in got]),
-                torch.cat([t.flatten() for t in want]), time_ms(kernel),
-                time_ms(plain, iters=3, warmup=1),
-                bound(nbytes, flops, FP32_FLOPS))
+    def kernel():
+        return ops.ssd_chunk(xh, dt, loga, Bc, Cc)
+
+    def plain():
+        return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for what, a, b in zip(("y_intra", "sB", "a_chunk"), got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"ssd_chunk {shape}: {what} not finite")
+        tol = SSD_RTOL * b.abs() + SSD_ATOL_REL * b.abs().max()
+        if not bool(((a - b).abs() <= tol).all()):
+            raise AssertionError(f"ssd_chunk {shape}: {what} outside "
+                                 f"rtol {SSD_RTOL} / atol {SSD_ATOL_REL} "
+                                 f"of its largest value")
+    again = kernel()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"ssd_chunk {shape}: two calls differ")
+    rel = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+           for a, b in zip(got, want)]
+    nbytes = 4.0 * (2 * B * nc * Q * nh * hd + 2 * B * nc * Q * nh
+                    + 2 * B * nc * Q * ds + B * nc * nh * hd * ds
+                    + B * nc * nh)
+    tri = Q * (Q + 1) / 2.0
+    flops = (B * nc * 2.0 * ds * tri          # C B^T, once a chunk
+             + B * nc * nh * (tri * (2.0 * hd + 4.0)   # W and W x
+                              + 2.0 * Q * hd * ds + 3.0 * Q))  # sB
+    b = bound(nbytes, flops, FP32_FLOPS)
+    route = ops.ssd_route(B * nc, Q, nh, hd, ds,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    lib = _build.load("ssd_chunk")
+    smem = (lib.ssd_chunk_grouped_smem(Q, hd, ds, route.group)
+            if route.route == "grouped" else None)
+    dev_ms = device_ms(torch, kernel, iters=5)
+    print(f"  ssd_chunk {shape}: (B, nc, Q, nh, hd, ds) = "
+          f"{(B, nc, Q, nh, hd, ds)}, loga in [{lo}, {hi}] a step; route "
+          f"{route.route}: {route.blocks} blocks of 256 threads, "
+          f"{route.group} head(s) a block"
+          + (f", {smem} bytes of shared memory a block" if smem else "")
+          + f"; max err over max |ref| of y_intra, sB, a_chunk: "
+          f"{', '.join(f'{e:.2e}' for e in rel)}; two calls bit-identical; "
+          f"device time {dev_ms:.4f} ms a call, {100 * b[0] / dev_ms:.1f}% "
+          f"of the {b[0]:.4f} ms bound")
+    add_row(rows, "ssd_chunk", shape, torch.cat([t.flatten() for t in got]),
+            torch.cat([t.flatten() for t in want]), time_ms(kernel),
+            time_ms(plain, iters=3, warmup=1), b)
 
 
 # the cache-less kernel forward (forward(..., use_kernel=True), no caches):

@@ -39,7 +39,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                       P, P, P, P]},
     "flash_attn": {"flash_attention": [P, P, P, P, I, I, I, I, I, F, P]},
     "rwkv6_scan": {"rwkv6_scan": [P, P, P, P, P, P, P, P, I, I, I, I, P]},
-    "ssd_chunk": {"ssd_chunk": [P, P, P, P, P, P, P, P, I, I, I, I, I, P]},
+    "ssd_chunk": {"ssd_chunk": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+                  "ssd_chunk_grouped": [P, P, P, P, P, P, P, P, I, I, I, I,
+                                        I, I, P],
+                  "ssd_chunk_grouped_smem": [I, I, I, I]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

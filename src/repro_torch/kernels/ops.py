@@ -31,6 +31,7 @@ backward is the VJP of the plain chain.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -630,6 +631,55 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, s_last
 
 
+# ssd_chunk.cu's grouped route: instantiated at these (Q, hd, ds), zamba2-
+# 2.7b's and its reduced config's; a block takes a chunk and up to
+# SSD_MAX_GROUP consecutive heads (at Q 128 their vectors fill what the
+# block's 227 KB of shared memory leaves; the kernel's kMaxGroup, which
+# tests/test_torch_ssd_chunk.py holds equal to it)
+SSD_GROUPED_SHAPES = ((128, 64, 64), (32, 32, 16))
+SSD_MAX_GROUP = 27
+# a grouped block's start (its loads, the scores C B^T, the cumsums) in
+# heads' time: the fit of tools/ssd_group_sweep.py over G = 1..27 at
+# zamba2-2.7b's shape on an H100 (PERF.md section 6)
+SSD_BLOCK_START = 1.2
+
+
+class SsdRoute(NamedTuple):
+    """How ``ssd_chunk`` runs on the card (see :func:`ssd_route`)."""
+    route: str         # "grouped" or "general"
+    group: int         # heads a block
+    blocks: int
+
+
+def ssd_route(BC: int, Q: int, nh: int, hd: int, ds: int,
+              sms: int) -> SsdRoute:
+    """The SSD kernel's route for ``BC = B * nc >= 1`` chunks of ``nh >= 1``
+    heads on a card of ``sms`` SMs.  At the shapes the grouped kernel is
+    instantiated at, one block (one an SM) takes a chunk and ``G`` heads:
+    its start, ``SSD_BLOCK_START`` heads' time, then each head, so a block
+    costs about ``G + SSD_BLOCK_START`` heads' time, and ``G`` is the one
+    that gives the fewest such units over the waves of ``BC * ceil(nh /
+    G)`` blocks (ties to the smaller ``G``).  Every other shape runs the
+    general kernel, a block per (chunk, head)."""
+    if BC < 1 or nh < 1 or sms < 1:
+        raise ValueError(f"ssd_route: BC, nh and sms must be >= 1, got "
+                         f"{BC}, {nh}, {sms}")
+    if (Q, hd, ds) not in SSD_GROUPED_SHAPES:
+        return SsdRoute("general", 1, BC * nh)
+    best = None
+    for G in range(1, min(SSD_MAX_GROUP, nh) + 1):
+        blocks = BC * -(-nh // G)
+        cost = -(-blocks // sms) * (G + SSD_BLOCK_START)
+        if best is None or cost < best[0]:
+            best = (cost, SsdRoute("grouped", G, blocks))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
               Bc: torch.Tensor, Cc: torch.Tensor):
     """Mamba2 SSD intra-chunk terms.  xh: (B, nc, Q, nh, hd); dt/loga:
@@ -637,9 +687,10 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     nh, hd), sB (B, nc, nh, hd, ds), a_chunk (B, nc, nh))``, fp32 (see
     :func:`repro_torch.kernels.ref.ssd_chunk_ref`).  No model of the port
     calls it (nor does one of the JAX package).  On the card: fp32,
-    contiguous, Q, hd and ds multiples of 4 whose working set fits a
-    block's shared memory (Q = 128 with hd, ds = 64 does; the launch fails
-    with an error otherwise)."""
+    contiguous, 16-byte aligned, Q, hd and ds multiples of 4; one launch,
+    of the grouped kernel or the general one (:func:`ssd_route`); the
+    general one's working set must fit a block's shared memory (the launch
+    fails with an error otherwise)."""
     if _on_cpu(xh, dt, loga, Bc, Cc):
         return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
     _forward_only("ssd_chunk", xh, dt, loga, Bc, Cc)
@@ -661,6 +712,7 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
              f"ssd_chunk: Q, hd and ds must be positive multiples of 4, got "
              f"Q={Q}, hd={hd}, ds={ds}")
     _require(nh <= 65535, f"ssd_chunk: at most 65535 heads, got {nh}")
+    _aligned16("ssd_chunk", xh, dt, loga, Bc, Cc)
     dev = xh.device
     y = torch.empty_like(xh)
     sB = torch.empty((B, nc, nh, hd, ds), dtype=torch.float32, device=dev)
@@ -668,10 +720,16 @@ def ssd_chunk(xh: torch.Tensor, dt: torch.Tensor, loga: torch.Tensor,
     if a_chunk.numel() == 0:
         return y, sB, a_chunk
     lib = _build.load("ssd_chunk")
-    _check(lib.ssd_chunk(xh.data_ptr(), dt.data_ptr(), loga.data_ptr(),
-                         Bc.data_ptr(), Cc.data_ptr(), y.data_ptr(),
-                         sB.data_ptr(), a_chunk.data_ptr(), B * nc, Q, nh,
-                         hd, ds, _stream()), "ssd_chunk")
+    args = (xh.data_ptr(), dt.data_ptr(), loga.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), y.data_ptr(), sB.data_ptr(), a_chunk.data_ptr(),
+            B * nc, Q, nh, hd, ds)
+    route = ssd_route(B * nc, Q, nh, hd, ds, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    if route.route == "grouped":
+        err = lib.ssd_chunk_grouped(*args, route.group, _stream())
+    else:
+        err = lib.ssd_chunk(*args, _stream())
+    _check(err, "ssd_chunk")
     ssd_chunk.launches += 1
     return y, sB, a_chunk
 

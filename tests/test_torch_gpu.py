@@ -556,13 +556,7 @@ def test_rwkv6_scan_kernel(B, T, nh):
     assert torch.equal(s_last, ws)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,nc,Q,nh,hd,ds", [(1, 2, 8, 2, 4, 4),
-                                             (2, 3, 16, 3, 8, 8),
-                                             (1, 2, 128, 2, 64, 64)])
-@pytest.mark.parametrize("loga_lo,loga_hi", [(-0.5, 0.0), (-8.0, -5.0)])
-def test_ssd_chunk_kernel(B, nc, Q, nh, hd, ds, loga_lo, loga_hi):
-    dev = _card()
+def _ssd_inputs(dev, B, nc, Q, nh, hd, ds, loga_lo, loga_hi):
     g = torch.Generator(device=dev).manual_seed(Q + nh)
     xh = torch.randn((B, nc, Q, nh, hd), generator=g, device=dev)
     dt = torch.rand((B, nc, Q, nh), generator=g, device=dev) * 0.5 + 0.01
@@ -570,18 +564,68 @@ def test_ssd_chunk_kernel(B, nc, Q, nh, hd, ds, loga_lo, loga_hi):
         (B, nc, Q, nh), generator=g, device=dev)
     Bc = torch.randn((B, nc, Q, ds), generator=g, device=dev)
     Cc = torch.randn((B, nc, Q, ds), generator=g, device=dev)
+    return xh, dt, loga, Bc, Cc
+
+
+def _ssd_route(dev, B, nc, Q, nh, hd, ds):
+    return ops.ssd_route(B * nc, Q, nh, hd, ds, torch.cuda
+                         .get_device_properties(dev).multi_processor_count)
+
+
+# (B, nc, Q, nh, hd, ds, route): the general kernel's shapes; zamba2's
+# reduced config (Q 32, hd 32, ds 16) and zamba2-2.7b's (Q 128, hd 64, ds
+# 64) on the grouped one, with a head count the head group does not divide
+# (81 heads at 32 chunks: 21 heads a block, a tail of 18), and all 80 heads
+SSD_CASES = [(1, 2, 8, 2, 4, 4, "general"),
+             (2, 3, 16, 3, 8, 8, "general"),
+             (1, 2, 128, 2, 64, 64, "grouped"),
+             (4, 16, 32, 8, 32, 16, "grouped"),
+             (1, 32, 128, 81, 64, 64, "grouped"),
+             (1, 2, 128, 80, 64, 64, "grouped")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ds,route", SSD_CASES)
+# log-decays of a typical step, of a strongly decaying one, of a steep one
+# (three steps' growth exp(cs_i - cs_j), i < j, overflows: W must take no
+# exponential of it), and of both signs (which no decay gives: cs rises and
+# falls, and the grouped kernel's factors exp(cs_i - cs_i0) of W exceed 1)
+@pytest.mark.parametrize("loga_lo,loga_hi", [(-0.5, 0.0), (-8.0, -5.0),
+                                             (-40.0, -30.0), (-0.25, 0.25)])
+def test_ssd_chunk_kernel(B, nc, Q, nh, hd, ds, route, loga_lo, loga_hi):
+    dev = _card()
+    plan = _ssd_route(dev, B, nc, Q, nh, hd, ds)
+    assert plan.route == route
+    if nh == 81:
+        assert nh % plan.group != 0, plan      # a group with fewer heads
+    xh, dt, loga, Bc, Cc = _ssd_inputs(dev, B, nc, Q, nh, hd, ds, loga_lo,
+                                       loga_hi)
     n = ops.ssd_chunk.launches
     got = ops.ssd_chunk(xh, dt, loga, Bc, Cc)
     assert ops.ssd_chunk.launches == n + 1
     want = ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
-        # the cumsums run in other orders (torch's on the card is a parallel
-        # scan): an ulp of |cs| (up to ~64 here in the mild case) is a
-        # relative error of the exponentials of up to ~1e-5 a term
+        # both kernels run the cumsum in step order, as torch's over this
+        # (non-innermost) dimension on the card; the matrix products sum in
+        # other orders, and an ulp of |cs| (up to ~64 here in the mild case)
+        # is a relative error of the exponentials of up to ~1e-5 a term
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * max(b.abs().max().item(),
                                                    1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nc,Q,nh,hd,ds,route",
+                         [SSD_CASES[1], SSD_CASES[4]])
+def test_ssd_chunk_kernel_repeats_bit_for_bit(B, nc, Q, nh, hd, ds, route):
+    dev = _card()
+    assert _ssd_route(dev, B, nc, Q, nh, hd, ds).route == route
+    args = _ssd_inputs(dev, B, nc, Q, nh, hd, ds, -1.0, 0.0)
+    first = ops.ssd_chunk(*args)
+    for _ in range(3):
+        for a, b in zip(first, ops.ssd_chunk(*args)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
