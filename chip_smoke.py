@@ -10,7 +10,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    process per source, in parallel).
 2. Kernels against their plain PyTorch versions on the card, at the shapes
    of the serving path (qwen3-moe-30b-a3b at full width, logical expert grid
-   (16, 8), batch 8, prompt 128; decode t=8) and of the training path
+   (16, 8), batch 8, prompt 128; decode t=8, also the engine's decode tick;
+   the engine's prefill chunks of 128 and 64 tokens) and of the training path
    (smile-3.7b at full width, grid (16, 8), batch 16 x seq 128: the routers
    (2048, 768) x (768, 16) and (4096, 768) x (768, 8), the sorts 2,048 keys
    over 17 values and 4,096 over 129; plus the Switch baseline's flat
@@ -18,7 +19,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    one-launch route (4,096 keys) and one past it, one with every key
    equal, and 2**20-key sorts over 129 and 8,192 values; and the ragged grouped FFN at the dropless
    serve's hop-2 shapes, on the layout of a real dispatch_ragged: 18,432
-   rows of which 8,192 real at prefill, 1,344 of which 64 at decode; and
+   rows of which 8,192 real at prefill, 1,344 of which 64 at decode, and
+   the engine's prefill chunks' (4,096 rows of which 1,024 real at 128
+   tokens, 2,048 of which 512 at 64); and
    the grouped FFN at phase 9's hop-2 capacity, 128 groups of 2,048 rows):
    errors, and times from CUDA events beside the least time the card could
    take and the library call's, with the kernel's ratio to each.  The
@@ -77,7 +80,41 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 12. Card against CPU, reduced rwkv6: the cache-less kernel forward in fp32
     and bf16, and prefill plus 3 cached decode steps in fp32, within the
     tolerances of its CPU tests.
-13. A ``{"kernels": [...]}`` line, then the card line, then the last line
+13. The continuous-batching engine (``repro_torch.launch.serve.
+    run_engine``, ``repro_torch.serve.engine.Engine``) on qwen3-moe-30b-a3b
+    at full width, 4 of 48 layers, grid (16, 8), random weights from seed
+    0, under sort and then dropless on the same weights: ``ServeConfig``'s
+    defaults (8 slots, pages of 16, cache 160, buckets 16/32/64/128/160)
+    and 16 ragged requests from seed 0 (prompts 32-128 tokens, 16-32 new
+    ones).  Each step is a CUDA graph, captured at first use.  The first
+    run (every launch count set to 0 just before and read just after):
+    every request completes and every page is freed; one capture for the
+    decode step and one for each bucket used, and the replays; the kernel
+    counts equal phase 3's (sort) or phase 7's (dropless) per forward times
+    the warm-ups plus captures, since a replay counts nothing.  Then, on
+    the same engine: the trace warm (its times; the same tokens, no new
+    capture, no count moved); the trace with the logits kept, where the
+    first tick that runs the decode step and the first that runs the
+    busiest bucket are each followed by that step's replay against its
+    eager function on a clone of the caches (tokens equal, logits within
+    phase 4's tolerance), each request's first-token logits against the
+    fixed-batch forward of its prompt (within phase 4's tolerance), all
+    logits finite; 8 requests whose decode-only ticks are
+    timed (the decode step as a replay against eager, beside phase 3's
+    fixed-batch eager step) and profiled.
+14. The engine on qwen1.5-0.5b at full width and depth (24 layers), as
+    phase 13; it runs no kernel of the port (every count 0), and its
+    first-token logits are held to ``QWEN15_FIRST_TOKEN_ATOL``.  Beside it
+    the fixed-batch ``generate`` of the same config, warm.  Then the
+    first-token comparison again with fp32 compute, held to
+    ``FP32_FIRST_TOKEN_ATOL``: the two attentions part only by bf16
+    rounding.
+15. The engine, card against CPU: reduced qwen3-moe (sort, dropless) and
+    reduced qwen1.5 on the same weights and 12 ragged requests: the same
+    ticks, and each request's tokens equal or, where they first part, a
+    near tie (logits within the tolerance of phase 4, the top-2 margin
+    under twice it).
+16. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the three kernels of the cache-less forward against
@@ -96,6 +133,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -116,8 +154,11 @@ BF16_TC_FLOPS = 989e12             # H100 SXM dense bf16 tensor cores
 FP32_FLOPS = 67e12                 # H100 SXM fp32, outside the tensor cores
 
 # serving shapes: qwen3-moe-30b-a3b, d=2048, f=768, 128 experts, top-8 over
-# top_g=4 of 16 nodes, capacity factor 2, batch 8 x prompt 128 (t=1024) and
-# decode (t=8)
+# top_g=4 of 16 nodes, capacity factor 2, batch 8 x prompt 128 (t=1024),
+# decode (t=8, also the engine's decode tick at 8 slots) and the engine's
+# prefill chunks of one prompt padded to buckets 128 and 64 (t=128, 64).
+# At t tokens hop 1 has a capacity of t/2 a node (8t rows) and hop 2 of t/4
+# an expert (32t rows over 128 experts)
 D_MODEL, D_FF = 2048, 768
 # name -> (tokens t, rows R, k) per dispatch/combine hop
 GATHER_SHAPES = {
@@ -125,14 +166,24 @@ GATHER_SHAPES = {
     "prefill hop-2": (8192, 32768, 2),
     "decode hop-1": (8, 64, 4),
     "decode hop-2": (64, 256, 2),
+    "engine 128 hop-1": (128, 1024, 4),
+    "engine 128 hop-2": (1024, 4096, 2),
+    "engine 64 hop-1": (64, 512, 4),
+    "engine 64 hop-2": (512, 2048, 2),
 }
 # (G, T); "scoring" is phase 9's hop 2: 8,192 tokens x 8 experts over 128
 # groups at capacity factor 2
 FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2),
+              "engine 128": (128, 32), "engine 64": (128, 16),
               "scoring": (128, 2048)}
 # the dropless serve's hop 2: the hop-1 slab's rows (real ones), k=2 experts
-# of the arrival node's 8 each, over 128 expert groups
-RAGGED_SHAPES = {"prefill hop-2": (5120, 4096), "decode hop-2": (160, 32)}
+# of the arrival node's 8 each, over 128 expert groups.  The slab holds the
+# 4t hop-1 assignments in tiles of b rows, one partial tile a node:
+# (ceil(4t / b) + 16) * b rows, b = 64 at t = 1,024, 32 at 128, 16 at 64, 8
+# at 8 (core/dispatch.py ``_ragged_block``, ``ragged_rows``)
+RAGGED_SHAPES = {"prefill hop-2": (5120, 4096), "decode hop-2": (160, 32),
+                 "engine 128 hop-2": (1024, 512),
+                 "engine 64 hop-2": (512, 256)}
 N_NODES, PER_NODE, K_LOCAL = 16, 8, 2
 # the tolerance of tests/test_torch_serve.py for bf16 logits
 LOGITS_ATOL = 3e-2
@@ -763,11 +814,8 @@ def phase_serve(torch, ops):
     print(f"  max_memory_allocated {peak / 2**30:.2f} GiB")
     if not res.logits_finite:
         raise AssertionError("serve: non-finite logits")
-    per_forward = {"dispatch_gather": 8, "grouped_ffn": 4,
-                   "combine_gather": 8, "router_fused": 0, "group_sort": 0,
-                   "grouped_ffn_ragged": 0, **NO_SCORING_KERNELS}
     for phase, n in (("prefill", 1), ("decode", steps)):
-        want = {k: v * n for k, v in per_forward.items()}
+        want = {k: v * n for k, v in SORT_PER_FORWARD.items()}
         if res.launches[phase] != want:
             raise AssertionError(f"serve {phase}: launches "
                                  f"{res.launches[phase]}, expected {want}")
@@ -796,6 +844,7 @@ def phase_warm(torch, first, profiled_tokens=None):
           f"{res.decode_s / steps * 1e3:.2f} ms per step "
           f"({steps * res.batch / res.decode_s:.1f} tokens/s); tokens equal "
           f"to the first call: {bool((res.tokens == first.tokens).all())}")
+    warm_step_ms = res.decode_s / steps * 1e3
     torch.cuda.synchronize()
     n = profiled_tokens or new_tokens
     with profile(activities=[ProfilerActivity.CPU,
@@ -804,6 +853,7 @@ def phase_warm(torch, first, profiled_tokens=None):
         run(n)
         wall_us = (time.perf_counter() - t0) * 1e6
     profile_summary(prof, wall_us, n, "forward")
+    return warm_step_ms
 
 
 def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
@@ -1590,6 +1640,489 @@ def phase_rwkv_serve_card_vs_cpu(torch, ops):
 
 
 
+# the engine phases: ServeConfig's defaults (8 slots, pages of 16, prompt
+# 128 + 32 new = cache 160, prefill buckets 16/32/64/128/160) and 16 ragged
+# requests from seed 0 (prompts of 32-128 tokens, 16-32 new tokens): twice
+# the slots, so admission waits and freed pages are reused
+ENGINE_REQUESTS = 16
+# per forward of the 4-layer sort serve (phase 3)
+SORT_PER_FORWARD = {**ZERO_LAUNCHES, "dispatch_gather": 8, "grouped_ffn": 4,
+                    "combine_gather": 8}
+ENGINE_TIMED_TICKS = 10
+ENGINE_PROFILED_TICKS = 4
+# the reduced engine, card against CPU: 12 requests, prompts 8-32 tokens,
+# 8-16 new, 4 slots, pages of 8 (buckets 16/32/48)
+SMALL_ENGINE = dict(requests=12, prompt_len=32, new_tokens=16, n_slots=4,
+                    page_size=8)
+# qwen1.5-0.5b's first-token logits from the engine against the fixed-batch
+# forward.  The two attentions (paged: a direct softmax over a gathered
+# view; ring: an online softmax in chunks) sum in fp32 in other orders, and
+# each layer rounds its output (bf16 compute) and its K/V (bf16 caches) to
+# bf16: a value near a rounding edge lands an ulp apart, and 24 layers
+# carry it on.  On an H100 the gap read 4.549e-02 in bf16 and 1.086e-03
+# with fp32 compute (bf16 caches), max |logit| 3.24; each limit is 2-3x
+# its reading.  A lost or misplaced key would move both alike
+QWEN15_FIRST_TOKEN_ATOL = 0.1
+FP32_FIRST_TOKEN_ATOL = 3e-3
+
+
+def engine_requests(cfg, n, prompt_len, new_tokens):
+    import numpy as np
+    from repro_torch.launch.serve import draw_requests
+    return draw_requests(np.random.default_rng(0), n, prompt_len, new_tokens,
+                         cfg.vocab_size)
+
+
+def _pct(vals, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(vals), q))
+
+
+def print_request_times(eng, uids, wall_s, what):
+    """Tokens/s, time to first token and time per output token of the
+    requests ``uids`` of ``eng``, whose run took ``wall_s``."""
+    import numpy as np
+    reqs = [eng.requests[u] for u in uids]
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    gaps = np.concatenate([np.diff(r.t_tokens) for r in reqs])
+    n_tok = sum(len(r.generated) for r in reqs)
+    print(f"  {what}: {len(reqs)} requests, {n_tok} tokens in "
+          f"{wall_s * 1e3:.2f} ms ({n_tok / wall_s:,.1f} tokens/s); time to "
+          f"first token mean {np.mean(ttft) * 1e3:.2f} ms, p50 "
+          f"{_pct(ttft, 50) * 1e3:.2f}, p90 {_pct(ttft, 90) * 1e3:.2f}; time "
+          f"per output token mean {gaps.mean() * 1e3:.3f} ms, p90 "
+          f"{_pct(gaps, 90) * 1e3:.3f}")
+
+
+@contextlib.contextmanager
+def keep_logits(eng):
+    """While open, each token the engine ``eng`` generates has its logits,
+    (V,) fp32 on the host, appended to the yielded ``{uid: [logits,
+    ...]}``: one device-to-host copy of a step's logits a step.  It wraps
+    the engine's tick, which alone knows the request of each row."""
+    kept, last = {}, []
+    step_of, prefill_tick, decode_tick = (eng._step, eng._prefill_tick,
+                                          eng._decode_tick)
+
+    def step(key):
+        run = step_of(key)
+
+        def call():
+            out = run()
+            last[:] = [out[1].float().cpu()]
+            return out
+        return call
+
+    def prefill():
+        req = eng.prefilling[0][0] if eng.prefilling else None
+        n = len(req.generated) if req is not None else 0
+        prefill_tick()
+        if req is not None and len(req.generated) > n:
+            kept.setdefault(req.uid, []).append(last[0])
+
+    def decode():
+        live = [(i, r) for i, r in enumerate(eng.slot_req) if eng._live[i]]
+        decode_tick()
+        for i, r in live:
+            kept.setdefault(r.uid, []).append(last[0][i])
+
+    eng._step, eng._prefill_tick, eng._decode_tick = step, prefill, decode
+    try:
+        yield kept
+    finally:
+        del eng._step, eng._prefill_tick, eng._decode_tick
+
+
+def check_replay(step):
+    """The engine step ``step``, run by the tick just ended, called again
+    (a graph replay on the card) against its function run eagerly on a clone
+    of the caches, both on that tick's static inputs.  The call writes the
+    K/V the tick wrote to the same slots again and reads no position the
+    tick's later work wrote, so the engine's state does not change.
+    Returns ``((packed, logits) eager, (packed, logits) of the call)``."""
+    import torch
+    from repro_torch.serve.kvcache import clone_caches
+    with torch.no_grad():
+        eager = [t.clone() for t in step.fn(clone_caches(step.caches))]
+        return eager, [t.clone() for t in step()]
+
+
+def run_checked(eng, reqs, keys):
+    """Submit ``reqs`` to ``eng`` and run it until it drains; after the
+    first tick that runs each step of ``keys``, :func:`check_replay` it.
+    Returns ``(uids, {key: check})``."""
+    uids = [eng.submit(p, nt) for p, nt in reqs]
+    checks = {}
+    while eng.busy:
+        calls = {k: s.calls for k, s in eng.steps.items()}
+        eng.step()
+        for k in keys:
+            if (k not in checks and k in eng.steps
+                    and eng.steps[k].calls > calls.get(k, 0)):
+                checks[k] = check_replay(eng.steps[k])
+    if set(checks) != set(keys):
+        raise AssertionError(f"steps {set(keys) - set(checks)} never ran")
+    return uids, checks
+
+
+def first_token_gaps(torch, eng, kept, uids, reqs, params, cfg, plan):
+    """Each request's first-token logits from the engine (``kept``) against
+    the fixed-batch path's forward (ring caches) over its prompt padded to
+    its engine bucket, the padding invalid as the engine marks it, so that
+    the MoE capacity is the engine's.  Returns (max abs differences, share
+    of equal greedy tokens, max |logit|)."""
+    from repro_torch.models import transformer as T
+    agree, errs = 0, []
+    with torch.no_grad():
+        for u, (p, _) in zip(uids, reqs):
+            S = next(b for b in eng.buckets if b >= len(p))
+            toks = torch.zeros((1, S), dtype=torch.int32, device="cuda")
+            toks[0, :len(p)] = torch.as_tensor(p, device="cuda")
+            valid = torch.arange(S, device="cuda")[None] < len(p)
+            _, lf, _, _ = T.forward(
+                params, toks, cfg, plan,
+                positions=torch.arange(S, dtype=torch.int32, device="cuda"),
+                caches=T.init_caches(cfg, 1, S, plan, device="cuda"),
+                use_kernel=True, token_valid=valid)
+            lf = lf[0, len(p) - 1].float().cpu()
+            le = kept[u][0]
+            agree += int(lf.argmax()) == int(le.argmax())
+            errs.append((lf - le).abs().max().item())
+    top = max(kept[u][0].abs().max().item() for u in uids)
+    return errs, agree / len(errs), top
+
+
+def check_engine_done(eng, reqs, uids, what):
+    """(a): every request of ``uids`` completed with its token count, and
+    every page is free."""
+    for u, (_, nt) in zip(uids, reqs):
+        if len(eng.finished.get(u, ())) != nt:
+            raise AssertionError(f"{what}: request {u} gave "
+                                 f"{len(eng.finished.get(u, ()))} of {nt} "
+                                 f"tokens")
+    if eng.busy or eng.alloc.n_free != eng.alloc.pool_pages:
+        raise AssertionError(f"{what}: {eng.alloc.n_free} of "
+                             f"{eng.alloc.pool_pages} pages free, busy "
+                             f"{eng.busy}")
+
+
+def phase_engine(torch, ops, params, cfg, plan, per_forward, fixed_step_ms,
+                 first_token_atol=LOGITS_ATOL):
+    """The continuous-batching engine through ``launch.serve.run_engine``
+    on ``params`` under ``cfg``, every launch count set to 0 just before and
+    read just after: 16 ragged requests on a new engine (its steps captured
+    as CUDA graphs on first use).  Then the same engine again: the trace
+    warm (graphs replayed, no capture); the trace with the logits kept and
+    one decode replay and one prefill replay held to the eager step on a
+    clone of the caches; the first-token logits against the fixed-batch
+    forward, held to ``first_token_atol``; then 8
+    requests, of which ticks of decode only are timed (graph replay against
+    the eager step) and profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.launch.serve import run_engine
+    sc = ServeConfig()
+    reqs = engine_requests(cfg, ENGINE_REQUESTS, sc.prompt_len,
+                           sc.max_new_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_engine(params, cfg, plan, reqs, sc)
+    launches = ops.launch_counts()
+    eng = res.engine
+    uids = sorted(res.tokens)
+    counts = eng.compile_counts()
+    check_engine_done(eng, reqs, uids, f"{cfg.name} engine")
+    # (b) one capture a step; a prompt of at most 160 tokens is one chunk
+    used = {}
+    for p, _ in reqs:
+        b = next(b for b in eng.buckets if b >= len(p))
+        used[b] = used.get(b, 0) + 1
+    dec_tokens = sum(nt - 1 for _, nt in reqs)
+    print(f"  first run (captures on first use): {res.ticks} ticks; "
+          f"buckets used {dict(sorted(used.items()))}; compile counts "
+          f"{counts}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print_request_times(eng, uids, res.wall_s, "first run")
+    if not (counts["decode"] == 1 and counts["captures"]["decode"] == 1
+            and counts["prefill"] == {b: 1 for b in used}
+            and counts["captures"]["prefill"] == {b: 1 for b in used}
+            and counts["replays"]["prefill"] == used
+            and -(-dec_tokens // sc.n_slots) <= counts["replays"]["decode"]
+            <= dec_tokens):
+        raise AssertionError(f"{cfg.name} engine: compile counts {counts}, "
+                             f"buckets used {used}, {dec_tokens} decoded "
+                             f"tokens")
+    # (c) the counters move at warm-up and capture only
+    n_steps = 1 + len(used)
+    want = {k: v * 2 * n_steps for k, v in per_forward.items()}
+    if launches != want or eng.capture_launches() != want:
+        raise AssertionError(f"{cfg.name} engine: launches {launches}, at "
+                             f"capture {eng.capture_launches()}, expected "
+                             f"{want} ({n_steps} steps x warm-up + capture)")
+    run_forwards = res.replays + n_steps
+    executed = {k: v * run_forwards for k, v in per_forward.items() if v}
+    print(f"  launches counted (warm-ups + captures of {n_steps} steps): "
+          f"{ {k: v for k, v in launches.items() if v} }; replays "
+          f"{res.replays}; launches executed (warm-ups + replays) x per "
+          f"forward: {executed}")
+    m = res.metrics
+    print(f"  page occupancy mean {m['page_occupancy_mean']:.3f}, max "
+          f"{m['page_occupancy_max']:.3f}; moe drop_frac mean "
+          f"{m['moe_drop_frac_mean']:.4f}, hop max load max "
+          f"{m['moe_hop_max_load_max']:.4f}, hop load entropy min "
+          f"{m['moe_hop_load_entropy_min']:.4f}, fault events "
+          f"{m['moe_fault_events']:g}")
+
+    # the same trace warm on the same engine: replays only
+    t0 = time.perf_counter()
+    warm = [eng.submit(p, nt) for p, nt in reqs]
+    eng.run()
+    wall = time.perf_counter() - t0
+    check_engine_done(eng, reqs, warm, f"{cfg.name} engine, warm")
+    print_request_times(eng, warm, wall, "warm run")
+    same = all(eng.finished[w] == res.tokens[u] for w, u in zip(warm, uids))
+    after = eng.compile_counts()
+    moved = {k: v - launches[k] for k, v in ops.launch_counts().items()
+             if v != launches[k]}
+    print(f"  warm run: {eng.ticks - res.ticks} ticks, tokens equal to the "
+          f"first run's: {same}; captures {after['captures']}; launches "
+          f"counted since the first run: {moved}")
+    if not same or after["captures"] != counts["captures"] \
+            or ops.launch_counts() != launches:
+        raise AssertionError(f"{cfg.name} engine, warm: tokens equal {same},"
+                             f" captures {after['captures']}, launches "
+                             f"{ops.launch_counts()}")
+
+    # (d)-(f): the trace once more, the logits kept; after the first tick
+    # that runs the decode step, and the first that runs the busiest bucket,
+    # that step again against the eager step on a clone of the caches
+    bucket = max(used, key=lambda b: (used[b], b))
+    with keep_logits(eng) as logits:
+        kept, checks = run_checked(eng, reqs, ("decode", bucket))
+    check_engine_done(eng, reqs, kept, f"{cfg.name} engine, logits kept")
+    for key in ("decode", bucket):
+        (pe, le), (pg, lg) = checks[key]
+        n = 1 if key != "decode" else sc.n_slots
+        tok_eq = bool(torch.equal(pe[:n], pg[:n]))
+        err = (le.float() - lg.float()).abs().max().item()
+        print(f"  {key if key == 'decode' else f'prefill bucket {key}'}: "
+              f"graph replay against the eager step on a clone: next tokens "
+              f"equal {tok_eq}, logits max abs difference {err:.3e} "
+              f"(tolerance {LOGITS_ATOL})")
+        if not (tok_eq and err <= LOGITS_ATOL):
+            raise AssertionError(f"{cfg.name} engine: {key} replay against "
+                                 f"eager: tokens {tok_eq}, logits {err}")
+    finite = all(bool(torch.isfinite(lg).all())
+                 for u in kept for lg in logits[u])
+    if not finite:
+        raise AssertionError(f"{cfg.name} engine: non-finite logits")
+    errs, agree, top = first_token_gaps(torch, eng, logits, kept, reqs,
+                                        params, cfg, plan)
+    print(f"  first-token logits against the fixed-batch forward (ring "
+          f"caches) of the same prompt padded to its bucket: max abs "
+          f"difference {max(errs):.3e} over {len(errs)} requests, max "
+          f"|logit| {top:.3f} (tolerance {first_token_atol}); greedy tokens "
+          f"agree {agree:.3f}; all logits finite: {finite}")
+    if not max(errs) <= first_token_atol:
+        raise AssertionError(f"{cfg.name} engine: first-token logits "
+                             f"{max(errs)} from the fixed-batch forward")
+
+    # decode-only ticks: 8 requests fill the slots; once all are live, time
+    # ENGINE_TIMED_TICKS ticks, the decode step's replay against its eager
+    # function on the same inputs, and profile ENGINE_PROFILED_TICKS ticks
+    full = [eng.submit(p, sc.max_new_tokens) for p, _ in reqs[:sc.n_slots]]
+    while eng.prefilling or eng.waiting:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENGINE_TIMED_TICKS):
+        eng.step()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / ENGINE_TIMED_TICKS
+    step = eng.steps["decode"]
+
+    def timed(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    with torch.no_grad():
+        graph_ms = timed(step)
+        eager_ms = timed(lambda: step.fn(step.caches))
+        graph_ms2 = timed(step)
+    print(f"  decode tick, {sc.n_slots} live slots: {tick_ms:.3f} ms a tick "
+          f"(graph replay, {ENGINE_TIMED_TICKS} ticks); the decode step "
+          f"alone: graph replay {graph_ms:.3f} / {graph_ms2:.3f} ms, eager "
+          f"{eager_ms:.3f} ms; the fixed-batch eager decode step (batch "
+          f"{sc.batch_size}, warm) {fixed_step_ms:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ENGINE_PROFILED_TICKS):
+            eng.step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, _ = profile_summary(prof, wall_us, ENGINE_PROFILED_TICKS,
+                                 "tick", top=8)
+    busy_ms = busy_us / 1e3 / ENGINE_PROFILED_TICKS
+    print(f"  device busy {busy_ms:.3f} ms a tick against the unprofiled "
+          f"tick's {tick_ms:.3f} ms: idle share {1 - busy_ms / tick_ms:.3f}")
+    eng.run()
+    check_engine_done(eng, [(None, sc.max_new_tokens)] * len(full), full,
+                      f"{cfg.name} engine, decode ticks")
+    final = eng.compile_counts()
+    print(f"  after {len(eng.requests)} requests on one engine: captures "
+          f"{final['captures']}, replays {final['replays']}")
+    if final["captures"] != counts["captures"]:
+        raise AssertionError(f"{cfg.name} engine: captures grew "
+                             f"{final['captures']}")
+
+
+def phase_engine_card_vs_cpu(torch, ops, arch, moe_options=None):
+    """A reduced config through the engine on the CPU (eager, plain
+    versions) and on the card (graphs, kernels), same weights and trace:
+    every request's tokens equal, or, where they first part, that tick's
+    logits within LOGITS_ATOL and its top-2 margin under 2 * LOGITS_ATOL."""
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.configs import get_reduced, with_options
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = with_options(get_reduced(arch), **(moe_options or {}))
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cpu")
+    se = SMALL_ENGINE
+    sc = ServeConfig(prompt_len=se["prompt_len"],
+                     max_new_tokens=se["new_tokens"], n_slots=se["n_slots"],
+                     page_size=se["page_size"])
+    reqs = engine_requests(cfg, se["requests"], se["prompt_len"],
+                           se["new_tokens"])
+    engines, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        eng = engines[dev] = Engine(_to(params, dev), cfg, plan, serve=sc)
+        with keep_logits(eng) as logits[dev]:
+            for p, nt in reqs:
+                eng.submit(p, nt)
+            eng.run()
+        print(f"  {dev}: {eng.ticks} ticks, compile counts "
+              f"{eng.compile_counts()}, launches counted "
+              f"{ {k: v for k, v in ops.launch_counts().items() if v} }")
+    a, b = engines["cpu"], engines["cuda"]
+    if a.ticks != b.ticks:
+        raise AssertionError(f"{arch} engine: {a.ticks} ticks on the CPU, "
+                             f"{b.ticks} on the card")
+    n_same, worst = 0, 0.0
+    for u in sorted(a.finished):
+        ta, tb = a.finished[u], b.finished[u]
+        la, lb = logits["cpu"][u], logits["cuda"][u]
+        # the first token that parts, or the last; up to it both runs were
+        # fed the same tokens
+        j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 len(ta) - 1)
+        errs = [(x - y).abs().max().item() for x, y in zip(la[:j + 1],
+                                                           lb[:j + 1])]
+        worst = max(worst, max(errs))
+        if ta == tb:
+            n_same += 1
+            continue
+        err = errs[j]
+        top2 = la[j].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        print(f"  request {u} parts at token {j}: logits max abs "
+              f"difference {err:.3e}, top-2 margin {margin:.3e}")
+        if not (err <= LOGITS_ATOL and margin < 2 * LOGITS_ATOL):
+            raise AssertionError(f"{arch} engine, request {u}, token {j}: "
+                                 f"error {err}, margin {margin}")
+    print(f"  {arch} {moe_options or ''}: {n_same} of {len(a.finished)} "
+          f"requests' tokens equal; largest logits difference up to where a "
+          f"request parts {worst:.3e}")
+    if not worst <= LOGITS_ATOL:
+        raise AssertionError(f"{arch} engine: logits {worst} apart")
+
+
+
+def phase_engine_qwen3(torch, ops, fixed_step_ms):
+    """Phase 13: qwen3-moe through the engine at full width, 4 layers, grid
+    (16, 8), under sort then dropless on one set of weights."""
+    from repro_torch.configs import with_options
+    from repro_torch.launch.serve import serve_config
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = serve_config(SERVE["arch"], reduced=False,
+                       num_layers=SERVE["num_layers"],
+                       moe_grid=SERVE["moe_grid"])
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cuda")
+    for name, c, per in (("sort", cfg, SORT_PER_FORWARD),
+                         ("dropless", with_options(cfg, **DROPLESS),
+                          DROPLESS_PER_FORWARD)):
+        print(f"  -- {name}")
+        phase_engine(torch, ops, params, c, plan, per, fixed_step_ms)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_engine_qwen15(torch, ops):
+    """Phase 14: qwen1.5-0.5b through the engine at full width and depth
+    (no kernel of the port runs: every count stays 0), beside its own
+    fixed-batch eager decode step (batch 8, prompt 128, 32 new tokens,
+    warm); then the first-token comparison of phase 13's (e) again with
+    fp32 compute."""
+    import numpy as np
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.data.pipeline import synthetic_tokens
+    from repro_torch.launch.serve import generate, serve_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding.plan import single_device_plan
+    sc = ServeConfig()
+    cfg = serve_config("qwen1.5-0.5b", reduced=False)
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cuda")
+    prompts = torch.as_tensor(synthetic_tokens(
+        np.random.default_rng(0), sc.batch_size, sc.prompt_len,
+        cfg.vocab_size), device="cuda")
+    for _ in range(2):
+        r = generate(params, prompts, cfg, plan,
+                     new_tokens=sc.max_new_tokens)
+    fixed_ms = r.decode_s / r.decode_steps * 1e3
+    print(f"  fixed-batch generate, warm: prefill {r.prefill_s * 1e3:.2f} ms;"
+          f" decode {fixed_ms:.3f} ms a step")
+    phase_engine(torch, ops, params, cfg, plan, ZERO_LAUNCHES, fixed_ms,
+                 first_token_atol=QWEN15_FIRST_TOKEN_ATOL)
+    # the same first-token comparison with fp32 compute and weights (the
+    # same draws, not rounded to bf16; the caches stay bf16 on both paths),
+    # one new token a request
+    del params
+    cfg32 = cfg.replace(dtype="float32")
+    params = T.init_model(cfg32, plan, seed=0, device="cuda")
+    reqs = engine_requests(cfg, ENGINE_REQUESTS, sc.prompt_len,
+                           sc.max_new_tokens)
+    eng = Engine(params, cfg32, plan, serve=sc)
+    with keep_logits(eng) as logits:
+        uids = [eng.submit(p, 1) for p, _ in reqs]
+        eng.run()
+    errs, agree, top = first_token_gaps(torch, eng, logits, uids, reqs,
+                                        params, cfg32, plan)
+    print(f"  fp32 compute: first-token logits against the fixed-batch "
+          f"forward: max abs difference {max(errs):.3e} over {len(errs)} "
+          f"requests, max |logit| {top:.3f} (tolerance "
+          f"{FP32_FIRST_TOKEN_ATOL}); greedy tokens agree {agree:.3f}")
+    if not max(errs) <= FP32_FIRST_TOKEN_ATOL:
+        raise AssertionError(f"qwen1.5 engine, fp32: first-token logits "
+                             f"{max(errs)} from the fixed-batch forward")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -1655,7 +2188,7 @@ def main() -> int:
     clock.start(f"phase 3: serve qwen3-moe-30b-a3b, full width, 4 of 48 "
                 f"layers ({card})")
     launches, first = phase_serve(torch, ops)
-    phase_warm(torch, first)
+    fixed_step_ms = phase_warm(torch, first)
     del first
 
     clock.start("phase 4: card against CPU, reduced qwen3-moe-30b-a3b")
@@ -1705,6 +2238,21 @@ def main() -> int:
     for dtype in ("float32", "bfloat16"):
         phase_scoring_card_vs_cpu(torch, ops, "rwkv6-1.6b", dtype)
     phase_rwkv_serve_card_vs_cpu(torch, ops)
+
+    clock.start(f"phase 13: engine, qwen3-moe-30b-a3b, full width, 4 of 48 "
+                f"layers, grid (16, 8), sort then dropless on the same "
+                f"weights, {ENGINE_REQUESTS} ragged requests ({card})")
+    phase_engine_qwen3(torch, ops, fixed_step_ms)
+
+    clock.start(f"phase 14: engine, qwen1.5-0.5b, full width and depth, "
+                f"{ENGINE_REQUESTS} ragged requests ({card})")
+    phase_engine_qwen15(torch, ops)
+
+    clock.start("phase 15: engine, card against CPU, reduced qwen3-moe-30b-a3b"
+                " (sort, dropless) and qwen1.5-0.5b")
+    for arch, opts in (("qwen3-moe-30b-a3b", None),
+                       ("qwen3-moe-30b-a3b", DROPLESS), ("qwen1.5-0.5b", None)):
+        phase_engine_card_vs_cpu(torch, ops, arch, opts)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

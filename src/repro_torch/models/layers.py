@@ -243,14 +243,15 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     into the ring buffer at ``positions % W`` and attends over the cache;
     otherwise attends over x.
 
-    The ring-cache write updates the cache tensors in place (the JAX
-    package returns new arrays and donates the old ones); the returned
+    A paged cache (``pool_k``/``pool_v`` and a page ``table``, see
+    :func:`paged_attention`) takes per-row ``positions`` (B, T).
+
+    The ring-cache and paged writes update the cache tensors in place (the
+    JAX package returns new arrays and donates the old ones); the returned
     cache is the same dict.
     """
-    if cache is not None and "pool_k" in cache:
-        raise NotImplementedError("the paged KV cache (serving engine) is "
-                                  "not ported yet")
-    if cache is not None and cfg.kv_seq_shard and plan.tp > 1:
+    if (cache is not None and "pool_k" not in cache and cfg.kv_seq_shard
+            and plan.tp > 1):
         raise NotImplementedError("the sequence-sharded KV cache needs "
                                   "tensor parallelism, not ported yet")
     B, T, _ = x.shape
@@ -270,6 +271,9 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                                 causal=cfg.causal, window=window,
                                 use_kernel=use_kernel)
         new_cache = None
+    elif "pool_k" in cache:
+        out, new_cache = paged_attention(q, k, v, cache, positions, cfg,
+                                         plan, window=window)
     else:
         W = cache["k"].shape[1]
         slot = (positions % W).long()                            # (T,)
@@ -295,3 +299,100 @@ def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
         "v": torch.zeros((batch, length, KV, hd), dtype=dtype, device=device),
         "pos": torch.full((length,), -1, dtype=torch.int32, device=device),
     }
+
+
+# =============================================================================
+# Paged KV cache: page-pool scatter write + page-table gather read
+# =============================================================================
+
+def init_paged_kv_cache(cfg: ModelConfig, pool_pages: int, page_size: int,
+                        dtype=torch.bfloat16, device=None) -> Dict:
+    """One layer's page pool, ``(pool_pages, page_size, KV, hd)``, with no
+    batch dim: sequences own pages through the page ``table`` that the
+    serving engine adds to the cache dict (``serve.kvcache.inject_tables``)."""
+    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (pool_pages, page_size, KV, hd)
+    return {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
+            "pool_v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _masked_rows_write(pool: torch.Tensor, idx: torch.Tensor,
+                       ok: torch.Tensor, val: torch.Tensor) -> None:
+    """``pool[idx[i]] = val[i]`` for the rows where ``ok``, in place, and no
+    write for the others (the reference's ``mode="drop"``), without reading
+    ``ok`` on the host.  Each dropped row is sent to the first kept row's
+    slot with that row's value, so the duplicate writes agree; with no row
+    kept, to slot 0 with slot 0's own value."""
+    # index_select, not idx[first]: a 0-dim index tensor is read on the host
+    first = ok.to(torch.int32).argmax().reshape(1)
+    any_ok = ok.any()
+    tgt = torch.where(any_ok, idx.index_select(0, first), 0)
+    fill = torch.where(any_ok, val.index_select(0, first)[0], pool[0])
+    idx = torch.where(ok, idx, tgt)
+    val = torch.where(ok.reshape((-1,) + (1,) * (val.dim() - 1)), val, fill)
+    pool.index_put_((idx,), val)
+
+
+def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache: Dict, positions: torch.Tensor, cfg: ModelConfig,
+                    plan: MeshPlan, *, window: int = 0
+                    ) -> Tuple[torch.Tensor, Dict]:
+    """Paged-KV attention step: write this tick's K/V into the page pool,
+    gather each sequence's view through its page-table row, and attend with
+    a direct fp32 softmax over the view.
+
+    q/k/v: (B, T, h, hd) fresh (rope-applied) projections; ``positions``
+    (B, T) per-row absolute positions, **-1 marks a dead row**: its write is
+    dropped and its output is finite garbage the caller ignores.  cache:
+    ``pool_k``/``pool_v`` (P, page, KV, hd) plus ``table`` (B, max_pages)
+    int32 of sequence-ordered page ids; an entry ``>= P`` (the engine's
+    sentinel ``P``) or ``< 0`` is unmapped.
+
+    Rows whose position is dead, lies past the table, or maps to an
+    unmapped entry are not written (the reference sends them to page ``P``
+    with ``mode="drop"``; here they are masked explicitly).  The pools are
+    updated in place.  Index ``s`` of a row's gathered view is sequence
+    position ``s``, so the one mask ``s <= q_pos`` gives causality and hides
+    what an earlier owner left in a reused page.
+    """
+    if not cfg.causal:
+        raise ValueError("the paged attention path is causal-only")
+    pool_k, pool_v, table = cache["pool_k"], cache["pool_v"], cache["table"]
+    P, page = pool_k.shape[0], pool_k.shape[1]
+    B, T, H, hd = q.shape
+    mp = table.shape[1]
+    KV = k.shape[2]
+
+    # ---- write: token (b, t) at position s -> (table[b, s // page],
+    # s % page), flattened to one row index of the (P * page) pool rows
+    ps = positions.clamp(min=0).long()
+    slot = ps // page
+    pidx = table.long().gather(1, slot.clamp(max=mp - 1))
+    ok = (positions >= 0) & (slot < mp) & (pidx >= 0) & (pidx < P)
+    row = (pidx * page + ps % page).reshape(-1)
+    ok = ok.reshape(-1)
+    for pool, new in ((pool_k, k), (pool_v, v)):
+        _masked_rows_write(pool.view(P * page, KV, hd), row, ok,
+                           new.reshape(B * T, KV, hd).to(pool.dtype))
+
+    # ---- gather read: (B, mp, page, KV, hd) -> per-sequence (B, Lk) views
+    tbl = table.long().clamp(0, P - 1)
+    Lk = mp * page
+    k_view = pool_k[tbl].reshape(B, Lk, KV, hd).float()
+    v_view = pool_v[tbl].reshape(B, Lk, KV, hd).float()
+
+    # ---- direct fp32 softmax over the view
+    g = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = (q * scale).float().reshape(B, T, KV, g, hd)
+    s = torch.einsum("btkgh,bskh->btkgs", qf, k_view)
+    sidx = torch.arange(Lk, device=q.device)
+    qp = positions[:, :, None, None, None]
+    mask = sidx <= qp
+    if window:
+        mask = mask & ((qp - sidx) < window)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("btkgs,bskh->btkgh", e, v_view)
+    out = out / torch.clamp(e.sum(-1), min=1e-30)[..., None]
+    return out.reshape(B, T, H, hd).to(q.dtype), cache

@@ -372,8 +372,13 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
             token_valid: Optional[torch.Tensor] = None,
             cast_weights: bool = False):
     """Full forward.  Returns (hidden (B,T,d), logits (B,T,V), MoEStats,
-    new_caches).  ``caches`` (from :func:`init_caches`) are updated in
-    place and returned.  ``remat`` and ``cast_weights`` as in
+    new_caches).  ``caches`` (from :func:`init_caches`, or the paged pools
+    of ``serve.kvcache`` with their page tables) are updated in place and
+    returned.  ``positions``: (T,) shared, or (B, T) per row (the paged
+    cache; -1 marks a dead row).  ``token_valid`` (B, T) bool, optional:
+    the live-token mask of a decode tick or a padded prefill chunk; only the
+    MoE blocks read it (invalid tokens route nowhere and leave the router
+    losses).  ``remat`` and ``cast_weights`` as in
     :func:`stage_forward` (training passes both)."""
     cfg = _model_cfg(cfg0, plan)
     stages = build_stages(cfg)
@@ -391,6 +396,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
         new_caches.append(c)
     logits = model_logits(params, x, cfg, plan)
     return x, logits, acc, (None if caches is None else tuple(new_caches))
+
+
+def paged_cache_supported(cfg: ModelConfig) -> bool:
+    """The serving engine's arch gate (the reference's, in
+    ``repro.serve.engine.Engine``): a causal model of one token stream with
+    GQA attention, full or sliding, and no recurrent state.  MLA, SSM and
+    RWKV stages keep state the page pool does not hold."""
+    return (cfg.causal and cfg.num_codebooks == 1
+            and cfg.attention in ("full", "sliding")
+            and cfg.arch_type not in ("ssm", "hybrid"))
 
 
 def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,

@@ -5,10 +5,16 @@ the JAX package, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import keep_logits, run_checked  # noqa: E402
 
 # fp32 accumulation in another order; h and y are rounded to bf16 once each,
 # so an element can sit one bf16 ulp (2**-8 relative) apart, then propagate
@@ -661,3 +667,131 @@ def test_rwkv6_serve_runs_the_plain_recurrence():
     assert res.logits_finite
     for phase in ("prefill", "decode"):
         assert all(n == 0 for n in res.launches[phase].values()), res.launches
+
+
+# the continuous-batching engine at the reduced configs: 10 ragged requests
+# (prompts 4-24 tokens, 4-8 new), 3 slots, pages of 4 (buckets 16 and 32)
+ENGINE_CASES = {"qwen1.5": ("qwen1.5-0.5b", None),
+                "qwen3-sort": ("qwen3-moe-30b-a3b", None),
+                "qwen3-dropless": ("qwen3-moe-30b-a3b",
+                                   {"dispatch_backend": "dropless"})}
+# the tolerance of the serving tests for bf16 logits
+LOGITS_ATOL = 3e-2
+
+
+def _engine_setup(case, device):
+    import numpy as np
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.configs import get_reduced, with_options
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    arch, opts = ENGINE_CASES[case]
+    cfg = with_options(get_reduced(arch), **(opts or {}))
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device=device)
+    sc = ServeConfig(prompt_len=24, max_new_tokens=8, n_slots=3, page_size=4)
+    reqs = draw_requests(np.random.default_rng(0), 10, 24, 8, cfg.vocab_size)
+    return cfg, plan, params, sc, reqs
+
+
+def _engine_per_forward(cfg):
+    """Kernel launches a forward of the reduced config (2 layers)."""
+    out = {k: 0 for k in ops.launch_counts()}
+    if cfg.moe is not None:
+        out.update(dispatch_gather=4, combine_gather=4)
+        out["grouped_ffn_ragged" if cfg.moe.dispatch_backend == "dropless"
+            else "grouped_ffn"] = 2
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_card_matches_cpu(case):
+    """The same weights and trace through the engine on the CPU (eager,
+    plain versions) and on the card (CUDA graphs, kernels): equal tokens,
+    or where a request first parts, logits within LOGITS_ATOL and a top-2
+    margin under twice that; the same ticks."""
+    _card()
+    from repro_torch.serve.engine import Engine
+    cfg, plan, params, sc, reqs = _engine_setup(case, "cpu")
+    engines, logits = [], []
+    for p in (params, _to_card(params)):
+        eng = Engine(p, cfg, plan, serve=sc)
+        with keep_logits(eng) as kept:
+            for prompt, nt in reqs:
+                eng.submit(prompt, nt)
+            eng.run()
+        engines.append(eng)
+        logits.append(kept)
+    cpu, gpu = engines
+    assert cpu.ticks == gpu.ticks
+    for u, want in cpu.finished.items():
+        got = gpu.finished[u]
+        la, lb = logits[0][u], logits[1][u]
+        j = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                 len(want) - 1)
+        for x, y in zip(la[:j + 1], lb[:j + 1]):
+            assert (x - y).abs().max().item() <= LOGITS_ATOL
+        if got != want:
+            top2 = la[j].topk(2).values
+            assert (top2[0] - top2[1]).item() < 2 * LOGITS_ATOL, (u, j)
+
+
+def _to_card(tree):
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_card(v) for v in tree)
+    return tree.to("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_graph_replay_matches_eager(case):
+    """A decode replay and a prefill replay against the step function run
+    eagerly on a clone of the caches, with the same static inputs."""
+    _card()
+    from repro_torch.serve.engine import Engine
+    cfg, plan, params, sc, reqs = _engine_setup(case, "cuda")
+    eng = Engine(params, cfg, plan, serve=sc)
+    for p, nt in reqs[:4]:
+        eng.submit(p, nt)
+    eng.run()                              # captures every step it used
+    bucket = next(k for k in eng.steps if k != "decode")
+    _, checks = run_checked(eng, reqs[:4], ("decode", bucket))
+    assert set(checks) == {"decode", bucket}
+    for key, ((pe, le), (pg, lg)) in checks.items():
+        n = sc.n_slots if key == "decode" else 1
+        assert torch.equal(pe[:n], pg[:n]), key
+        assert (le.float() - lg.float()).abs().max().item() <= LOGITS_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_captures_once_across_admit_evict_cycles(case):
+    """Three passes of the trace through one engine (every page freed and
+    reused, slots refilled): one capture a step, replays counted, the
+    kernel counters moved only by each step's warm-up and capture, and
+    every page free at the end."""
+    _card()
+    from repro_torch.serve.engine import Engine
+    cfg, plan, params, sc, reqs = _engine_setup(case, "cuda")
+    eng = Engine(params, cfg, plan, serve=sc)
+    ops.reset_launch_counts()
+    outs = []
+    for _ in range(3):
+        uids = [eng.submit(p, nt) for p, nt in reqs]
+        eng.run()
+        outs.append([eng.finished[u] for u in uids])
+        assert eng.alloc.n_free == eng.alloc.pool_pages and not eng.busy
+    assert outs[0] == outs[1] == outs[2]
+    n = eng.compile_counts()
+    assert n["captures"] == {"decode": 1,
+                             "prefill": {b: 1 for b in n["prefill"]}}
+    assert n["decode"] == 1 and set(n["prefill"]) <= set(eng.buckets)
+    assert n["replays"]["decode"] >= 3 and all(
+        v >= 3 for v in n["replays"]["prefill"].values())
+    steps = 1 + len(n["prefill"])
+    want = {k: 2 * steps * v for k, v in _engine_per_forward(cfg).items()}
+    assert ops.launch_counts() == want == eng.capture_launches()
