@@ -114,7 +114,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ticks, and each request's tokens equal or, where they first part, a
     near tie (logits within the tolerance of phase 4, the top-2 margin
     under twice it).
-16. A ``{"kernels": [...]}`` line, then the card line, then the last line
+16. The expert-parallel wire: phase 3's serve over a ``(data 2, model 2)``
+    mesh of 4 ranks, one process each (``repro_torch.launch.mesh.
+    RankPool``), all on the one card under gloo (NCCL refuses two ranks on
+    one device), so every collective crosses the host.  Each rank draws
+    phase 3's weights (seed 0) and keeps its slice: 32 experts, 16 query
+    and 2 KV heads, half the vocabulary; 4 prompts a data rank.  On the
+    kernel path (bf16), three configs, each run checked, warm and with the
+    time inside ``comm`` taken (the card synchronized around each
+    collective): dropless, sort at capacity factor 4 (where no token can
+    drop: ``drop_frac`` 0 on every rank and on one rank) and sort at the
+    config's factor 2 (its ``drop_frac`` beside one rank's).  Every rank's
+    logits must be finite and its launch counts (set to 0 before the run)
+    equal its path's per forward: sort 8/4/8, dropless 12 gathers, 12
+    combines, 4 ragged FFNs.  Against the one-rank serve of the same
+    weights in this process: routing is discrete, and the ranks' sums run
+    in other orders, so a token whose router has two near-tied candidates
+    takes other experts on one side (``ROUTE_REL``; in bf16 in every row
+    at prefill).  So on the kernel path the prefill logits are held as the
+    JAX package holds its own bf16 mesh serve (within 5% of the largest)
+    and the token agreement and the parted routes are printed; then
+    dropless and sort at factor 4 run in fp32 on the plain path, where
+    each row is held as phase 15 holds the card to the CPU (tokens equal
+    or, where they first part, a near tie; logits within phase 4's
+    tolerance) up to the step where its route first parts, at most 1% of
+    the token-layers may part and at least half the rows must keep their
+    route to the end.  Printed: the slowest rank's prefill and
+    decode-step times beside one rank's, and the rows and bytes each rank
+    sends at each hop (inter over ``data``, intra over ``model``) a
+    forward.  Phase 2 holds the four kernels at a rank's prefill shapes
+    too.
+17. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the three kernels of the cache-less forward against
@@ -170,12 +200,19 @@ GATHER_SHAPES = {
     "engine 128 hop-2": (1024, 4096, 2),
     "engine 64 hop-1": (64, 512, 4),
     "engine 64 hop-2": (512, 2048, 2),
+    # a rank of phase 16's (data 2, model 2) mesh at prefill: 4 prompts of
+    # 128 tokens split over model, 256 tokens; hop 2 runs on the 2,048 rows
+    # hop 1's exchange hands it, into its 64 groups at capacity 128
+    "mesh prefill hop-2": (2048, 8192, 2),
 }
 # (G, T); "scoring" is phase 9's hop 2: 8,192 tokens x 8 experts over 128
 # groups at capacity factor 2
 FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2),
               "engine 128": (128, 32), "engine 64": (128, 16),
-              "scoring": (128, 2048)}
+              "scoring": (128, 2048),
+              # a mesh rank's 32 experts, their arrivals from both model
+              # ranks at capacity 128
+              "mesh prefill": (32, 256)}
 # the dropless serve's hop 2: the hop-1 slab's rows (real ones), k=2 experts
 # of the arrival node's 8 each, over 128 expert groups.  The slab holds the
 # 4t hop-1 assignments in tiles of b rows, one partial tile a node:
@@ -183,7 +220,11 @@ FFN_SHAPES = {"prefill": (128, 256), "decode": (128, 2),
 # at 8 (core/dispatch.py ``_ragged_block``, ``ragged_rows``)
 RAGGED_SHAPES = {"prefill hop-2": (5120, 4096), "decode hop-2": (160, 32),
                  "engine 128 hop-2": (1024, 512),
-                 "engine 64 hop-2": (512, 256)}
+                 "engine 64 hop-2": (512, 256),
+                 # a mesh rank at prefill: the hop-2 exchange's slab (2 x
+                 # 12,288 rows, about 2,048 real arrivals) compacted over
+                 # the rank's 32 experts, one each: 26,624 rows, block 64
+                 "mesh prefill": (24576, 2048, 32, 1)}
 N_NODES, PER_NODE, K_LOCAL = 16, 8, 2
 # the tolerance of tests/test_torch_serve.py for bf16 logits
 LOGITS_ATOL = 3e-2
@@ -560,26 +601,30 @@ def phase_kernels(torch, ops, ref):
     return rows
 
 
-def hop2_layout(torch, gen, slab: int, real: int):
-    """A dropless hop-2 layout from a real ``dispatch_ragged`` on the card:
-    ``slab`` arrival rows (the first ``real`` real, the rest zeros, as the
-    hop-1 exchange hands them over), each routed to K_LOCAL distinct
-    experts of its arrival node.  Returns ``(rows, group_starts, block,
-    valid assignments)``."""
+def hop2_layout(torch, gen, slab: int, real: int,
+                groups: int = N_NODES * PER_NODE, k: int = K_LOCAL):
+    """A dropless expert-FFN layout from a real ``dispatch_ragged`` on the
+    card: ``slab`` arrival rows (the first ``real`` real, the rest zeros,
+    as an exchange hands them over), each routed to K_LOCAL distinct
+    experts of its arrival node (or, with ``k=1``, to one of ``groups``).
+    Returns ``(rows, group_starts, block, valid assignments)``."""
     from repro_torch.core import dispatch as D
     dev = torch.device("cuda")
     valid_row = torch.arange(slab, device=dev) < real
     x = torch.randn((slab, D_MODEL), generator=gen, device=dev)
     x = (x * valid_row[:, None]).to(torch.bfloat16)
-    node = torch.randint(0, N_NODES, (slab,), generator=gen, device=dev)
-    q = torch.rand((slab, PER_NODE), generator=gen, device=dev).argsort(
-        dim=1)[:, :K_LOCAL]
-    gid = (node[:, None] * PER_NODE + q).reshape(-1).to(torch.int32)
-    valid = valid_row.repeat_interleave(K_LOCAL)
-    gates = torch.rand((slab * K_LOCAL,), generator=gen, device=dev)
-    rows, starts, st = D.dispatch_ragged(x, gid, gates, N_NODES * PER_NODE,
-                                         k=K_LOCAL, valid=valid,
-                                         use_kernel=True)
+    if k == 1:
+        gid = torch.randint(0, groups, (slab,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+        node = torch.randint(0, N_NODES, (slab,), generator=gen, device=dev)
+        q = torch.rand((slab, PER_NODE), generator=gen, device=dev).argsort(
+            dim=1)[:, :k]
+        gid = (node[:, None] * PER_NODE + q).reshape(-1).to(torch.int32)
+    valid = valid_row.repeat_interleave(k)
+    gates = torch.rand((slab * k,), generator=gen, device=dev)
+    rows, starts, st = D.dispatch_ragged(x, gid, gates, groups, k=k,
+                                         valid=valid, use_kernel=True)
     return rows, starts, st.cap, gid[valid]
 
 
@@ -596,15 +641,18 @@ def phase_ragged_ffn(torch, ops, ref, rows_out):
           / D_MODEL ** 0.5).to(bf)
     w2 = (torch.randn((G, D_FF, D_MODEL), generator=gen, device=dev)
           / D_FF ** 0.5).to(bf)
-    for shape, (slab, real) in RAGGED_SHAPES.items():
-        rows, starts, block, gids = hop2_layout(torch, gen, slab, real)
+    for shape, (slab, real, *layout) in RAGGED_SHAPES.items():
+        rows, starts, block, gids = hop2_layout(torch, gen, slab, real,
+                                                *layout)
+        g = starts.shape[0] - 1
+        v1, v3, v2 = w1[:g], w3[:g], w2[:g]
 
         def kernel():
-            return ops.grouped_ffn_ragged(rows, starts, w1, w3, w2,
+            return ops.grouped_ffn_ragged(rows, starts, v1, v3, v2,
                                           block=block, act="silu")
 
         got = kernel()
-        want = ref.grouped_ffn_ragged_ref(rows, starts, w1, w3, w2,
+        want = ref.grouped_ffn_ragged_ref(rows, starts, v1, v3, v2,
                                           act="silu")
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -627,7 +675,7 @@ def phase_ragged_ffn(torch, ops, ref, rows_out):
         add_row(rows_out, "grouped_ffn_ragged", shape, got, want,
                 time_ms(kernel),
                 time_ms(lambda: ref.grouped_ffn_ragged_ref(
-                    rows, starts, w1, w3, w2, act="silu")),
+                    rows, starts, v1, v3, v2, act="silu")),
                 bound(nbytes, flops, BF16_TC_FLOPS))
 
 
@@ -1983,6 +2031,42 @@ def phase_engine(torch, ops, params, cfg, plan, per_forward, fixed_step_ms,
                              f"{final['captures']}")
 
 
+def check_tokens_and_logits(want_tok, want_lg, got_tok, got_lg, atol: float,
+                            what: str, upto=None):
+    """Two greedy runs fed their own tokens: (B, n) tokens and (n, B, V)
+    logits of each step.  Every row's tokens equal or, where they first
+    part, a near tie: that step's logits within ``atol`` and the top-2
+    margin under ``2 * atol``; up to where a row parts, logits within
+    ``atol``.  ``upto[b]`` (default n) compares row ``b``'s first steps
+    only.  Returns ``(rows equal, largest logits difference)``."""
+    import numpy as np
+    n_same, worst = 0, 0.0
+    for b in range(want_tok.shape[0]):
+        n = want_tok.shape[1] if upto is None else upto[b]
+        if n == 0:
+            continue
+        ta, tb = list(want_tok[b][:n]), list(got_tok[b][:n])
+        j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                 len(ta) - 1)
+        errs = [float(np.abs(want_lg[i, b] - got_lg[i, b]).max())
+                for i in range(j + 1)]
+        worst = max(worst, max(errs))
+        if ta == tb:
+            n_same += 1
+            continue
+        top2 = np.sort(want_lg[j, b])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"  {what}: row {b} parts at token {j}: logits max abs "
+              f"difference {errs[j]:.3e}, top-2 margin {margin:.3e}")
+        if not (errs[j] <= atol and margin < 2 * atol):
+            raise AssertionError(f"{what}, row {b}, token {j}: error "
+                                 f"{errs[j]}, margin {margin}")
+    if not worst <= atol:
+        raise AssertionError(f"{what}: logits {worst} apart (tolerance "
+                             f"{atol})")
+    return n_same, worst
+
+
 def phase_engine_card_vs_cpu(torch, ops, arch, moe_options=None):
     """A reduced config through the engine on the CPU (eager, plain
     versions) and on the card (graphs, kernels), same weights and trace:
@@ -2123,6 +2207,403 @@ def phase_engine_qwen15(torch, ops):
     torch.cuda.empty_cache()
 
 
+# phase 16: the serve of phase 3 over a (data 2, model 2) mesh: 4 ranks, one
+# process each, sharing the one card under gloo (NCCL refuses two ranks on
+# one device), so every collective crosses the host
+MESH_SHAPE = (2, 2)
+MESH_BACKEND = "gloo"
+MESH_DEVICES = ["cuda:0"] * 4
+# per forward on a rank: sort as phase 3; dropless compacts each rank's
+# hop-2 arrivals before its expert FFN (one more gather and combine a layer)
+MESH_PER_FORWARD = {
+    "sort": SORT_PER_FORWARD,
+    "dropless": {**ZERO_LAUNCHES, "dispatch_gather": 12, "combine_gather": 12,
+                 "grouped_ffn_ragged": 4}}
+# a capacity factor at which sort drops nothing by construction (full
+# qwen3, grid (16, 8), r = h = 1): hop 1 keeps every token if cap1 >= t
+# (cf >= n / top_g = 4), hop 2 every arrival if cap2 >= P * cap1 (a group
+# gets at most its node's P * cap1 rows once each: cf >= (m h) / k_local =
+# 4)
+NO_DROP_CF = 4.0
+# (name, backend, capacity factor, whether tokens can drop: sort at factor
+# 2 drops, and the two sides drop other tokens, so it is run, timed and its
+# drop_frac printed, and held to nothing)
+MESH_RUNS = [("dropless", "dropless", 2.0, False),
+             ("sort cf 4", "sort", NO_DROP_CF, False),
+             ("sort cf 2", "sort", 2.0, True)]
+# Routing is discrete.  The ranks sum in other orders than one rank (the
+# GEMMs over half the heads, the output projection's two halves, the
+# expert tiles), so a token whose router has two candidates closer than
+# that noise goes to other experts on one side.  A token-layer whose MoE
+# output differs by more than ROUTE_REL of its largest value between the
+# two runs took other experts (a parted route reads 0.4-1.0; an unparted
+# one 1e-4 in fp32, 1e-2 in bf16, on an H100); its row's later
+# logits carry the other experts' outputs, and in bf16 every row parts so
+# at prefill (6-17 of 1,024 tokens a layer; logits then 0.02-0.04 apart
+# and up to 0.8 at a parted decode token).  So: in fp32 on the plain path
+# each row is held as phase 15 holds the card to the CPU (tokens equal or
+# a near tie where they first part, logits within LOGITS_ATOL) up to the
+# step where its route first parts, at most ROUTE_PARTED_SHARE of the
+# token-layers may part and at least half the rows must keep their route
+# to the end (a wrong expert or a lost segment parts far more); the bf16
+# kernel path is held as the JAX package holds its own bf16 mesh serve
+# (tests/distributed/_decode_equiv.py): prefill logits within 5% of the
+# largest
+ROUTE_REL = 0.1
+ROUTE_PARTED_SHARE = 0.01
+BF16_PREFILL_REL = 0.05
+
+
+def mesh_cfg(cfg, backend: str, cf: float, dtype: str = None):
+    import dataclasses
+    from repro_torch.configs import with_options
+    cfg = with_options(cfg, dispatch_backend=backend)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def record_drops(T):
+    """Wrap ``T.forward`` to keep each forward's summed ``drop_frac`` (a
+    device scalar: no host read while a run is timed).  Returns the list
+    and a function that undoes the wrapping."""
+    seen = []
+    orig = T.forward
+
+    def forward(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out[2].drop_frac)
+        return out
+
+    T.forward = forward
+
+    def undo():
+        T.forward = orig
+    return seen, undo
+
+
+def record_moe_outputs(T):
+    """Wrap ``T.moe_layer`` to keep each call's output on the host, in call
+    order (layer by layer, forward by forward).  Returns the list and a
+    function that undoes the wrapping."""
+    seen = []
+    orig = T.moe_layer
+
+    def moe_layer(*a, **kw):
+        y, stats = orig(*a, **kw)
+        seen.append(y.float().cpu().numpy())
+        return y, stats
+
+    T.moe_layer = moe_layer
+
+    def undo():
+        T.moe_layer = orig
+    return seen, undo
+
+
+def routing_parts(one_moe, results, batch, prompt_len, layers):
+    """Where the mesh's tokens took other experts than one rank's: each
+    call's MoE outputs put back in global token order (a rank holds its dp
+    slice's rows, split over tp as ``comm.split_tokens`` cuts them), then
+    per row the first step with a token-layer more than ROUTE_REL apart.
+    Returns ``(first parting step per row, parted token-layers, all)``."""
+    import numpy as np
+    steps = len(one_moe) // layers
+    tp = 1 + max(r["tp_index"] for r in results)
+    b_loc = batch // (1 + max(r["dp_index"] for r in results))
+    first = [steps] * batch
+    parted = total = 0
+    for i, want in enumerate(one_moe):
+        t = prompt_len if i < layers else 1
+        got = np.zeros_like(want)
+        per = b_loc * t // tp
+        f = np.arange(per)
+        for r in results:
+            g = r["tp_index"] * per + f
+            got[(r["dp_index"] * b_loc + g // t) * t + g % t] = r["moe"][i]
+        rel = (np.abs(got - want).max(1)
+               / np.maximum(np.abs(want).max(1), 1e-30))
+        far = rel > ROUTE_REL
+        parted += int(far.sum())
+        total += far.size
+        for b in np.nonzero(far.reshape(batch, t).any(1))[0]:
+            first[b] = min(first[b], i // layers)
+    return first, parted, total
+
+
+def drop_summary(seen) -> tuple:
+    """(prefill drop_frac, mean decode drop_frac) of one generate()."""
+    vals = [float(v) for v in seen]
+    return vals[0], sum(vals[1:]) / max(len(vals) - 1, 1)
+
+
+def _mesh_rank_init(rank, serve_kw, dtype):
+    """A phase-16 rank: the mesh (once), the rank's slice of phase 3's
+    weights in ``dtype`` compute (replacing any earlier ones) and its
+    prompts."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serve_config, serve_prompts
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.plan import plan_from_mesh
+    st = rank.state
+    if "mesh" not in st:
+        st["mesh"] = make_mesh(MESH_SHAPE, ("data", "model"),
+                               device=rank.device)
+        st["plan"] = plan_from_mesh(st["mesh"])
+    st.pop("params", None)
+    if rank.device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = serve_config(serve_kw["arch"], reduced=serve_kw["reduced"],
+                       num_layers=serve_kw["num_layers"],
+                       moe_grid=serve_kw["moe_grid"]).replace(dtype=dtype)
+    t0 = time.perf_counter()
+    params = init_model(cfg, st["plan"], seed=0, device=rank.device,
+                        mesh=st["mesh"])
+    prompts = serve_prompts(cfg, serve_kw["batch"], serve_kw["prompt_len"],
+                            0, rank.device, st["mesh"], st["plan"])
+    if rank.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    st.update(cfg=cfg, params=params, prompts=prompts)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return {"init_s": init_s, "param_bytes": nbytes,
+            "coords": st["mesh"].coords, "prompts": tuple(prompts.shape)}
+
+
+def _mesh_rank_run(rank, backend, cf, new_tokens, keep, timed, use_kernel):
+    """One generate() on the rank's slice; the launch counts set to 0 just
+    before and read just after.  ``keep`` keeps the logits and each MoE
+    layer's outputs (host reads: not a timed run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    st = rank.state
+    st["mesh"].wire.reset(timed=timed)
+    seen, undo = record_drops(T)
+    moe, undo_moe = record_moe_outputs(T) if keep else ([], lambda: None)
+    ops.reset_launch_counts()
+    try:
+        res = generate(st["params"], st["prompts"],
+                       mesh_cfg(st["cfg"], backend, cf), st["plan"],
+                       new_tokens=new_tokens, keep_logits=keep,
+                       use_kernel=use_kernel)
+    finally:
+        undo()
+        undo_moe()
+    launches = ops.launch_counts()
+    return {"tokens": res.tokens, "logits": res.logits, "moe": moe,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "steps": res.decode_steps, "launches": launches,
+            "finite": res.logits_finite, "wire": res.wire,
+            "drops": drop_summary(seen),
+            "dp_index": st["mesh"].index("data"),
+            "tp_index": st["mesh"].index("model")}
+
+
+def wire_lines(wire: dict, forwards: int, what: str):
+    """The wire log of one phase, per forward: rows and bytes this rank
+    sent to its peers, calls, and time inside comm (host-staged gloo).
+    Returns the seconds inside comm."""
+    hops = {"data": "hop 1 (inter, data)", "model": "hop 2 (intra, model)"}
+    for key, e in sorted(wire.items()):
+        op, axes, dtype = key.split(" ")
+        tag = hops.get(axes, axes) if "all_to_all" in op else axes
+        print(f"    {what} {op} {tag} {dtype}: {e['calls'] / forwards:g} "
+              f"calls, {e['rows'] / forwards:,.0f} rows, "
+              f"{e['bytes'] / forwards / 2**20:.3f} MiB sent a forward"
+              + (f", {e['s'] / forwards * 1e3:.3f} ms" if e["s"] else ""))
+    return sum(e["s"] for e in wire.values())
+
+
+def one_rank_runs(torch, serve_kw, sc, dtype, use_kernel, names):
+    """The one-rank serve of phase 16's weights and prompts in ``dtype``
+    compute, in this process: for each config in ``names``, a run that
+    keeps its logits, and (on the kernel path) a warm one."""
+    from repro_torch.launch.serve import generate, serve_config, serve_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = serve_config(serve_kw["arch"], reduced=serve_kw["reduced"],
+                       num_layers=serve_kw["num_layers"],
+                       moe_grid=serve_kw["moe_grid"]).replace(dtype=dtype)
+    dev = torch.device(serve_kw["device"])
+    plan = single_device_plan()
+    params = init_model(cfg, plan, seed=0, device=dev)
+    prompts = serve_prompts(cfg, sc.batch_size, sc.prompt_len, 0, dev)
+    out = {}
+    for name, backend, cf, _ in MESH_RUNS:
+        if name not in names:
+            continue
+        c = mesh_cfg(cfg, backend, cf)
+        seen, undo = record_drops(T)
+        moe, undo_moe = record_moe_outputs(T)
+        try:
+            r = generate(params, prompts, c, plan,
+                         new_tokens=sc.max_new_tokens, keep_logits=True,
+                         use_kernel=use_kernel)
+        finally:
+            undo()
+            undo_moe()
+        warm = (generate(params, prompts, c, plan,
+                         new_tokens=sc.max_new_tokens) if use_kernel else None)
+        out[name] = (r, drop_summary(seen), warm, moe)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_serve(torch, ops, fixed_step_ms, devices=MESH_DEVICES,
+                     reduced=False):
+    """Phase 3's serve over MESH_SHAPE: 4 ranks on the one card under
+    gloo, against the one-rank serve of the same weights and prompts in
+    this process.  (``devices=["cpu"] * 4, reduced=True`` rehearses it on
+    the CPU with the reduced config.)"""
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.launch.mesh import RankPool
+    sc = ServeConfig()
+    kw = dict(arch=SERVE["arch"], reduced=reduced,
+              num_layers=None if reduced else SERVE["num_layers"],
+              moe_grid=None if reduced else SERVE["moe_grid"],
+              batch=sc.batch_size, prompt_len=sc.prompt_len)
+    held = [name for name, _, _, can_drop in MESH_RUNS if not can_drop]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {len(devices)} ranks, one process each, on {devices} under "
+          f"{MESH_BACKEND}: the collectives cross the host (gloo's "
+          f"transport), not NVLink; mesh "
+          f"{dict(zip(('data', 'model'), MESH_SHAPE))}")
+    one_kw = dict(kw, device=devices[0])
+    one = one_rank_runs(torch, one_kw, sc, "bfloat16", True,
+                        [n for n, *_ in MESH_RUNS])
+    one32 = one_rank_runs(torch, one_kw, sc, "float32", False, held)
+    t0 = time.perf_counter()
+    with RankPool(len(devices), backend=MESH_BACKEND, devices=devices,
+                  timeout_s=900) as pool:
+        inits = pool.run(_mesh_rank_init, kw, "bfloat16")
+        print(f"  ranks up and weights drawn and cut in "
+              f"{time.perf_counter() - t0:.1f} s (slowest rank's draw "
+              f"{max(i['init_s'] for i in inits):.1f} s); each rank holds "
+              f"{inits[0]['param_bytes'] / 2**30:.2f} GiB of parameters and "
+              f"prompts {inits[0]['prompts']}")
+        for name, backend, cf, can_drop in MESH_RUNS:
+            runs = [pool.run(_mesh_rank_run, backend, cf, sc.max_new_tokens,
+                             keep, timed, True)
+                    for keep, timed in ((True, False), (False, False),
+                                        (False, True))]
+            check_mesh_run(name, runs, one[name], sc,
+                           None if reduced else MESH_PER_FORWARD[backend],
+                           held=not can_drop)
+        pool.run(_mesh_rank_init, kw, "float32")
+        for name, backend, cf, _ in MESH_RUNS:
+            if name in held:
+                got = pool.run(_mesh_rank_run, backend, cf,
+                               sc.max_new_tokens, True, False, False)
+                check_mesh_fp32(name, got, one32[name], sc)
+    print(f"  one rank, phase 3's warm decode step (same call): "
+          f"{fixed_step_ms:.2f} ms")
+
+
+def check_mesh_run(name, runs, one, sc, per_forward, held):
+    """Phase 16's checks and readings of one config's three runs on the
+    kernel path (checked, warm, comm timed) against the one-rank run
+    ``one``; each rank's launches must be ``per_forward`` a forward (None:
+    not checked, the CPU rehearsal).  A ``held`` config drops nothing on
+    either side, and its prefill logits must lie within BF16_PREFILL_REL
+    of one rank's."""
+    import numpy as np
+    from repro_torch.launch.serve import gather_logits, gather_rows
+    first, warm, timed = runs
+    one_r, one_drops, one_warm, one_moe = one
+    steps = first[0]["steps"]
+    for r, out in enumerate(first):
+        if not out["finite"]:
+            raise AssertionError(f"mesh {name}: rank {r} non-finite logits")
+        want = {k: v * (steps + 1) for k, v in (per_forward or {}).items()}
+        if per_forward is not None and out["launches"] != want:
+            raise AssertionError(f"mesh {name}: rank {r} launches "
+                                 f"{out['launches']}, expected {want}")
+    tokens, logits = gather_rows(first), gather_logits(first)
+    if tokens.shape != (sc.batch_size, sc.max_new_tokens):
+        raise AssertionError(f"mesh {name}: tokens {tokens.shape}")
+    drops = [out["drops"] for out in first]
+    print(f"  {name}: launches a rank {first[0]['launches']} over "
+          f"{steps + 1} forwards; drop_frac (summed over layers and hops; "
+          f"prefill, decode mean) on the ranks "
+          f"{[tuple(round(x, 4) for x in d) for d in drops]}, one rank "
+          f"{tuple(round(x, 4) for x in one_drops)}")
+    if held and (any(max(d) != 0.0 for d in drops)
+                 or max(one_drops) != 0.0):
+        raise AssertionError(f"mesh {name}: a token dropped")
+    parts = [next((i for i in range(tokens.shape[1])
+                   if tokens[b, i] != one_r.tokens[b, i]), tokens.shape[1])
+             for b in range(tokens.shape[0])]
+    pre = float(np.abs(logits[0] - one_r.logits[0]).max())
+    rel = pre / float(np.abs(one_r.logits[0]).max())
+    route, n_parted, n_all = routing_parts(one_moe, first, sc.batch_size,
+                                           sc.prompt_len,
+                                           len(one_moe) // (steps + 1))
+    print(f"  {name}, bf16 against one rank: tokens equal "
+          f"{float((tokens == one_r.tokens).mean()):.3f} of "
+          f"{tokens.size}; each row's first parting token {parts}, first "
+          f"step its route parts {route} ({n_parted} of {n_all} "
+          f"token-layers took other experts); prefill "
+          f"logits {pre:.3e} apart, {rel:.4f} of the largest"
+          + (f" (bound {BF16_PREFILL_REL})" if held else
+             " (not held: each side drops its own tokens)"))
+    if held and not rel <= BF16_PREFILL_REL:
+        raise AssertionError(f"mesh {name}: prefill logits {rel} of the "
+                             f"largest apart")
+    pf = max(o["prefill_s"] for o in warm) * 1e3
+    dc = max(o["decode_s"] for o in warm) / steps * 1e3
+    print(f"  {name}, warm, slowest rank: prefill {pf:.2f} ms, decode "
+          f"{dc:.2f} ms a step ({steps * sc.batch_size / dc * 1e3:.1f} "
+          f"tokens/s); one rank, warm: prefill "
+          f"{one_warm.prefill_s * 1e3:.2f} ms, decode "
+          f"{one_warm.decode_s / steps * 1e3:.2f} ms a step")
+    w = timed[0]["wire"]
+    s_pf = wire_lines(w["prefill"], 1, "prefill")
+    s_dc = wire_lines(w["decode"], steps, "decode")
+    tpf = max(o["prefill_s"] for o in timed) * 1e3
+    tdc = max(o["decode_s"] for o in timed) / steps * 1e3
+    print(f"  {name}, rank 0, time inside comm (gloo through the host, the "
+          f"card synchronized around each call): prefill "
+          f"{s_pf * 1e3:.2f} of {tpf:.2f} ms, decode "
+          f"{s_dc / steps * 1e3:.2f} of {tdc:.2f} ms a step")
+
+
+def check_mesh_fp32(name, got, one, sc):
+    """The mesh's fp32 plain-path run against one rank's: each row held as
+    phase 15 holds the card to the CPU up to the step where its route
+    first parts; few parted routes (ROUTE_REL)."""
+    from repro_torch.launch.serve import gather_logits, gather_rows
+    one_r, one_drops, _, one_moe = one
+    drops = [out["drops"] for out in got]
+    if (not all(o["finite"] for o in got) or any(max(d) for d in drops)
+            or max(one_drops)):
+        raise AssertionError(f"mesh {name} fp32: non-finite logits or a "
+                             f"drop: {drops}, one rank {one_drops}")
+    steps = got[0]["steps"] + 1
+    route, n_parted, n_all = routing_parts(one_moe, got, sc.batch_size,
+                                           sc.prompt_len,
+                                           len(one_moe) // steps)
+    kept = sum(r == steps for r in route)
+    print(f"  {name}, fp32 (plain path): the first step each row's route "
+          f"parts {route}; {n_parted} of {n_all} token-layers took other "
+          f"experts (bound {ROUTE_PARTED_SHARE}); {kept} of "
+          f"{len(route)} rows keep their route to the end")
+    if n_parted > ROUTE_PARTED_SHARE * n_all or 2 * kept < len(route):
+        raise AssertionError(f"mesh {name} fp32: routes part too often "
+                             f"({n_parted} of {n_all}; {kept} rows kept)")
+    n_same, worst = check_tokens_and_logits(
+        one_r.tokens, one_r.logits, gather_rows(got), gather_logits(got),
+        LOGITS_ATOL, f"mesh {name} fp32", upto=route)
+    print(f"  {name}, fp32 (plain path) against one rank, each row up to "
+          f"where its route parts: {n_same} rows' tokens equal; largest "
+          f"logits difference {worst:.3e} (tolerance {LOGITS_ATOL})")
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -2253,6 +2734,11 @@ def main() -> int:
     for arch, opts in (("qwen3-moe-30b-a3b", None),
                        ("qwen3-moe-30b-a3b", DROPLESS), ("qwen1.5-0.5b", None)):
         phase_engine_card_vs_cpu(torch, ops, arch, opts)
+
+    clock.start(f"phase 16: serve qwen3-moe-30b-a3b over a (data 2, model 2) "
+                f"mesh of 4 ranks sharing the card under gloo, full width, 4 "
+                f"of 48 layers ({card})")
+    phase_mesh_serve(torch, ops, fixed_step_ms)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

@@ -12,9 +12,12 @@ are thin definitions over the shared executor
   gate-weighted combines.
 
 The expert grid is *logical* ``(n, m)`` (``MoEConfig.grid``) and folds onto
-the physical mesh; on one device (this slice) every exchange is the
-identity.  ``grid=(0, 0)`` derives the grid from the mesh, which on one
-device is ``(1, 1)``: a SMILE config with ``top_g > 1`` then cannot route
+the mesh's ``(inter, intra)`` ranks: hop 1 exchanges over ``plan.ep_inter``,
+hop 2 over ``plan.ep_intra`` (Switch's one hop over both), each a
+``torch.distributed`` All2All, and the identity on one device.  Each rank
+holds the experts of its grid slots (:func:`_my_expert_weights`).
+``grid=(0, 0)`` derives the grid from the mesh, which on one device is
+``(1, 1)``: a SMILE config with ``top_g > 1`` then cannot route
 (top-``top_g`` of one node), so single-device serving sets the grid
 explicitly.
 
@@ -113,11 +116,14 @@ def _grid(cfg: MoEConfig, plan: MeshPlan) -> Tuple[int, int]:
 
 def _my_expert_weights(w: Dict[str, torch.Tensor], layout: ExpertLayout,
                        plan: MeshPlan, b_n: int, b_m: int):
-    """This device's expert weights as (b_n * owned, d, f) groups.
+    """This rank's expert weights as (b_n * owned, d, f) groups.
 
-    Weights are stored (n_g, E_pn, d, f).  With ``E == n*m*h`` the groups
-    are a reshape (a view); for replicated layouts (r > 1) the experts
-    backing each slot are gathered (slot j holds expert j // r).
+    Weights are stored (n_g, E_pn, d, f), cut over ``(inter, intra if the
+    layout shards it)`` (``sharding.specs``), so the rank's leaf is
+    ``(b_n, E_pn_local, d, f)``.  With ``E == n*m*h`` the groups are a
+    reshape (a view); for replicated layouts (r > 1) the leaf holds every
+    expert of its nodes, and the ones backing this rank's ``b_m`` slots are
+    gathered (slot j holds expert j // r).
     """
     out = {}
     if layout.shard_intra:

@@ -13,13 +13,15 @@ intra-node on the arrived tokens).  The schedules only *declare* their hops:
   reverse exchange -> gate-weighted combine, accumulating one
   :class:`MoEStats`.
 
-All three exchanges run at ``n_ranks == 1``: ``padded`` (the capacity
-buffer of the ``sort`` and ``dense`` backends, and of ``dropless`` with
-``ragged_a2a=False``), ``local`` (the dropless innermost hop: the expert FFN
-straight over the tile-aligned ragged layout) and ``ragged`` (the dropless
-outer hop, whose exchange is a single-rank copy).  The ragged hop's clamped
-receive bound and its wire checksums need ``n_ranks > 1`` and come with the
-expert-parallel slice; fault injection raises.
+Three exchanges: ``padded`` (the capacity buffer of the ``sort`` and
+``dense`` backends, and of ``dropless`` with ``ragged_a2a=False``: a
+fixed-shape All2All), ``local`` (the dropless innermost hop on one rank:
+the expert FFN straight over the tile-aligned ragged layout) and ``ragged``
+(the dropless hops over ranks: exact tile-aligned segments on the wire, a
+single-rank copy on one).  The ragged hop's clamped receive bound
+(``recv_bound_factor``) cuts what arrives past the bound and echoes the
+kept counts back on the reverse hop.  The checksummed wire and fault
+injection raise (ROADMAP queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -353,21 +355,23 @@ def _ragged_forward(rows: torch.Tensor, group_starts: torch.Tensor,
     segments plus the (P, nl) count grid, from which the received slab's
     per-row structure is rebuilt.  Returns ``(state, sanitizer events)``.
 
-    The unclamped, checksum-free branch of the JAX package's
-    ``_ragged_forward``: the slab is the worst-case ``P x R`` rows.  The
-    clamped receive bound and the checksummed wire need ``P > 1`` (they are
-    inert at one rank, as in the JAX package) and come with the
-    expert-parallel slice.
+    Unclamped, the slab is the worst-case ``P x R`` rows (nothing can
+    drop).  With ``spec.recv_bound_factor`` and a bound below that, the
+    slab is :func:`recv_bound_rows` rows: each source lands at its aligned
+    offset and what falls past the bound is cut (a prefix survives), and
+    ``kept`` records the rows kept of each source for the reverse hop's
+    echo.  The checksummed wire (``wire_integrity``) raises.
     """
     P, nl = spec.n_ranks, spec.groups_per_rank
     R = rows.shape[0]
-    clamped = (spec.recv_bound_factor is not None and P > 1
-               and recv_bound_rows(spec.recv_bound_factor, R, P, nl,
-                                   block) < P * R)
-    if clamped or (spec.wire_integrity != "off" and P > 1):
+    if spec.wire_integrity != "off" and P > 1:
         raise NotImplementedError(
-            f"hop {spec.name!r}: the clamped and checksummed ragged "
-            f"exchanges need n_ranks > 1 (ROADMAP queue 1, item 7)")
+            f"hop {spec.name!r}: the checksummed ragged exchange is not "
+            f"ported yet (ROADMAP queue 1, item 8)")
+    factor = spec.recv_bound_factor
+    clamped = (factor is not None and P > 1
+               and recv_bound_rows(factor, R, P, nl, block) < P * R)
+    B = recv_bound_rows(factor, R, P, nl, block) if clamped else P * R
     send_counts = D.ragged_send_counts(group_starts, nl)
     comm.assert_count_i32(seg_lens, "_ragged_forward(seg_lens)")
     len_grid = comm.all_to_all(seg_lens.reshape(P, nl), spec.axes,
@@ -375,23 +379,44 @@ def _ragged_forward(rows: torch.Tensor, group_starts: torch.Tensor,
     len_grid, events, _ = sanitize_len_grid(len_grid, block, R)
     rc = (((len_grid + block - 1) // block) * block).sum(dim=1).to(
         torch.int32)
-    B = P * R
     recv, _ = comm.ragged_all_to_all(rows, send_counts, spec.axes,
-                                     recv_rows=B, recv_counts=rc)
+                                     recv_rows=B, recv_counts=rc,
+                                     allow_truncate=clamped)
     gid, valid = D.ragged_recv_layout(len_grid, block, B)
-    return _RaggedHopState(recv, gid, valid, rc, send_counts, None, R), events
+    kept = None
+    if clamped:
+        kept = torch.minimum((B - comm.excl_cumsum(rc)).clamp(min=0), rc)
+    return _RaggedHopState(recv, gid, valid, rc, send_counts, kept,
+                           R), events
 
 
 def _ragged_reverse(y_slab: torch.Tensor, hs: _RaggedHopState,
-                    spec: HopSpec) -> torch.Tensor:
+                    spec: HopSpec
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Reverse ragged All2All: each source's slab segment back to its
     origin rank at the origin offsets, (R, d) aligned with the sender's
-    layout.  Unclamped, everything returns, so no count exchange runs."""
+    layout.  Returns ``(back, survived)``.  Unclamped, everything returns
+    and no count exchange runs (``survived`` None).  Clamped, each source
+    sends back the ``kept`` prefix of its segment; the exchange's own count
+    exchange tells every sender how many of its rows each receiver kept
+    (the echo), and ``survived`` (R,) marks the rows that returned (the
+    others are zeros)."""
     R = hs.rows_out
-    back, _ = comm.ragged_all_to_all(y_slab, hs.recv_counts, spec.axes,
-                                     recv_rows=R, seg_rows=R,
-                                     recv_counts=hs.send_counts)
-    return back
+    if hs.kept is None:
+        back, _ = comm.ragged_all_to_all(y_slab, hs.recv_counts, spec.axes,
+                                         recv_rows=R, seg_rows=R,
+                                         recv_counts=hs.send_counts)
+        return back, None
+    back_c, rb = comm.ragged_all_to_all(y_slab, hs.kept, spec.axes,
+                                        recv_rows=R, seg_rows=R)
+    # rb[p]: rows peer p kept of my segment; they arrive compacted at the
+    # cumsum of rb and go back to their segment's offset
+    send_starts = torch.cat([comm.excl_cumsum(hs.send_counts),
+                             hs.send_counts.sum().reshape(1).to(torch.int32)])
+    seg, within, ok = D.ragged_row_membership(send_starts, rb, R)
+    src = torch.where(ok, comm.excl_cumsum(rb)[seg.long()] + within, 0)
+    back = torch.where(ok[:, None], back_c[src.long()], 0)
+    return back, ok
 
 
 # =============================================================================
@@ -478,7 +503,14 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
                     act, use_kernel, sort_impl=simpl)
             else:
                 y_slab = run_hop(level + 1, hs.recv, hs.valid, hs.gid)
-            return D.combine(_ragged_reverse(y_slab, hs, spec), st)
+            back, survived = _ragged_reverse(y_slab, hs, spec)
+            if survived is None:
+                return D.combine(back, st)
+            keep = st.keep & survived[st.pos.clamp(min=0).long()]
+            dropped = comm.psum((st.keep & ~keep).sum().float(), sync)
+            total = comm.psum(st.keep.sum().float(), sync)
+            hop_drops[level] = dropped / torch.clamp(total, min=1.0)
+            return D.combine(back, dataclasses.replace(st, keep=keep))
 
         # ---- padded: fixed-shape capacity buffer ----------------------------
         hop_backend = "sort" if dropless else cfg.dispatch_backend

@@ -43,7 +43,9 @@ SORT_IMPLS = ("radix", "argsort")
 
 
 def _stream() -> int:
-    """PyTorch's current CUDA stream, as the integer ctypes passes on."""
+    """PyTorch's current CUDA stream of the current device, as the integer
+    ctypes passes on (:func:`_on_cpu` holds every card tensor to that
+    device)."""
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -62,6 +64,12 @@ def _on_cpu(*ts: Optional[torch.Tensor]) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    if dev.index != torch.cuda.current_device():
+        # _stream() is the current device's: launching there would run the
+        # kernel on another card's stream
+        raise ValueError(f"tensors on {dev}, but the current device is "
+                         f"cuda:{torch.cuda.current_device()}; make it "
+                         f"current first (torch.cuda.set_device)")
     return False
 
 

@@ -14,6 +14,22 @@ on the card; the ``SERVE_OPTIONS`` registry derives the flags
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --reduced --engine --requests 8 --n-slots 4
 
+Over a mesh of ranks (expert, tensor and data parallel, as the JAX
+package's ``serve(..., mesh=...)``): ``--mesh 2,2`` (axes ``data, model``;
+three numbers add ``pod`` in front) spawns one process a rank, with the
+backend and the ranks' devices given explicitly, e.g. four ranks sharing
+one card over gloo, or on the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      qwen3-moe-30b-a3b --num-layers 4 --moe-grid 16,8 --batch 8 \
+      --mesh 2,2 --backend gloo --devices cuda:0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      qwen3-moe-30b-a3b --reduced --mesh 2,2 --backend gloo --devices cpu
+
+(``--backend nccl`` needs a card a rank: ``--devices cuda:0,cuda:1,...``).
+Under ``torchrun`` add ``--launcher env``: each process is then one rank,
+initialized from ``env://``.
+
 Runs on the card unless ``--device cpu`` is given.  The path always runs
 the CUDA kernels (``use_kernel=True``): on the card every dispatch gather,
 grouped expert FFN and combine is a kernel launch.  rwkv6-1.6b serves too;
@@ -32,28 +48,35 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import SERVE_OPTIONS, ModelConfig, ServeConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_reduced, with_options
 from repro_torch.data.pipeline import synthetic_tokens
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import init_rank, make_mesh, spawn
 from repro_torch.launch.train import add_option_flags, parse_option_flags
 from repro_torch.models.transformer import init_caches, init_model
 from repro_torch.serve.decode import decode_step_fn, prefill_fn
 from repro_torch.serve.engine import Engine
-from repro_torch.sharding.plan import MeshPlan, single_device_plan
+from repro_torch.sharding import comm
+from repro_torch.sharding import specs as S
+from repro_torch.sharding.plan import (MeshPlan, plan_from_mesh,
+                                       single_device_plan)
 
 
 @dataclasses.dataclass
 class ServeInputs:
     """What :func:`serve` builds before it generates; hand it back to
-    :func:`generate` to run the same weights and prompts again."""
+    :func:`generate` to run the same weights and prompts again (over a
+    mesh: the rank's slices)."""
     cfg: ModelConfig
     plan: MeshPlan
     params: Dict
@@ -70,6 +93,9 @@ class ServeResult:
     launches: Dict[str, Dict[str, int]]  # phase -> kernel -> launches
     logits_finite: bool                 # every step's logits were finite
     inputs: Optional[ServeInputs] = None  # set by serve()
+    # over a mesh: phase -> the rank's comm.WireLog summary
+    wire: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    logits: Optional[np.ndarray] = None  # (steps, B, V_loc), keep_logits
 
 
 def _sync(device: torch.device) -> None:
@@ -102,23 +128,44 @@ def serve_config(arch: str, *, reduced: bool = True,
 
 
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
-             plan: MeshPlan, *, new_tokens: int) -> ServeResult:
+             plan: MeshPlan, *, new_tokens: int, keep_logits: bool = False,
+             use_kernel: bool = True) -> ServeResult:
     """Prefill ``prompts`` (B, S) and greedily decode ``new_tokens`` tokens
-    per sequence through the kernel path, all sequences in lock-step.
-    Times are host wall clock around work that ends in a device sync."""
+    per sequence through the kernel path (``use_kernel=False``: the plain
+    path, which also takes fp32 compute), all sequences in lock-step.
+    Times are host wall clock around work that ends in a device sync.
+
+    Over a mesh (a plan with named axes) every rank calls this on its
+    slice: its prompts, parameters and caches; the result holds the
+    rank's rows and its wire log by phase (``comm.WireLog``, reset before
+    each phase).  ``keep_logits`` keeps every step's last-position logits
+    (the rank's part of the vocabulary) on the host."""
     device = prompts.device
     batch, prompt_len = prompts.shape
     caches = init_caches(cfg, batch, prompt_len + new_tokens, plan,
                          device=device)
-    run = dict(cfg=cfg, plan=plan, use_kernel=True)
+    run = dict(cfg=cfg, plan=plan, use_kernel=use_kernel)
+    wire = comm.bound_mesh().wire if plan.all_axes else None
+    wires, kept = {}, []
+
+    def mark(phase=None):
+        if wire is not None:
+            if phase is not None:
+                wires[phase] = wire.summary()
+            wire.reset()
+
     with torch.inference_mode():
         c0 = kops.launch_counts()
         _sync(device)
+        mark()
         t0 = time.perf_counter()
         tok, caches, logits = prefill_fn(params, prompts, caches, **run)
         finite = torch.isfinite(logits).all()
         _sync(device)
         t_prefill = time.perf_counter() - t0
+        mark("prefill")
+        if keep_logits:
+            kept.append(logits.float().cpu())
         c1 = kops.launch_counts()
         out = [tok]
         t0 = time.perf_counter()
@@ -127,39 +174,132 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
                                                  prompt_len + i, **run)
             finite = finite & torch.isfinite(logits).all()
             out.append(tok)
+            if keep_logits:
+                kept.append(logits.float().cpu())
         _sync(device)
         t_decode = time.perf_counter() - t0
+        mark("decode")
         c2 = kops.launch_counts()
     gen = torch.stack(out, dim=-1).cpu().numpy()
     return ServeResult(gen, t_prefill, t_decode, new_tokens - 1, batch,
                        {"prefill": _delta(c1, c0), "decode": _delta(c2, c1)},
-                       bool(finite))
+                       bool(finite), wire=wires,
+                       logits=(torch.stack(kept).numpy() if keep_logits
+                               else None))
+
+
+def serve_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                  device, mesh=None, plan: Optional[MeshPlan] = None
+                  ) -> torch.Tensor:
+    """The synthetic prompts :func:`serve` runs, (batch, prompt_len) from
+    ``seed``; over a mesh the rank's rows (the batch split over dp)."""
+    prompts = torch.as_tensor(
+        synthetic_tokens(np.random.default_rng(seed), batch, prompt_len,
+                         cfg.vocab_size))
+    if mesh is not None:
+        prompts = S.shard_params(prompts, S.batch_specs(prompts, plan), mesh)
+    return prompts.to(device)
 
 
 def serve(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
-          device="cuda", num_layers: Optional[int] = None,
+          device=None, num_layers: Optional[int] = None,
           moe_grid: Optional[Tuple[int, int]] = None,
-          moe_options: Optional[dict] = None) -> ServeResult:
+          moe_options: Optional[dict] = None, mesh=None,
+          keep_logits: bool = False) -> ServeResult:
     """Random weights from ``seed``, synthetic prompts, then
-    :func:`generate`; prints the times and the first generated row.  The
-    result's ``inputs`` hold the config, weights and prompts."""
+    :func:`generate`.  The result's ``inputs`` hold the config, weights
+    and prompts.
+
+    On one device (``device``, the card unless the caller asks for the
+    CPU) it prints the times and the first generated row.  With ``mesh``
+    (:func:`repro_torch.launch.mesh.make_mesh`; the rank's device is the
+    mesh's) the plan is ``plan_from_mesh(mesh)``, the prompts are split
+    over dp, and the parameters (the same numbers as one device draws) and
+    caches are the rank's slices; nothing is printed, and the result holds
+    the rank's rows (:func:`serve_mesh` gathers them)."""
     cfg = serve_config(arch, reduced=reduced, num_layers=num_layers,
                        moe_grid=moe_grid, moe_options=moe_options)
-    device = resolve_device(device)
-    plan = single_device_plan()
-    params = init_model(cfg, plan, seed=seed, device=device)
-    prompts = torch.as_tensor(
-        synthetic_tokens(np.random.default_rng(seed), batch, prompt_len,
-                         cfg.vocab_size), device=device)
-    res = generate(params, prompts, cfg, plan, new_tokens=new_tokens)
+    if mesh is None:
+        device = resolve_device("cuda" if device is None else device)
+        plan = single_device_plan()
+    else:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device, plan = mesh.device, plan_from_mesh(mesh)
+    params = init_model(cfg, plan, seed=seed, device=device, mesh=mesh)
+    prompts = serve_prompts(cfg, batch, prompt_len, seed, device, mesh, plan)
+    res = generate(params, prompts, cfg, plan, new_tokens=new_tokens,
+                   keep_logits=keep_logits)
     res.inputs = ServeInputs(cfg, plan, params, prompts)
-    steps = res.decode_steps
-    print(f"prefill {prompt_len} toks x{batch}: {res.prefill_s * 1e3:.1f} ms;"
-          f" decode {steps} steps: {res.decode_s * 1e3:.1f} ms "
-          f"({steps * batch / max(res.decode_s, 1e-9):,.0f} tok/s)")
-    print("generated (first row):", res.tokens[0].tolist())
+    if mesh is None:
+        steps = res.decode_steps
+        print(f"prefill {prompt_len} toks x{batch}: "
+              f"{res.prefill_s * 1e3:.1f} ms; decode {steps} steps: "
+              f"{res.decode_s * 1e3:.1f} ms "
+              f"({steps * batch / max(res.decode_s, 1e-9):,.0f} tok/s)")
+        print("generated (first row):", res.tokens[0].tolist())
     return res
+
+
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def _serve_rank(rank, shape, kw) -> dict:
+    """One rank of :func:`serve_mesh` (a :class:`RankPool` task)."""
+    mesh = make_mesh(shape, MESH_AXES[len(shape)], device=rank.device)
+    res = serve(mesh=mesh, **kw)
+    return {"tokens": res.tokens, "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "dp_index": mesh.index(
+                res.inputs.plan.dp_axes), "tp_index": mesh.index("model"),
+            "finite": res.logits_finite, "wire": res.wire,
+            "logits": res.logits, "launches": res.launches}
+
+
+def gather_rows(results: List[dict]) -> np.ndarray:
+    """The global (B, n) tokens from the ranks' results: each dp slice
+    from its tp rank 0, in dp order."""
+    firsts = sorted((r["dp_index"], r["tokens"]) for r in results
+                    if r["tp_index"] == 0)
+    return np.concatenate([t for _, t in firsts])
+
+
+def gather_logits(results: List[dict]) -> np.ndarray:
+    """The global (steps, B, V) logits from the ranks' kept ones: each
+    rank's vocabulary slice in tp order, its rows in dp order."""
+    rows = {}
+    for r in results:
+        rows.setdefault(r["dp_index"], {})[r["tp_index"]] = r["logits"]
+    return np.concatenate([np.concatenate([v[t] for t in sorted(v)], -1)
+                           for _, v in sorted(rows.items())], 1)
+
+
+def serve_mesh(arch: str, shape: Tuple[int, ...], *, backend: str,
+               devices, threads: Optional[int] = None,
+               timeout_s: float = 600.0, **kw) -> List[dict]:
+    """:func:`serve` (``kw``) over a mesh of ``shape`` (axes
+    ``MESH_AXES``): one process a rank (:func:`repro_torch.launch.mesh.
+    spawn`) under ``backend`` on ``devices[rank]``; prints the slowest
+    rank's times and the first generated row; returns each rank's
+    result."""
+    world = int(np.prod(shape))
+    out = spawn(_serve_rank, world, backend=backend, devices=devices,
+                args=(tuple(shape), dict(arch=arch, **kw)), threads=threads,
+                timeout_s=timeout_s)
+    if not all(r["finite"] for r in out):
+        raise RuntimeError("serve over the mesh: non-finite logits")
+    tokens = gather_rows(out)
+    pf = max(r["prefill_s"] for r in out)
+    dc = max(r["decode_s"] for r in out)
+    steps = tokens.shape[1] - 1
+    print(f"mesh {dict(zip(MESH_AXES[len(shape)], shape))}, {backend}: "
+          f"prefill {kw.get('prompt_len')} toks x{tokens.shape[0]}: "
+          f"{pf * 1e3:.1f} ms; decode {steps} steps: {dc * 1e3:.1f} ms "
+          f"({steps * tokens.shape[0] / max(dc, 1e-9):,.0f} tok/s; slowest "
+          f"rank)")
+    print("generated (first row):", tokens[0].tolist())
+    return out
 
 
 @dataclasses.dataclass
@@ -262,6 +402,18 @@ def main():
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="serve over a mesh of ranks: 'data,model' sizes "
+                         "(e.g. 2,2), or 'pod,data,model'")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                    help="with --mesh: the torch.distributed backend")
+    ap.add_argument("--devices", default=None,
+                    help="with --mesh: the ranks' devices, one a rank or "
+                         "one for all (e.g. cuda:0 or cuda:0,cuda:1,...)")
+    ap.add_argument("--launcher", choices=("spawn", "env"),
+                    default="spawn",
+                    help="with --mesh: spawn the ranks here, or run as one "
+                         "rank under torchrun (env://)")
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--moe-grid", default=None,
                     help="logical expert grid 'N,M' (e.g. 16,8)")
@@ -274,6 +426,9 @@ def main():
     args = ap.parse_args()
     grid = (None if args.moe_grid is None
             else tuple(int(v) for v in args.moe_grid.split(",")))
+    if args.mesh is not None:
+        _main_mesh(args, grid)
+        return
     if args.engine:
         serve_engine(args.arch, reduced=args.reduced, requests=args.requests,
                      prompt_len=args.prompt_len, new_tokens=args.new_tokens,
@@ -285,6 +440,43 @@ def main():
           prompt_len=args.prompt_len, new_tokens=args.new_tokens,
           seed=args.seed, device=args.device, num_layers=args.num_layers,
           moe_grid=grid)
+
+
+def _main_mesh(args, grid) -> None:
+    shape = tuple(int(v) for v in args.mesh.split(","))
+    if len(shape) not in MESH_AXES:
+        raise SystemExit(f"--mesh takes 2 or 3 sizes, got {args.mesh}")
+    if args.engine:
+        raise SystemExit("--engine over a mesh is not ported yet")
+    if args.backend is None or args.devices is None:
+        raise SystemExit("--mesh needs --backend and --devices")
+    world = int(np.prod(shape))
+    devices = args.devices.split(",")
+    if len(devices) == 1:
+        devices = devices * world
+    kw = dict(reduced=args.reduced, batch=args.batch,
+              prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+              seed=args.seed, num_layers=args.num_layers, moe_grid=grid)
+    if args.launcher == "spawn":
+        serve_mesh(args.arch, shape, backend=args.backend, devices=devices,
+                   **kw)
+        return
+    rank = int(os.environ["RANK"])
+    if int(os.environ["WORLD_SIZE"]) != world:
+        raise SystemExit(f"torchrun started {os.environ['WORLD_SIZE']} "
+                         f"ranks; --mesh {args.mesh} needs {world}")
+    dev = init_rank(rank, world, backend=args.backend, device=devices[rank],
+                    init_method="env://")
+    mesh = make_mesh(shape, MESH_AXES[len(shape)], device=dev)
+    res = serve(args.arch, mesh=mesh, **kw)
+    rows = comm.all_gather(torch.as_tensor(res.tokens, device=dev),
+                           res.inputs.plan.dp_axes, axis=0, tiled=True)
+    if rank == 0:
+        print(f"rank 0 of {world} (env://, {args.backend}): prefill "
+              f"{res.prefill_s * 1e3:.1f} ms; decode {res.decode_steps} "
+              f"steps: {res.decode_s * 1e3:.1f} ms")
+        print("generated (first row):", rows[0].tolist())
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

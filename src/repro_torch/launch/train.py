@@ -123,8 +123,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     entry (to start or stop a profiler between steps, for instance).
     """
     if mesh is not None:
-        raise NotImplementedError("a device mesh needs the expert-parallel "
-                                  "slice; the port trains on one device")
+        raise NotImplementedError("training over a mesh of ranks is not "
+                                  "ported yet (ROADMAP queue 1, item 7)")
     if (zero1 or sentinel or resume or ckpt or ckpt_every or ckpt_dir
             or ckpt_keep != TrainConfig.ckpt_keep):
         raise NotImplementedError(f"--zero1/--sentinel/--resume/--ckpt*: "

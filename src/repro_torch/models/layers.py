@@ -5,6 +5,13 @@ activations ``(B, T, d)``, attention heads ``(B, T, H, hd)``, projection
 weights ``(d, H, hd)`` / ``(H, hd, d)``.  Collectives go through
 :mod:`repro_torch.sharding.comm` (the identity on one device).
 
+Under tensor parallelism (``plan.tp > 1``) every leaf is the rank's slice
+(``sharding.specs``): the embedding, the LM head and the logits hold the
+rank's part of the vocabulary, attention its query heads (and its KV heads
+where they divide over ``tp``), dense FFNs their ``d_ff`` columns; code
+reads dims off the tensors, never off the config, and a psum over ``tp``
+adds the parts.
+
 Dtypes follow the reference, with one difference of form: the reference
 casts matmul weights to the activation dtype at every use, and here the
 caller casts them once at load
@@ -98,31 +105,43 @@ def init_embedding(cfg: ModelConfig, plan: MeshPlan, *,
 
 def embed_tokens(p: Dict, ids: torch.Tensor, plan: MeshPlan,
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """Table lookup, then a cast to ``dtype`` (the reference's order)."""
-    emb = p["table"][ids.long()]
+    """Vocab-parallel table lookup, then a cast to ``dtype`` (the
+    reference's order).  Under tp the table holds this rank's rows of the
+    vocabulary: an id outside them reads zeros, and the psum over tp adds
+    the one rank's row."""
+    table = p["table"]
+    if plan.tp > 1:
+        v_loc = table.shape[0]
+        local = ids.long() - comm.axis_index(plan.tp_axis) * v_loc
+        hit = (local >= 0) & (local < v_loc)
+        emb = table[local.clamp(0, v_loc - 1)] * hit[..., None].to(
+            table.dtype)
+    else:
+        emb = table[ids.long()]
     return comm.psum(emb, plan.tp_axis).to(dtype)
 
 
 def output_logits(p: Dict, x: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
-    """Logits (..., V); fp32."""
+    """Logits (..., V_loc), this rank's part of the vocabulary; fp32."""
     w = p["table"] if "table" in p else p["w"]                # tied or separate
     return x.float() @ w.float().t()
 
 
 def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
                         plan: MeshPlan) -> torch.Tensor:
-    """Cross-entropy over fp32 logits (..., V) against global vocab ids
-    (...,); returns the per-position loss.  The single-device form of the
-    reference's vocab-sharded cross-entropy: the max shift is kept out of
-    autograd, and a label outside ``[0, V)`` (``IGNORE = -1``) is never used
-    as an index (it is clamped, and its pick is zeroed; the caller masks its
-    loss)."""
+    """Cross-entropy over vocab-sharded fp32 logits (..., V_loc) against
+    global vocab ids (...,); returns the per-position loss.  Max, sum of
+    exponentials and the label's logit are each reduced over tp; the max
+    shift is kept out of autograd, and a label outside this rank's
+    vocabulary (or ``IGNORE = -1``) is never used as an index (it is
+    clamped, and its pick is zeroed; the caller masks an ignored loss)."""
     v = logits.shape[-1]
     m = comm.pmax(logits.detach().amax(-1), plan.tp_axis)
     lse = torch.log(comm.psum(torch.exp(logits - m[..., None]).sum(-1),
                               plan.tp_axis)) + m
-    hit = (labels >= 0) & (labels < v)
-    picked = logits.gather(-1, labels.clamp(0, v - 1).long()[..., None])[..., 0]
+    local = labels - comm.axis_index(plan.tp_axis) * v
+    hit = (local >= 0) & (local < v)
+    picked = logits.gather(-1, local.clamp(0, v - 1).long()[..., None])[..., 0]
     return lse - comm.psum(picked * hit.to(logits.dtype), plan.tp_axis)
 
 
@@ -140,13 +159,26 @@ def init_ffn(cfg: ModelConfig, d_ff: Optional[int] = None, *,
     return p
 
 
+def row_parallel(h: torch.Tensor, w: torch.Tensor,
+                 plan: MeshPlan) -> torch.Tensor:
+    """``h @ w`` with the contracted dim cut over tp (an output
+    projection): each rank's partial product in fp32, summed over tp and
+    rounded to ``h.dtype`` once, as one rank rounds its whole product once.
+    (The reference rounds each partial to bf16 and sums in bf16: two
+    roundings, which took the four-rank serve 5e-2 from the one-rank
+    serve's logits over 32 tokens of the reduced qwen3 on the CPU; summed
+    in fp32 they part by 6e-3.)  The plain product on one rank."""
+    if plan.tp <= 1:
+        return h @ w
+    return comm.psum(h.float() @ w.float(), plan.tp_axis).to(h.dtype)
+
+
 def ffn_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 plan: MeshPlan) -> torch.Tensor:
     h = ref.activation(x @ p["w1"], cfg.act)
     if "w3" in p:
         h = h * (x @ p["w3"])
-    y = h @ p["w2"]
-    return comm.name_saved(comm.psum(y, plan.tp_axis))
+    return comm.name_saved(row_parallel(h, p["w2"], plan))
 
 
 # =============================================================================
@@ -234,6 +266,18 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x.shape[0], x.shape[1], h, k)
 
 
+def _kv_slice_for_my_heads(kv: torch.Tensor, h_loc: int, cfg: ModelConfig,
+                           plan: MeshPlan) -> torch.Tensor:
+    """Where the KV heads do not divide over tp (they stay replicated),
+    the ones backing this rank's ``h_loc`` query heads."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    need = max(1, (h_loc * KV) // H)
+    if kv.shape[2] == need:
+        return kv
+    start = (comm.axis_index(plan.tp_axis) * h_loc * KV) // H
+    return kv[:, :, start:start + need]
+
+
 def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                       plan: MeshPlan, *, positions: torch.Tensor,
                       cache: Optional[Dict] = None, window: int = 0,
@@ -262,14 +306,16 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    h_loc = q.shape[2]
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = chunked_attention(q, k, v, positions, positions,
-                                causal=cfg.causal, window=window,
-                                use_kernel=use_kernel)
+        out = chunked_attention(q, _kv_slice_for_my_heads(k, h_loc, cfg, plan),
+                                _kv_slice_for_my_heads(v, h_loc, cfg, plan),
+                                positions, positions, causal=cfg.causal,
+                                window=window, use_kernel=use_kernel)
         new_cache = None
     elif "pool_k" in cache:
         out, new_cache = paged_attention(q, k, v, cache, positions, cfg,
@@ -280,20 +326,27 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         cache["k"][:, slot] = k.to(cache["k"].dtype)
         cache["v"][:, slot] = v.to(cache["v"].dtype)
         cache["pos"][slot] = positions.to(cache["pos"].dtype)
-        out = chunked_attention(q, cache["k"], cache["v"], positions,
-                                cache["pos"], causal=cfg.causal,
-                                window=window)
+        out = chunked_attention(
+            q, _kv_slice_for_my_heads(cache["k"], h_loc, cfg, plan),
+            _kv_slice_for_my_heads(cache["v"], h_loc, cfg, plan), positions,
+            cache["pos"], causal=cfg.causal, window=window)
         new_cache = cache
     H, hd, d = p["wo"].shape
-    y = out.reshape(B, T, H * hd) @ p["wo"].reshape(H * hd, d)
-    return comm.name_saved(comm.psum(y, plan.tp_axis)), new_cache
+    y = row_parallel(out.reshape(B, T, H * hd), p["wo"].reshape(H * hd, d),
+                     plan)
+    return comm.name_saved(y), new_cache
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
                          plan: MeshPlan, dtype=torch.bfloat16,
                          device=None) -> Dict:
-    """Ring-buffer cache sized ``length``; ``pos`` -1 marks empty slots."""
+    """Ring-buffer cache sized ``length``; ``pos`` -1 marks empty slots.
+    ``batch`` is this rank's; under tp the cache holds this rank's KV heads
+    where they divide over tp, all of them where they do not (the rank's
+    slice of the global cache, ``sharding.specs.cache_specs``)."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if KV % max(plan.tp, 1) == 0:
+        KV //= max(plan.tp, 1)
     return {
         "k": torch.zeros((batch, length, KV, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, length, KV, hd), dtype=dtype, device=device),

@@ -34,6 +34,13 @@ weight (both mixes compute in fp32) stay fp32.
 under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
 its layer-scan body in ``jax.checkpoint``: a block's activations are
 recomputed in the backward pass instead of kept.
+
+Over a mesh (a ``plan_from_mesh`` plan) every rank runs this same code on
+its slice of the parameters (``sharding.specs``) and of the batch: tensor
+parallelism in attention, the dense FFNs, the embedding and the LM head,
+the tokens split over tp before each MoE layer and gathered after it, and
+the experts over the SMILE grid.  rwkv6 over tp and the sequence-sharded
+KV cache raise.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from repro_torch.kernels.ref import activation
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as RW
 from repro_torch.sharding import comm
+from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
 
 
@@ -108,6 +116,12 @@ def _model_cfg(cfg: ModelConfig, plan: MeshPlan) -> ModelConfig:
     if h != cfg.num_heads:
         cfg = cfg.replace(num_heads=h, head_dim=cfg.resolved_head_dim)
     return cfg
+
+
+def _check_plan(cfg: ModelConfig, plan: MeshPlan) -> None:
+    if plan.tp > 1 and any(st.kind == "rwkv" for st in build_stages(cfg)):
+        raise NotImplementedError("rwkv6 over tensor parallelism is not "
+                                  "ported yet (ROADMAP queue 1, item 7)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -232,15 +246,18 @@ BLOCK_KINDS = ("dense", "moe", "pair", "rwkv")
 
 
 def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
-               generator: torch.Generator, device=None) -> Dict:
+               generator: torch.Generator, device=None,
+               cut=lambda block: block) -> Dict:
+    """The stage's blocks, each passed through ``cut`` as soon as it is
+    drawn (:func:`init_model` cuts a rank's slice there)."""
     kw = dict(generator=generator, device=device)
     R = stage.repeats
     if stage.kind == "pair":
-        return {"dense": [init_block(cfg, "dense", plan, **kw)
+        return {"dense": [cut(init_block(cfg, "dense", plan, **kw))
                           for _ in range(R)],
-                "moe": [init_block(cfg, "moe", plan, **kw)
+                "moe": [cut(init_block(cfg, "moe", plan, **kw))
                         for _ in range(R)]}
-    return {"blocks": [init_block(cfg, stage.kind, plan, **kw)
+    return {"blocks": [cut(init_block(cfg, stage.kind, plan, **kw))
                        for _ in range(R)]}
 
 
@@ -328,23 +345,39 @@ def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
 
 
 def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
-               device="cuda", compute_cast: bool = True) -> Dict:
+               device="cuda", compute_cast: bool = True,
+               mesh=None) -> Dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless the caller asks for the CPU; raises when
     the card is asked for and there is none).  ``compute_cast=True`` (the
     serving form) casts the blocks' matmul weights once with
     :func:`cast_for_compute`; ``False`` keeps every parameter fp32 (the
-    training form)."""
+    training form).
+
+    With ``mesh`` (and its plan) each rank draws every leaf whole, the same
+    numbers as one device draws under the same plan, and keeps only its
+    slice (``sharding.specs``): the embedding and the LM head are cut as
+    drawn, each block as soon as it is made, so a rank never holds more
+    than one full block."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)
+    _check_plan(cfg, plan)
+    rule = S.param_spec_rules(cfg, plan)
+
+    def cut(tree, prefix=()):
+        if mesh is None:
+            return tree
+        return S.shard_params(tree, S.map_tree(
+            lambda p, x: rule(prefix + p, x.ndim), tree), mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
-    params: Dict[str, Any] = {"embed": L.init_embedding(cfg, plan, **kw)}
+    params: Dict[str, Any] = {
+        "embed": cut(L.init_embedding(cfg, plan, **kw), ("embed",))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": L.dense_init(
-            (cfg.vocab_size, cfg.d_model), scale=0.02, **kw)}
-    stages = tuple(init_stage(cfg, st, plan, **kw)
+        params["lm_head"] = cut({"w": L.dense_init(
+            (cfg.vocab_size, cfg.d_model), scale=0.02, **kw)}, ("lm_head",))
+    stages = tuple(init_stage(cfg, st, plan, cut=cut, **kw)
                    for st in build_stages(cfg))
     params["stages"] = stages
     params["final_norm"] = L._norm_init(cfg.d_model, cfg.norm, device)
@@ -381,6 +414,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
     losses).  ``remat`` and ``cast_weights`` as in
     :func:`stage_forward` (training passes both)."""
     cfg = _model_cfg(cfg0, plan)
+    _check_plan(cfg, plan)
     stages = build_stages(cfg)
     x = embed_inputs(params, tokens, cfg, plan)
     acc = zero_stats(x.device)
@@ -412,10 +446,13 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
                 *, device="cuda"):
     """Per-stage lists of per-block caches: ring-buffer KV caches sized
     ``length`` (the window for sliding attention), or an rwkv block's state
-    and last tokens (no length)."""
+    and last tokens (no length).  Over a mesh ``batch`` is the rank's own,
+    and each KV cache holds the rank's KV heads (its slice of the global
+    cache, ``sharding.specs.cache_specs``)."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)
+    _check_plan(cfg, plan)
     if cfg.attention == "sliding":
         length = min(length, cfg.window)
 

@@ -3,7 +3,10 @@
 The port of ``repro.serve.decode``.  PyTorch runs eagerly, so there is no
 ``build_prefill`` / ``build_decode_step`` compile step: :func:`prefill_fn`
 and :func:`decode_step_fn` are called directly.  Both update the ring-buffer
-KV caches in place.
+KV caches in place.  Over a mesh every rank calls them on its slice of the
+batch, the parameters and the caches (``launch.serve.generate``); the
+logits they return are the rank's part of the vocabulary, and the sampled
+tokens are the whole vocabulary's.
 """
 from __future__ import annotations
 
@@ -13,13 +16,24 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.sharding import comm
 from repro_torch.sharding.plan import MeshPlan
 
 
 def greedy_sample(logits: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
-    """Greedy argmax over (..., V) logits; the lowest index wins ties
-    (``torch.argmax`` returns the first maximal index)."""
-    return logits.argmax(-1).to(torch.int32)
+    """Greedy argmax over vocab-sharded (..., V_loc) logits; the lowest
+    index wins ties, across ranks too (``torch.argmax`` returns the first
+    maximal index of a rank's part; then the largest maximum over tp, and
+    of the ranks that hold it, the smallest index)."""
+    arg = logits.argmax(-1)
+    if plan.tp <= 1:
+        return arg.to(torch.int32)
+    local_max = logits.amax(-1)
+    arg = arg + comm.axis_index(plan.tp_axis) * logits.shape[-1]
+    gmax = comm.pmax(local_max, plan.tp_axis)
+    cand = torch.where(local_max >= gmax, arg,
+                       torch.full_like(arg, torch.iinfo(torch.int64).max))
+    return (-comm.pmax(-cand, plan.tp_axis)).to(torch.int32)
 
 
 def prefill_fn(params, tokens: torch.Tensor, caches, *, cfg: ModelConfig,

@@ -1,19 +1,41 @@
-"""Collective-communication helpers, single-device forms.
+"""Collective-communication helpers over named mesh axes.
 
-The port's counterpart of ``repro.sharding.comm``.  Every collective the
-model code issues goes through these helpers.  With an empty axis tuple
+The port of ``repro.sharding.comm``.  Every collective the model code
+issues goes through these helpers.  With an empty axis tuple
 (``single_device_plan()``) each one is the identity, exactly as in the JAX
-package, so the same model code is the single-device path.  A named axis
-raises: the ``torch.distributed`` forms come with the expert-parallel
-slice.
+package, so the same model code is the single-device path.
+
+A named axis tuple is a ``torch.distributed`` process group of the mesh
+this process is bound to: :func:`repro_torch.launch.mesh.make_mesh` builds
+the groups and binds the mesh (one mesh a process: a rank is a process,
+and the model code names axes, never groups).  Inside a group the ranks
+are ordered as JAX orders them, by the linear index over the named axes in
+mesh order, so :func:`axis_index` and the segment order of an All2All
+agree with ``lax``.  A helper over a named axis with no mesh bound raises.
+
+Under the gloo backend a card tensor crosses the wire through the host:
+each helper copies it to host memory, runs the collective there and copies
+the result back (gloo's own transport is host memory); under nccl the
+tensors stay on the cards.
+
+The collectives carry no gradient: the serving path runs them under
+``torch.inference_mode``, and a named-axis collective on a tensor that
+needs one raises (training over ranks is a later slice).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import math
+import time
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 Axes = Union[None, str, Tuple[str, ...]]
+
+# the mesh this process is bound to (launch.mesh.make_mesh sets it)
+_MESH = None
 
 
 def _norm(axes: Axes) -> Tuple[str, ...]:
@@ -24,37 +46,174 @@ def _norm(axes: Axes) -> Tuple[str, ...]:
     return tuple(axes)
 
 
-def _single_device(axes: Axes, what: str) -> None:
-    if _norm(axes):
-        raise NotImplementedError(
-            f"comm.{what} over mesh axes {_norm(axes)}: collectives over "
-            f"named axes come with the expert-parallel slice; this port "
-            f"runs on one device (single_device_plan())")
+def bind(mesh) -> None:
+    """Bind this process to ``mesh`` (a :class:`repro_torch.launch.mesh.
+    Mesh`); a later call replaces it."""
+    global _MESH
+    _MESH = mesh
+
+
+def bound_mesh():
+    """The mesh this process is bound to; raises when there is none."""
+    if _MESH is None:
+        raise RuntimeError("no mesh is bound in this process: build one with "
+                           "repro_torch.launch.mesh.make_mesh after "
+                           "torch.distributed.init_process_group")
+    return _MESH
+
+
+class WireLog:
+    """What the collectives of one process moved, by ``(op, axes, dtype)``:
+    calls, the rows and bytes this rank sent to the other ranks of the
+    group (its own segment excluded; a reduction counts its whole tensor
+    once), and, with ``timed``, the host seconds spent inside the helper,
+    the device synchronized before and after each call so that a
+    collective's time holds neither earlier kernels nor its own tail."""
+
+    def __init__(self, timed: bool = False):
+        self.timed = timed
+        self.entries: Dict[Tuple[str, str, str], List[float]] = defaultdict(
+            lambda: [0, 0, 0, 0.0])
+
+    def reset(self, timed: Optional[bool] = None) -> None:
+        self.entries.clear()
+        if timed is not None:
+            self.timed = timed
+
+    def add(self, key, rows: int, nbytes: int, seconds: float) -> None:
+        e = self.entries[key]
+        e[0] += 1
+        e[1] += rows
+        e[2] += nbytes
+        e[3] += seconds
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """``{"op axes dtype": {calls, rows, bytes, s}}``."""
+        return {" ".join(k): dict(zip(("calls", "rows", "bytes", "s"), v))
+                for k, v in sorted(self.entries.items())}
+
+
+class _Call:
+    """Times one collective into the bound mesh's wire log."""
+
+    def __init__(self, op: str, axes, x: torch.Tensor):
+        self.mesh = _MESH
+        self.key = (op, "+".join(axes), str(x.dtype).replace("torch.", ""))
+        self.dev = x.device if x.is_cuda else None
+        self.timed = self.mesh.wire.timed
+        if self.timed:
+            self._sync()
+        self.t0 = time.perf_counter()
+
+    def _sync(self) -> None:
+        if self.dev is not None:
+            torch.cuda.synchronize(self.dev)
+
+    def done(self, rows: int, nbytes: int) -> None:
+        if self.timed:
+            self._sync()
+        dt = time.perf_counter() - self.t0 if self.timed else 0.0
+        self.mesh.wire.add(self.key, rows, nbytes, dt)
+
+
+def _group(axes: Tuple[str, ...], what: str, *ts):
+    """The bound mesh's group over ``axes`` (None for the empty tuple or a
+    group of one rank, where the helper is the identity)."""
+    if not axes:
+        return None
+    g = bound_mesh().group(axes)
+    if g.size == 1:
+        return None
+    for t in ts:
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise NotImplementedError(
+                f"comm.{what} over {axes}: the collectives carry no gradient "
+                f"(training over ranks is not ported yet)")
+    return g
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the bound mesh's backend moves it: in host memory under
+    gloo, where it is."""
+    if x.is_cuda and _MESH.backend == "gloo":
+        return x.cpu()
+    return x
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // max(x.shape[-1], 1) if x.dim() > 1 else x.numel()
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _reduce(x: torch.Tensor, axes: Axes, op, what: str) -> torch.Tensor:
+    axes = _norm(axes)
+    g = _group(axes, what, x)
+    if g is None:
+        return x
+    c = _Call(what, axes, x)
+    y = _wire(x).clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=g.pg)
+    y = y.to(x.device)
+    c.done(_rows(x), _nbytes(x))
+    return y
 
 
 def psum(x, axes: Axes):
-    _single_device(axes, "psum")
-    return x
+    return _reduce(x, axes, dist.ReduceOp.SUM, "psum")
 
 
 def pmax(x, axes: Axes):
-    _single_device(axes, "pmax")
-    return x
+    return _reduce(x, axes, dist.ReduceOp.MAX, "pmax")
 
 
 def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True):
-    _single_device(axes, "all_gather")
-    return x
+    """Every rank's ``x`` in group order: concatenated along ``axis``
+    (``tiled``) or stacked on a new ``axis``."""
+    axes = _norm(axes)
+    g = _group(axes, "all_gather", x)
+    if g is None:
+        return x
+    c = _Call("all_gather", axes, x)
+    w = _wire(x).contiguous()
+    parts = [torch.empty_like(w) for _ in range(g.size)]
+    dist.all_gather(parts, w, group=g.pg)
+    out = (torch.cat(parts, dim=axis) if tiled
+           else torch.stack(parts, dim=axis)).to(x.device)
+    c.done(_rows(x) * (g.size - 1), _nbytes(x) * (g.size - 1))
+    return out
 
 
 def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
-    _single_device(axes, "all_to_all")
-    return x
+    """Non-tiled All2All over ``axes``: ``x.shape[split_axis]`` equals the
+    group size P; entry ``p`` along it goes to rank ``p``, and the result
+    holds at index ``q`` along ``concat_axis`` what rank ``q`` sent here
+    (``lax.all_to_all(tiled=False)``; every caller passes 0 and 0)."""
+    axes = _norm(axes)
+    g = _group(axes, "all_to_all", x)
+    if g is None:
+        return x
+    if x.shape[split_axis] != g.size:
+        raise ValueError(f"comm.all_to_all over {axes}: dim {split_axis} is "
+                         f"{x.shape[split_axis]}, the group has {g.size} ranks")
+    c = _Call("all_to_all", axes, x)
+    src = _wire(x.movedim(split_axis, 0)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=g.pg)
+    out = out.to(x.device).movedim(0, concat_axis)
+    c.done(_rows(src) * (g.size - 1) // g.size,
+           _nbytes(src) * (g.size - 1) // g.size)
+    return out
 
 
 def axis_index(axes: Axes) -> int:
-    _single_device(axes, "axis_index")
-    return 0
+    """This rank's index in the group over ``axes`` (a host integer)."""
+    axes = _norm(axes)
+    if not axes:
+        return 0
+    return bound_mesh().group(axes).index
 
 
 # ------------------------------------------------------------- ragged All2All
@@ -69,9 +228,26 @@ def clamped_segment_counts(m: torch.Tensor, recv_rows: int) -> torch.Tensor:
     """Paired clamped sizes of a truncating ragged exchange: from the full
     (P, P) count matrix (``m[s, d]`` rows from source ``s`` to destination
     ``d``) and the receive bound, ``kept[s, d] = clip(recv_rows - off[s, d],
-    0, m[s, d])`` with ``off`` the exclusive cumsum down each column."""
+    0, m[s, d])`` with ``off`` the exclusive cumsum down each column.  Row
+    ``me`` is a rank's clamped send sizes, column ``me`` its clamped
+    receive sizes, so sender and receiver agree on every pair."""
     off = torch.cumsum(m, 0) - m
     return torch.minimum((recv_rows - off).clamp(min=0), m).to(m.dtype)
+
+
+def native_truncation_plan(m: torch.Tensor, me: int, recv_rows: int):
+    """``(send_sizes, out_off, recv_sizes)`` of rank ``me`` in a truncating
+    ragged exchange, from the (P, P) count matrix every rank holds: row
+    ``me`` and column ``me`` of :func:`clamped_segment_counts`, and where
+    each outgoing segment lands in its destination's buffer (the unclamped
+    source-major offsets, pinned so that ``out_off + send_sizes <=
+    recv_rows``)."""
+    kept = clamped_segment_counts(m, recv_rows)
+    send_sizes = kept[me]
+    recv_sizes = kept[:, me]
+    out_off = torch.minimum((torch.cumsum(m, 0) - m)[me],
+                            recv_rows - send_sizes)
+    return send_sizes, out_off, recv_sizes
 
 
 def assert_count_i32(counts: torch.Tensor, what: str) -> None:
@@ -87,22 +263,42 @@ def exchange_counts(send_counts: torch.Tensor, axes: Axes) -> torch.Tensor:
     result is how many rows rank ``p`` sends here.  The identity on one
     device."""
     assert_count_i32(send_counts, "exchange_counts(send_counts)")
-    _single_device(axes, "exchange_counts")
-    return send_counts
+    P = send_counts.shape[0]
+    if not _norm(axes) or P == 1:
+        return send_counts
+    return all_to_all(send_counts.reshape(P, 1), axes, split_axis=0,
+                      concat_axis=0).reshape(P)
 
 
 def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
                       axes: Axes, *, recv_rows: int,
                       seg_rows: Optional[int] = None,
-                      recv_counts: Optional[torch.Tensor] = None
+                      recv_counts: Optional[torch.Tensor] = None,
+                      allow_truncate: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All2All of exact per-peer row segments.
 
     ``rows`` (R, ...) holds, in rank order, the segment for each peer
-    (``send_counts`` rows each); ``recv_rows`` is the static size of the
-    received layout, ``seg_rows`` a static bound on one segment, and
-    ``recv_counts`` the per-source lengths when the caller knows them.
-    Returns ``(recv (recv_rows, ...), recv_counts (P,))``.  On one device
+    (``send_counts`` (P,) rows each, at their exclusive cumsum);
+    ``recv_rows`` is the size of the received layout, and ``recv_counts``
+    the per-source lengths when the caller knows them (else one count
+    exchange runs).  Returns ``(recv (recv_rows, ...), recv_counts (P,))``:
+    source ``p``'s segment at the exclusive cumsum of ``recv_counts``,
+    zeros after the last.  Calling again with ``send_counts=recv_counts``
+    routes each segment back to its origin: the reverse hop.
+    ``seg_rows`` bounds one segment for the JAX package's emulations and
+    is not needed here.
+
+    Over a group the exchange is one ``all_to_all_single`` with
+    ``input_split_sizes`` / ``output_split_sizes``, which are host
+    integers: the counts are read on the host once per call (so this path
+    cannot be captured in a CUDA graph).  With ``allow_truncate`` the
+    receive bound may be smaller than the arrivals: segments are cut where
+    they would pass ``recv_rows`` (a prefix of each source's segment
+    survives, the rest never moves), both sides sized from the (P, P)
+    count matrix that one all_gather gives every rank
+    (:func:`native_truncation_plan`), as the JAX package's native path
+    does.  Without it, arrivals past the bound raise.  On one device
     ``recv`` is ``rows`` zero-padded or cut to ``recv_rows`` (``rows``
     itself when it has ``recv_rows`` rows), with ``recv_counts =
     send_counts``.
@@ -110,13 +306,47 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
     assert_count_i32(send_counts, "ragged_all_to_all(send_counts)")
     if recv_counts is not None:
         assert_count_i32(recv_counts, "ragged_all_to_all(recv_counts)")
-    _single_device(axes, "ragged_all_to_all")
-    if rows.shape[0] == recv_rows:
-        return rows, send_counts
-    out = rows.new_zeros((recv_rows,) + tuple(rows.shape[1:]))
-    n = min(recv_rows, rows.shape[0])
-    out[:n] = rows[:n]
-    return out, send_counts
+    naxes = _norm(axes)
+    g = _group(naxes, "ragged_all_to_all", rows)
+    rest = tuple(rows.shape[1:])
+    if g is None:
+        if rows.shape[0] == recv_rows:
+            return rows, send_counts
+        out = rows.new_zeros((recv_rows,) + rest)
+        n = min(recv_rows, rows.shape[0])
+        out[:n] = rows[:n]
+        return out, send_counts
+    if recv_counts is None:
+        recv_counts = exchange_counts(send_counts, naxes)
+    sc = send_counts.tolist()
+    rc = recv_counts.tolist()
+    if allow_truncate:
+        m = all_gather(send_counts, naxes, tiled=False).cpu()     # (P, P)
+        send_sizes, _, recv_sizes = native_truncation_plan(m, g.index,
+                                                           recv_rows)
+        ssz, rsz = send_sizes.tolist(), recv_sizes.tolist()
+    else:
+        if sum(rc) > recv_rows:
+            raise ValueError(f"ragged_all_to_all over {naxes}: {sum(rc)} rows "
+                             f"arrive past the receive bound {recv_rows} "
+                             f"(pass allow_truncate=True to cut them)")
+        ssz, rsz = sc, rc
+    c = _Call("ragged_all_to_all", naxes, rows)
+    if ssz == sc:
+        send = rows[:sum(sc)]
+    else:
+        off = [0]
+        for n in sc[:-1]:
+            off.append(off[-1] + n)
+        send = torch.cat([rows[o:o + n] for o, n in zip(off, ssz)])
+    send = _wire(send).contiguous()
+    got = send.new_empty((sum(rsz),) + rest)
+    dist.all_to_all_single(got, send, rsz, ssz, group=g.pg)
+    out = rows.new_zeros((recv_rows,) + rest)
+    out[:got.shape[0]] = got
+    sent = sum(ssz) - ssz[g.index]
+    c.done(sent, sent * math.prod(rest) * rows.element_size())
+    return out, recv_counts
 
 
 def name_saved(x):
@@ -125,18 +355,25 @@ def name_saved(x):
     return x
 
 
+# ---------------------------------------------------------------- token split
 def split_tokens(x: torch.Tensor, plan_axes: Axes, size: int):
-    """Pad the leading (token) dim of ``x`` to a multiple of ``size``;
-    returns ``(local, pad)``.  On one device the local shard is the whole
-    (padded) array."""
-    _single_device(plan_axes, "split_tokens")
+    """Evenly split the leading (token) dim of ``x`` across ``plan_axes``
+    (``size`` ranks), padding it to a multiple of ``size`` first; returns
+    ``(local, pad)`` with ``pad`` the padding rows added globally.  On one
+    device the local shard is the whole (padded) array."""
     pad = (-x.shape[0]) % size
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    return x, pad
+    if not _norm(plan_axes):
+        return x, pad
+    per = x.shape[0] // size
+    i = axis_index(plan_axes)
+    return x[i * per:(i + 1) * per], pad
 
 
 def unsplit_tokens(local: torch.Tensor, plan_axes: Axes, orig_len: int):
-    """Inverse of :func:`split_tokens`: drop the padding rows."""
-    _single_device(plan_axes, "unsplit_tokens")
+    """Inverse of :func:`split_tokens`: all_gather the shards in rank order
+    and drop the padding rows."""
+    if _norm(plan_axes):
+        local = all_gather(local, plan_axes, axis=0, tiled=True)
     return local[:orig_len]

@@ -10,10 +10,12 @@ axes of each role:
 * ``ep_inter``  — SMILE level-1 ("node") axes
 * ``ep_intra``  — SMILE level-2 ("GPU-within-node") axes
 
-This slice runs on one device only: :func:`single_device_plan` has no named
-axes, and every helper in :mod:`repro_torch.sharding.comm` is then the
-identity.  Named axes (``torch.distributed`` process groups) arrive with the
-expert-parallel slice.
+:func:`single_device_plan` has no named axes, and every helper in
+:mod:`repro_torch.sharding.comm` is then the identity.
+:func:`plan_from_mesh` names the axes of a :class:`repro_torch.launch.mesh.
+Mesh` (``torch.distributed`` process groups) as the JAX package's
+``plan_from_mesh`` does: ``model`` is tensor-parallel and SMILE-intra,
+``data`` SMILE-inter, every axis but ``model`` data-parallel.
 """
 from __future__ import annotations
 
@@ -75,6 +77,41 @@ class MeshPlan:
         return (self.tp_axis,) if self.tp_axis else ()
 
 
+def plan_from_mesh(mesh, *,
+                   smile_inter_axes: Optional[Tuple[str, ...]] = None
+                   ) -> MeshPlan:
+    """The canonical plan of a mesh (anything with ``axes`` and ``shape``):
+    ``model`` is tensor-parallel and SMILE-intra; every other axis (``pod``,
+    ``data``) is data-parallel; SMILE-inter is ``("data",)`` unless
+    ``smile_inter_axes`` says otherwise (``("pod", "data")`` routes level 1
+    across pods too)."""
+    names = tuple(mesh.axes)
+    sizes = tuple(zip(names, (int(n) for n in mesh.shape)))
+    tp = "model" if "model" in names else None
+    dp = tuple(a for a in names if a != "model")
+    if smile_inter_axes is None:
+        smile_inter_axes = ("data",) if "data" in names else dp
+    inter = tuple(a for a in smile_inter_axes if a in names)
+    intra = ("model",) if tp else ()
+    return MeshPlan(dp_axes=dp, tp_axis=tp, ep_inter=inter, ep_intra=intra,
+                    axis_sizes=sizes)
+
+
 def single_device_plan() -> MeshPlan:
     """Oracle plan: no named axes; every collective is the identity."""
     return MeshPlan()
+
+
+def test_plan(n_inter: int = 2, n_intra: int = 2, pod: int = 0) -> MeshPlan:
+    """The plan of a small test mesh ``([pod,] data, model)``."""
+    sizes = []
+    if pod:
+        sizes.append(("pod", pod))
+    sizes += [("data", n_inter), ("model", n_intra)]
+    dp = tuple(a for a, _ in sizes if a != "model")
+    return MeshPlan(dp_axes=dp, tp_axis="model", ep_inter=("data",),
+                    ep_intra=("model",), axis_sizes=tuple(sizes))
+
+
+# ``test_plan`` builds a plan; it is no test
+test_plan.__test__ = False

@@ -1,0 +1,228 @@
+"""Partition specs: how every parameter, cache and batch leaf is cut over
+the mesh.
+
+The port of ``repro.sharding.specs``.  A spec is a tuple with one entry a
+dim of the leaf: ``None`` (replicated) or the axis name, or tuple of axis
+names, the dim is split over (JAX's ``PartitionSpec``).  Rules are keyed
+on a leaf's parent key and name and give the spec of its trailing dims;
+leading dims are padded with ``None``.  The port's trees keep one dict a
+block (no stacked leading axis), so a rule's spec is usually the whole
+spec.
+
+:func:`shard_params` cuts this rank's slice out of a full tree: a dim
+split over axes ``A`` is cut into ``size(A)`` equal parts and the rank
+keeps part ``index(A)``, its linear index over ``A`` in the order named,
+as JAX places shards.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.sharding.plan import MeshPlan
+
+Spec = Tuple[Any, ...]
+
+
+def _one(axes: Tuple[str, ...]):
+    """A spec entry: None, one axis name, or a tuple of them."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _expert_spec(cfg: ModelConfig, plan: MeshPlan) -> Tuple:
+    from repro_torch.core.layout import make_layout
+    from repro_torch.core.moe import _grid
+    n_g, m_g = _grid(cfg.moe, plan)
+    layout = make_layout(cfg.moe.num_experts, n_g, m_g)
+    intra = tuple(plan.ep_intra) if layout.shard_intra else ()
+    return (_one(tuple(plan.ep_inter)), _one(intra), None, None)
+
+
+def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
+                     ) -> Callable[[Tuple[str, ...], int], Spec]:
+    """``rule(path, ndim) -> spec`` for the port's parameter leaves: the
+    experts over ``(inter, intra if the layout shards it)``; the
+    embedding, the LM head, attention heads and dense FFNs over ``tp``;
+    routers, norms and the shared expert replicated.  KV projections stay
+    replicated where the KV heads do not divide over ``tp``."""
+    tp = plan.tp_axis
+    kv_ok = (cfg.num_kv_heads % max(plan.tp, 1) == 0
+             and not cfg.kv_seq_shard)
+    espec = (_expert_spec(cfg, plan)
+             if (cfg.moe and cfg.moe.num_experts) else None)
+
+    def base(parent: str, name: str) -> Optional[Tuple]:
+        if parent == "embed" and name == "table":
+            return (tp, None)
+        if parent == "lm_head" and name == "w":
+            return (tp, None)
+        if parent == "experts":
+            return espec
+        if parent in ("router", "router_inter", "router_intra"):
+            return (None, None)
+        if parent in ("tmix", "cmix"):
+            return None          # rwkv runs on one tp rank (not ported)
+        if name == "wq":
+            return (None, tp, None)
+        if name in ("wk", "wv"):
+            return (None, tp if kv_ok else None, None)
+        if name == "wo" and parent == "attn":
+            return (tp, None, None)
+        if name == "bq":
+            return (tp, None)
+        if name in ("bk", "bv"):
+            return (tp if kv_ok else None, None)
+        if parent == "shared":
+            return None          # runs on token-split shards, replicated
+        if name in ("w1", "w3"):
+            return (None, tp)
+        if name == "w2":
+            return (tp, None)
+        return None
+
+    def rule(path: Tuple[str, ...], ndim: int) -> Spec:
+        parent = path[-2] if len(path) >= 2 else ""
+        b = base(parent, path[-1])
+        if b is None:
+            return (None,) * ndim
+        if ndim < len(b):
+            raise ValueError(f"{'/'.join(path)}: {ndim} dims, spec {b}")
+        return (None,) * (ndim - len(b)) + tuple(b)
+
+    return rule
+
+
+def map_tree(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn(path, leaf)`` over the tensor leaves of nested dicts, lists and
+    tuples (None stays None), keeping the structure; ``path`` holds the
+    keys and indices as strings, as JAX's key paths do."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def param_specs(params, cfg: ModelConfig, plan: MeshPlan):
+    """The spec tree of ``params`` (tensors, or anything with ``ndim``)."""
+    rule = param_spec_rules(cfg, plan)
+    return map_tree(lambda p, x: rule(p, x.ndim), params)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _spec_map(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _spec_map(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list) or (isinstance(specs, tuple)
+                                   and not _is_spec(specs)):
+        return type(specs)(_spec_map(fn, v) for v in specs)
+    if specs is None:
+        return None
+    return fn(specs)
+
+
+def _used(spec: Spec) -> Tuple[str, ...]:
+    out = []
+    for e in spec:
+        if e is None:
+            continue
+        out.extend(e if isinstance(e, tuple) else (e,))
+    return tuple(out)
+
+
+def shard_axes(spec_tree, plan: MeshPlan):
+    """For each leaf, the mesh axes it is replicated over (the axes its
+    gradient is summed over), in mesh order."""
+    return _spec_map(lambda s: tuple(a for a in plan.all_axes
+                                     if a not in _used(s)), spec_tree)
+
+
+# =============================================================================
+# Batch / cache specs
+# =============================================================================
+
+def batch_dim_spec(batch: int, plan: MeshPlan):
+    """The batch dim over the dp axes where it divides, else replicated."""
+    if plan.dp_axes and batch % plan.dp == 0:
+        return _one(tuple(plan.dp_axes))
+    return None
+
+
+def batch_specs(batch_tree, plan: MeshPlan):
+    """Leading (batch) dim over dp, the rest replicated."""
+    def one(path, leaf):
+        b = leaf.shape[0] if leaf.ndim else 1
+        return (batch_dim_spec(b, plan),) + (None,) * max(leaf.ndim - 1, 0)
+    return map_tree(one, batch_tree)
+
+
+def cache_specs(cache_tree, cfg: ModelConfig, plan: MeshPlan, batch: int):
+    """Decode caches: the batch dim over dp, the KV heads over tp where
+    they divide.  Leaves: ring KV ``k``/``v`` (B, W, KV, hd) and ``pos``
+    (W,); paged pools ``pool_k``/``pool_v`` (pages, page, KV, hd), no
+    batch dim; rwkv ``wkv`` (B, nh, hd, hd) and ``x_prev_*`` (B, 1, d)."""
+    tp = plan.tp_axis
+    bspec = batch_dim_spec(batch, plan)
+    kv_ok = cfg.num_kv_heads % max(plan.tp, 1) == 0
+
+    def one(path, leaf):
+        name, nd = path[-1], leaf.ndim
+        if name in ("pos", "table"):
+            return (None,) * nd
+        if name in ("pool_k", "pool_v"):
+            b = (None, None, tp if kv_ok else None, None)
+        elif name in ("k", "v"):
+            b = (bspec, None, tp if kv_ok else None, None)
+        else:
+            b = (bspec,) + (None,) * (nd - 1)
+        return (None,) * (nd - len(b)) + b
+
+    return map_tree(one, cache_tree)
+
+
+# =============================================================================
+# Cutting a rank's slice
+# =============================================================================
+
+def shard_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's slice of the full leaf ``x`` under ``spec``: a fresh
+    tensor where a dim is cut (the full leaf can be freed), ``x`` itself
+    where none is."""
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} for a leaf of {x.dim()} dims")
+    out = x
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        n = mesh.size(e)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over {e} ({n} ranks)")
+        per = x.shape[dim] // n
+        out = out.narrow(dim, mesh.index(e) * per, per)
+    return out if out is x else out.clone()
+
+
+def shard_params(full_tree, spec_tree, mesh):
+    """This rank's slice of every leaf of ``full_tree`` (params, caches or
+    a batch) under the matching ``spec_tree``."""
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, sv) for v, sv in zip(t, s))
+        if t is None:
+            return None
+        return shard_leaf(t, s, mesh)
+    return walk(full_tree, spec_tree)

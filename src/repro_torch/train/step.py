@@ -121,8 +121,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
     moved to the parameters' device.  Marks every parameter of
     ``params_like`` as requiring grad."""
     if mesh is not None:
-        raise NotImplementedError("a device mesh needs the expert-parallel "
-                                  "slice; the port trains on one device")
+        raise NotImplementedError("training over a mesh of ranks is not "
+                                  "ported yet (ROADMAP queue 1, item 7)")
     if zero1 or sentinel:
         raise NotImplementedError(
             "ZeRO-1 and the step sentinel are not ported yet (ROADMAP, "

@@ -795,3 +795,61 @@ def test_engine_captures_once_across_admit_evict_cycles(case):
     steps = 1 + len(n["prefill"])
     want = {k: 2 * steps * v for k, v in _engine_per_forward(cfg).items()}
     assert ops.launch_counts() == want == eng.capture_launches()
+
+
+# the expert-parallel wire on one card: ranks share cuda:0 under gloo (NCCL
+# refuses two ranks on one device), so the collectives cross the host
+
+def _ragged_on_the_card(rank):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import comm
+    make_mesh((2,), ("model",), device=rank.device)
+    g = torch.Generator().manual_seed(rank.rank)
+    rows = torch.randn((12, 64), generator=g).to(torch.bfloat16)
+    counts = torch.tensor([[3, 5], [4, 2]][rank.rank], dtype=torch.int32)
+    recv, rc = comm.ragged_all_to_all(rows.cuda(), counts.cuda(), "model",
+                                      recv_rows=24)
+    cut, _ = comm.ragged_all_to_all(rows.cuda(), counts.cuda(), "model",
+                                    recv_rows=5, allow_truncate=True)
+    return rows, recv.cpu(), rc.cpu(), cut.cpu(), str(recv.device)
+
+
+@pytest.mark.gpu
+def test_gloo_ragged_all_to_all_of_card_tensors():
+    _card()
+    from repro_torch.launch.mesh import RankPool
+    with RankPool(2, backend="gloo", devices=["cuda:0"] * 2,
+                  timeout_s=300) as pool:
+        (r0, recv0, rc0, cut0, dev0), (r1, recv1, rc1, cut1, _) = pool.run(
+            _ragged_on_the_card)
+    assert dev0 == "cuda:0"
+    assert rc0.tolist() == [3, 4] and rc1.tolist() == [5, 2]
+    zeros = torch.zeros((17, 64), dtype=torch.bfloat16)
+    assert torch.equal(recv0, torch.cat([r0[:3], r1[:4], zeros]))
+    assert torch.equal(recv1, torch.cat([r0[3:8], r1[4:6], zeros]))
+    # a receive bound of 5 keeps a prefix of the source-major layout
+    assert torch.equal(cut0, torch.cat([r0[:3], r1[:2]]))
+    assert torch.equal(cut1, r0[3:8])
+
+
+@pytest.mark.gpu
+def test_four_ranks_on_the_card_serve_dropless_as_one():
+    _card()
+    from chip_smoke import LOGITS_ATOL, check_tokens_and_logits
+    from repro_torch.launch.serve import (gather_logits, gather_rows, serve,
+                                          serve_mesh)
+    kw = dict(reduced=True, batch=4, prompt_len=16, new_tokens=4, seed=0,
+              moe_options={"dispatch_backend": "dropless"},
+              keep_logits=True)
+    one = serve("qwen3-moe-30b-a3b", device="cuda", **kw)
+    out = serve_mesh("qwen3-moe-30b-a3b", (2, 2), backend="gloo",
+                     devices=["cuda:0"] * 4, timeout_s=300, **kw)
+    check_tokens_and_logits(one.tokens, one.logits, gather_rows(out),
+                            gather_logits(out), LOGITS_ATOL,
+                            "one rank against four on the card")
+    for r in out:
+        assert r["finite"]
+        got = {k: v for k, v in r["launches"]["decode"].items() if v}
+        # 2 layers: 3 gathers, 3 combines and one ragged FFN a layer
+        assert got == {"dispatch_gather": 18, "combine_gather": 18,
+                       "grouped_ffn_ragged": 6}, got
