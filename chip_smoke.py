@@ -144,13 +144,39 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     sends at each hop (inter over ``data``, intra over ``model``) a
     forward.  Phase 2 holds the four kernels at a rank's prefill shapes
     too.
-17. A ``{"kernels": [...]}`` line, then the card line, then the last line
+17. Training over the same mesh: ``repro_torch.launch.train.train(...,
+    mesh=)`` on every rank (``RankPool`` tasks) for smile-3.7b at full
+    width with the depth cut to 6 of 12 layers (3 MoE layers; a rank holds
+    ~0.49 B fp32 parameters with their gradients and LAMB moments), grid
+    (16, 8), global batch 16 x 128 (8 rows a data rank, 512 MoE tokens a
+    rank), LAMB, ``router_impl="fused"``, ``sort_impl="radix"``, bf16
+    compute: one warm-up step, 3 timed steps, then one step with each
+    collective timed (the card synchronized around it); then switch-3.7b,
+    the same cut, for 2 steps.  First, in this process, the one-rank
+    ``train()`` of the same weights and batches for one step (then
+    freed): the mesh's step-1 loss and gradient norm must lie within
+    ``tests/distributed/_train_equiv.py``'s bounds of it.  Every rank's
+    launch counts (set to 0 just before each run, read just after) must be
+    the routing wrappers' 12 (SMILE) or 6 (Switch) calls a step, the other
+    kernels' 0 (the expert FFN and the gathers are plain code in training,
+    as in the JAX train step), and each arch's routing calls' shapes must
+    be the ones phase 2 holds for it.  Printed: the slowest rank's step times and
+    tokens/s, each rank's peak memory, a step's collectives by op, axes
+    and direction (forward, the backward's ``.grad``, the gradient sync,
+    the norms) with rows, bytes and time, and each hop's All2All bytes
+    forward and backward for both routers.
+18. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
-Phase 2 also holds the three kernels of the cache-less forward against
-their plain versions: flash attention at the qwen3 phase's shapes (and at
-T 128, with as many KV heads as query heads, and at head sizes 80, 96 and
-160, against ``scaled_dot_product_attention`` as the library's time), the
+Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
+shapes (SMILE's routers (512, 768) x (768, 16) and (1,024, 768) x (768, 8),
+sorts of 512 keys over 17 values and 1,024 over 65; Switch's router (512,
+768) x (768, 128) and sort of 512 keys over 129 values), and the three kernels of
+the cache-less forward against their plain versions: flash attention at
+the qwen3 phase's shapes (and at T 128, with as many KV heads as query
+heads, and at head sizes 80, 96 and 160, and 256 and 384 on the kernel's
+wide route, against ``scaled_dot_product_attention`` as the library's
+time), the
 WKV6 scan at rwkv6's (4, 4,096, 32, 64) with a nonzero state and bonus
 (its final state bit for bit), and the Mamba2 SSD intra-chunk kernel, which
 no model calls: its grouped route at zamba2-2.7b's shapes with a typical, a
@@ -234,6 +260,15 @@ FFN_RTOL = FFN_ATOL = 2e-2
 # per sort
 ROUTER_SHAPES = [("train hop-1", 2048, 16, 1, "bf16", False),
                  ("train hop-2", 4096, 8, 1, "bf16", False),
+                 # a rank of phase 17's (data 2, model 2) mesh: 8 rows of
+                 # 128 a data rank, split over model (512 tokens); hop 2
+                 # routes the 8 local nodes' arrivals from both data ranks
+                 # at capacity 64 (1,024 rows)
+                 ("mesh train hop-1", 512, 16, 1, "bf16", False),
+                 ("mesh train hop-2", 1024, 8, 1, "bf16", False),
+                 # switch-3.7b on the same rank: one flat hop over all 128
+                 # experts (another template than "switch flat" at 2,048)
+                 ("mesh switch flat", 512, 128, 1, "bf16", False),
                  ("switch flat", 2048, 128, 1, "bf16", False),
                  ("bf16 ties k2", 2048, 16, 2, "bf16", True)]
 # (name, A, keys, draw): "skew" puts a third of the keys on one value, as a
@@ -243,6 +278,11 @@ ROUTER_SHAPES = [("train hop-1", 2048, 16, 1, "bf16", False),
 # and at the most the kernel takes
 SORT_SHAPES = [("train hop-1", 2048, 17, "skew"),
                ("train hop-2", 4096, 129, "skew"),
+               # phase 17's mesh rank: hop 2 sorts into its 8 local nodes'
+               # 8 experts each (64 groups)
+               ("mesh train hop-1", 512, 17, "skew"),
+               ("mesh train hop-2", 1024, 65, "skew"),
+               ("mesh switch flat", 512, 129, "skew"),
                ("all equal", 4096, 129, "equal"),
                ("one-launch edge", 4096, 17, "skew"),
                ("past the edge", 4097, 17, "skew"),
@@ -252,8 +292,9 @@ SORT_SHAPES = [("train hop-1", 2048, 17, "skew"),
 # edge) and key values: whether one launch still pays at its edge
 SORT_CROSSOVER_A = (1024, 2048, 3072, 4096)
 SORT_CROSSOVER_K = (17, 129, 1024)
-# the training path's shapes, where one call must launch one kernel
-ONE_KERNEL_SHAPES = ("train hop-1", "train hop-2")
+# the training paths' shapes, where one call must launch one kernel
+ONE_KERNEL_SHAPES = ("train hop-1", "train hop-2", "mesh train hop-1",
+                     "mesh train hop-2", "mesh switch flat")
 # the router's logits are fp32 sums of 768 products; the kernel and cuBLAS
 # (TF32 off) each land up to ~1e-6 from the fp64 product at these shapes
 # (measured on the card: 8.8e-7 and 9.7e-7), in other directions, so their
@@ -296,7 +337,11 @@ FLASH_SHAPES = {"qwen3 path": (2, 4096, 32, 4, 128),
                 # stablelm-12b, which the kernel runs padded to 128 and 192
                 "hd 80": (1, 2048, 32, 32, 80),
                 "hd 96": (1, 2048, 32, 32, 96),
-                "hd 160": (1, 2048, 32, 8, 160)}
+                "hd 160": (1, 2048, 32, 8, 160),
+                # past 192: the wide route (no config of either package
+                # has such heads; the Pallas kernel takes any)
+                "hd 256": (1, 2048, 16, 8, 256),
+                "hd 384": (1, 2048, 8, 8, 384)}
 # the kernel scales q in bf16 and rounds the probabilities to bf16 before
 # PV (as the Pallas body); the plain version does both in fp32.  Each output
 # is held within one bf16 ulp of the plain one (both round once: values that
@@ -2604,6 +2649,231 @@ def check_mesh_fp32(name, got, one, sc):
           f"logits difference {worst:.3e} (tolerance {LOGITS_ATOL})")
 
 
+# phase 17: the MLM training path over phase 16's mesh (4 gloo ranks
+# sharing the card).  Full width; the depth cut 12 -> 6 (3 MoE layers): a
+# rank then holds ~0.48 B fp32 parameters (a quarter of the experts, half
+# of the dense weights) and their gradients and LAMB moments, and the
+# one-rank run of the same weights (~1.9 B) runs before the ranks start
+MESH_TRAIN = dict(arch="smile-3.7b", reduced=False, num_layers=6, batch=16,
+                  seq=128, optimizer="lamb", moe_grid=(16, 8),
+                  moe_options={"router_impl": "fused", "sort_impl": "radix"})
+# smile: one warm-up step, 3 timed, then one with each collective timed
+# (the card synchronized around it); switch: 2 steps, the second timed so
+MESH_TRAIN_TIMED = 3
+MESH_SWITCH_STEPS = 2
+# a rank's routing wrapper calls a step: 3 MoE layers x the hops (SMILE 2,
+# Switch 1) x (the forward, the remat recompute)
+MESH_TRAIN_CALLS = {"smile-3.7b": 12, "switch-3.7b": 6}
+# the phase-2 shapes (ROUTER_SHAPES, SORT_SHAPES) that hold each arch's
+# routing calls on a mesh rank
+MESH_TRAIN_HELD = {"smile-3.7b": ("mesh train hop-1", "mesh train hop-2"),
+                   "switch-3.7b": ("mesh switch flat",)}
+# tests/distributed/_train_equiv.py's bounds: step 1 against one rank
+MESH_TRAIN_LOSS_ATOL = 2e-2
+MESH_TRAIN_GNORM_REL = 6e-2
+
+
+class RoutingShapes:
+    """Stands in for ``repro_torch.kernels.ops`` in the MoE modules and
+    records the shape of each routing call before passing it on."""
+
+    def __init__(self, ops):
+        self.ops, self.seen = ops, set()
+
+    def __getattr__(self, name):
+        return getattr(self.ops, name)
+
+    def router_fused(self, x, w, k, **kw):
+        self.seen.add(("router_fused", x.shape[0], w.shape[1], k))
+        return self.ops.router_fused(x, w, k, **kw)
+
+    def group_sort(self, keys, num_keys, **kw):
+        self.seen.add(("group_sort", keys.shape[0], num_keys))
+        return self.ops.group_sort(keys, num_keys, **kw)
+
+
+def _mesh_train_rank(rank, kw, steps):
+    """A phase-17 rank: the mesh (once), then ``train(mesh=...)``, every
+    launch count set to 0 just before and read just after, the routing
+    calls' shapes recorded; the last step times its collectives (the card
+    synchronized around each one)."""
+    import torch
+    from repro_torch.core import dispatch, moe
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.optim import leaf_groups
+    st = rank.state
+    if "mesh" not in st:
+        st["mesh"] = make_mesh(MESH_SHAPE, ("data", "model"),
+                               device=rank.device)
+    cuda = rank.device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    wire = st["mesh"].wire
+
+    def on_step(step):
+        wire.timed = step == steps - 1
+
+    shapes = RoutingShapes(ops)
+    moe.kops = dispatch.kops = shapes
+    ops.reset_launch_counts()
+    try:
+        params, hist = train(steps=steps, log_every=1, mesh=st["mesh"],
+                             on_step=on_step, **kw)
+    finally:
+        moe.kops = dispatch.kops = ops
+        wire.timed = False
+    launches = ops.launch_counts()
+    n = sum(p.numel() for g in leaf_groups(params) for p in g.pieces)
+    del params
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"history": hist, "launches": launches, "peak": peak,
+            "params": n, "shapes": sorted(shapes.seen),
+            "coords": st["mesh"].coords}
+
+
+def train_wire_lines(wire: dict, what: str):
+    """A step's collectives on one rank, by op, axes and direction (the
+    backward's under ``<op>.grad``, the gradient sync's under
+    ``psum.sync``, LAMB's and the clip's norms under ``psum.norm``): calls,
+    rows and bytes sent, time inside comm, and the time inside comm by
+    direction.  Returns {(hop axes, direction): bytes} of the All2Alls'
+    payload."""
+    names = {"grad": "backward", "sync": "gradient sync",
+             "norm": "norms"}
+    hops, inside = {}, {}
+    for key, e in sorted(wire.items()):
+        op, axes, dtype = key.split(" ")
+        base, _, tail = op.partition(".")
+        way = names.get(tail, "forward")
+        print(f"    {what} {base} over {axes} {dtype} {way}: "
+              f"{e['calls']:g} calls, {e['rows']:,.0f} rows, "
+              f"{e['bytes'] / 2**20:.3f} MiB sent, {e['s'] * 1e3:.3f} ms")
+        inside[way] = inside.get(way, 0.0) + e["s"]
+        if base == "all_to_all" or base == "ragged_all_to_all":
+            if dtype != "int32":
+                hops[(axes, way)] = hops.get((axes, way), 0) + e["bytes"]
+    print(f"    {what} inside comm {sum(inside.values()) * 1e3:.1f} ms: "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in inside.items()))
+    return hops
+
+
+def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False):
+    """smile-3.7b's MLM training (MESH_TRAIN) over MESH_SHAPE: 4 ranks
+    under gloo, after the one-rank ``train()`` of the same weights and
+    batches in this process (then freed); then switch-3.7b, the same cut.
+    (``devices=["cpu"] * 4, reduced=True`` rehearses it on the CPU.)"""
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.launch.train import train
+    kw = dict(MESH_TRAIN, reduced=reduced)
+    if reduced:
+        kw.update(num_layers=None, moe_grid=None)
+    cuda = torch.device(devices[0]).type == "cuda"
+    tokens = kw["batch"] * kw["seq"]
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, one = train(steps=1, log_every=1, device=devices[0], **kw)
+    del params
+    gc.collect()
+    one_peak = torch.cuda.max_memory_allocated() if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"  one rank ({devices[0]}): step 1 loss {one[0]['loss']:.5f} "
+          f"grad norm {one[0]['grad_norm']:.5f}, {one[0]['step_ms']:.1f} ms "
+          f"(cold); run {time.perf_counter() - t0:.1f} s"
+          + (f", peak {one_peak / 2**30:.2f} GiB" if cuda else ""))
+    print(f"  {len(devices)} ranks, one process each, on {devices} under "
+          f"{MESH_BACKEND}: the collectives cross the host (gloo's "
+          f"transport), not NVLink; mesh "
+          f"{dict(zip(('data', 'model'), MESH_SHAPE))}; global batch "
+          f"{kw['batch']} x {kw['seq']}")
+    steps = 1 + MESH_TRAIN_TIMED + 1
+    t0 = time.perf_counter()
+    with RankPool(len(devices), backend=MESH_BACKEND, devices=devices,
+                  timeout_s=900) as pool:
+        runs = {"smile-3.7b": pool.run(_mesh_train_rank, kw, steps),
+                "switch-3.7b": pool.run(_mesh_train_rank,
+                                        dict(kw, arch="switch-3.7b"),
+                                        MESH_SWITCH_STEPS)}
+    print(f"  both mesh runs, the ranks' start included: "
+          f"{time.perf_counter() - t0:.1f} s")
+    hops = {}
+    for arch, out in runs.items():
+        hist = [r["history"] for r in out]
+        for r, h in enumerate(hist):
+            if not all(math.isfinite(e[k]) for e in h
+                       for k in ("loss", "grad_norm")):
+                raise AssertionError(f"mesh train {arch}: rank {r} "
+                                     f"non-finite loss or grad norm")
+            if [e["loss"] for e in h] != [e["loss"] for e in hist[0]]:
+                raise AssertionError(f"mesh train {arch}: rank {r}'s loss "
+                                     f"is not rank 0's")
+        for h in hist[0]:
+            ms = max(x[h["step"] - 1]["step_ms"] for x in hist)
+            print(f"  {arch} step {h['step']}: loss {h['loss']:.5f} ce "
+                  f"{h['ce']:.5f} lb {h['lb']:.5f} drop_frac "
+                  f"{h['drop_frac']:.4f} grad norm {h['grad_norm']:.5f}; "
+                  f"slowest rank {ms:.1f} ms")
+        calls = MESH_TRAIN_CALLS[arch] * len(hist[0])
+        want = {k: (calls if cuda and k in ("router_fused", "group_sort")
+                    else 0) for k in out[0]["launches"]}
+        for r, o in enumerate(out):
+            if o["launches"] != want:
+                raise AssertionError(f"mesh train {arch}: rank {r} launches "
+                                     f"{o['launches']}, expected {want}")
+        print(f"  {arch}: routing kernel launches a step on each rank: "
+              f"router_fused {want['router_fused'] / len(hist[0]):g}, "
+              f"group_sort {want['group_sort'] / len(hist[0]):g}; routing "
+              f"calls' shapes on rank 0 {out[0]['shapes']}")
+        print(f"  {arch}: parameters a rank {out[0]['params'] / 1e9:.3f} B; "
+              f"peak memory by rank "
+              + (", ".join(f"{o['peak'] / 2**30:.2f} GiB" for o in out)
+                 if cuda else "not measured (CPU)"))
+        last = hist[0][-1]
+        hops[arch] = train_wire_lines(last["wire"], f"{arch} rank 0, step "
+                                      f"{last['step']} ({last['step_ms']:.1f}"
+                                      f" ms):")
+    smile = [r["history"] for r in runs["smile-3.7b"]]
+    timed = [max(h[i]["step_ms"] for h in smile)
+             for i in range(1, 1 + MESH_TRAIN_TIMED)]
+    mean = sum(timed) / len(timed)
+    print(f"  smile-3.7b over the mesh, slowest rank, timed steps "
+          f"{timed}: mean {mean:.1f} ms a step, {tokens / mean * 1e3:,.0f} "
+          f"tokens/s (gloo through the host, 4 processes on one card)")
+    print(f"  the All2Alls' bytes a step on rank 0 by hop and direction: "
+          + "; ".join(f"{arch} {k[0]} {k[1]} {v / 2**20:.3f} MiB"
+                      for arch, h in hops.items()
+                      for k, v in sorted(h.items())))
+    first = smile[0][0]
+    dl = abs(first["loss"] - one[0]["loss"])
+    dg = abs(first["grad_norm"] - one[0]["grad_norm"]) / max(
+        one[0]["grad_norm"], 1e-6)
+    print(f"  step 1 against one rank: loss {dl:.3e} apart (bound "
+          f"{MESH_TRAIN_LOSS_ATOL}), grad norm {dg:.3e} relative (bound "
+          f"{MESH_TRAIN_GNORM_REL})")
+    if not (dl <= MESH_TRAIN_LOSS_ATOL and dg <= MESH_TRAIN_GNORM_REL):
+        raise AssertionError("mesh train: step 1 parts from one rank")
+    if reduced:
+        return
+    for arch, names in MESH_TRAIN_HELD.items():
+        held = {("router_fused", t, E, k) for name, t, E, k, *_ in
+                ROUTER_SHAPES if name in names} | {
+                ("group_sort", A, K) for name, A, K, _ in SORT_SHAPES
+                if name in names}
+        got = {tuple(x) for x in runs[arch][0]["shapes"]}
+        if got != held:
+            raise AssertionError(f"mesh train {arch}: routing shapes {got}, "
+                                 f"phase 2 holds {held}")
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -2739,6 +3009,11 @@ def main() -> int:
                 f"mesh of 4 ranks sharing the card under gloo, full width, 4 "
                 f"of 48 layers ({card})")
     phase_mesh_serve(torch, ops, fixed_step_ms)
+
+    clock.start(f"phase 17: train smile-3.7b (then switch-3.7b) over a (data "
+                f"2, model 2) mesh of 4 ranks sharing the card under gloo, "
+                f"full width, 6 of 12 layers ({card})")
+    phase_mesh_train(torch, ops)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

@@ -2,7 +2,8 @@
 //   o[b, t, h] = softmax_s(q[b, t, h] . k[b, s, h/g] / sqrt(hd), s <= t)
 //                . v[b, s, h/g]
 // q (B, T, H, hd), k/v (B, T, KV, hd) bf16 with g = H / KV query heads per
-// KV head (GQA); o (B, T, H, hd) bf16; hd any multiple of 8 up to 192.
+// KV head (GQA); o (B, T, H, hd) bf16; hd any multiple of 8 up to 512 (past
+// 192 on the wide route, at the end of this file).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py
 // flash_attention_pallas: one grid step per (b, h, 128-row query tile),
@@ -76,6 +77,20 @@
 // in every query's first tile.  With 64-key tiles the first
 // warpgroup's rows see every key of the block's last tile masked, which
 // leaves their max and sum as they were and adds zeros to O.
+//
+// Head sizes past 192 (up to 512, multiples of 8) take a second route,
+// flash_attn_wide: O's 64 rows of 128 fp32 registers a warpgroup would not
+// fit the registers a thread has, so this route tiles the head dim through
+// shared memory and computes on the CUDA cores in fp32.  A block takes 16
+// query rows of one (b, h) and 256 threads, 16 a row; it holds its rows of
+// q (scaled and rounded to bf16, as above) for the whole head in shared
+// memory, and for each 64-key tile up to the diagonal accumulates S over
+// the head in 64-column chunks of K, runs the same online softmax (fp32
+// sum, probabilities rounded to bf16 before PV, masked scores -1e30) with
+// shuffles inside the row's 16 lanes, and adds P V chunk by chunk of V into
+// O, which a thread keeps in registers (its row's columns c == lane mod 16).
+// A simple route, held against the plain version: no tensor cores, no
+// pipelining of the loads.
 //
 // Plain C interface, built by nvcc into a shared library and called through
 // ctypes; returns the cudaError_t of the launch.
@@ -421,6 +436,154 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- wide route
+constexpr int WQ = 16;            // query rows a block
+constexpr int WK = 64;            // keys a tile
+constexpr int WC = 64;            // head columns a chunk
+constexpr int W_THREADS = 256;    // 16 a row
+constexpr int W_MAX_HD = 512;
+
+// NC: head chunks of 64 columns (hd <= 64 NC)
+template <int NC>
+__global__ void __launch_bounds__(W_THREADS)
+flash_attn_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, int T,
+                int H, int KV, int hd, float scale) {
+  constexpr int HDP = NC * WC;
+  extern __shared__ float wsm[];
+  float* qs = wsm;                    // [WQ][HDP]: q * scale, bf16 values
+  float* ks = qs + WQ * HDP;          // [WK][WC + 1]: a chunk of K or V
+  float* ps = ks + WK * (WC + 1);     // [WQ][WK]: P rounded to bf16
+  const int q0 = blockIdx.x * WQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int r = tid / 16, c = tid % 16;  // the thread's row; its lane in it
+  const int qpos = q0 + r;
+  const size_t qrow = (size_t)H * hd, krow = (size_t)KV * hd;
+  const bf16* qb = q + ((size_t)b * T) * qrow + (size_t)h * hd;
+  const bf16* kb = k + ((size_t)b * T) * krow + (size_t)kvh * hd;
+  const bf16* vb = v + ((size_t)b * T) * krow + (size_t)kvh * hd;
+
+  for (int e = tid; e < WQ * HDP; e += W_THREADS) {
+    const int rr = e / HDP, d = e % HDP;
+    float x = 0.0f;
+    if (q0 + rr < T && d < hd)
+      x = __bfloat162float(__float2bfloat16(
+          __bfloat162float(qb[(size_t)(q0 + rr) * qrow + d]) * scale));
+    qs[e] = x;
+  }
+
+  float o[NC * 4];
+#pragma unroll
+  for (int i = 0; i < NC * 4; ++i) o[i] = 0.0f;
+  float m = -1e30f, l = 0.0f;
+  const int n_kv = (min(q0 + WQ, T) + WK - 1) / WK;
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * WK;
+    // S: the thread's keys are c + 16 i
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int ch = 0; ch < NC; ++ch) {
+      __syncthreads();
+      for (int e = tid; e < WK * WC; e += W_THREADS) {
+        const int kk = e / WC, d = ch * WC + e % WC;
+        ks[kk * (WC + 1) + e % WC] =
+            (k0 + kk < T && d < hd)
+                ? __bfloat162float(kb[(size_t)(k0 + kk) * krow + d])
+                : 0.0f;
+      }
+      __syncthreads();
+      const float* qr = qs + r * HDP + ch * WC;
+#pragma unroll 8
+      for (int d = 0; d < WC; ++d) {
+        const float qv = qr[d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[i] = fmaf(qv, ks[(c + 16 * i) * (WC + 1) + d], s[i]);
+      }
+    }
+    // the online softmax over the row's 16 lanes
+    float mx = -1e30f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (k0 + c + 16 * i > qpos) s[i] = -1e30f;
+      mx = fmaxf(mx, s[i]);
+    }
+#pragma unroll
+    for (int w = 1; w < 16; w <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    const float mn = fmaxf(m, mx);
+    const float corr = expf(m - mn);
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = expf(s[i] - mn);
+      sum += p;
+      ps[r * WK + c + 16 * i] = __bfloat162float(__float2bfloat16(p));
+    }
+#pragma unroll
+    for (int w = 1; w < 16; w <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    l = l * corr + sum;
+    m = mn;
+#pragma unroll
+    for (int i = 0; i < NC * 4; ++i) o[i] *= corr;
+    // O += P V, chunk by chunk of V
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch) {
+      __syncthreads();
+      for (int e = tid; e < WK * WC; e += W_THREADS) {
+        const int kk = e / WC, d = ch * WC + e % WC;
+        ks[kk * (WC + 1) + e % WC] =
+            (k0 + kk < T && d < hd)
+                ? __bfloat162float(vb[(size_t)(k0 + kk) * krow + d])
+                : 0.0f;
+      }
+      __syncthreads();
+      const float* pr = ps + r * WK;
+#pragma unroll 4
+      for (int kk = 0; kk < WK; ++kk) {
+        const float p = pr[kk];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          o[ch * 4 + i] = fmaf(p, ks[kk * (WC + 1) + c + 16 * i],
+                               o[ch * 4 + i]);
+      }
+    }
+  }
+  if (qpos < T) {
+    const float lm = fmaxf(l, 1e-30f);
+    bf16* orow = out + ((size_t)b * T + qpos) * qrow + (size_t)h * hd;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = ch * WC + c + 16 * i;
+        if (d < hd) orow[d] = __float2bfloat16(o[ch * 4 + i] / lm);
+      }
+  }
+}
+
+template <int NC>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                int B, int T, int H, int KV, int hd, float scale,
+                cudaStream_t stream) {
+  constexpr int BYTES =
+      (WQ * NC * WC + WK * (WC + 1) + WQ * WK) * (int)sizeof(float);
+  static bool sized = false;  // the shared-memory limit, set once
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attn_wide<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 grid((T + WQ - 1) / WQ, H, B);
+  flash_attn_wide<NC><<<grid, W_THREADS, BYTES, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, T, H, KV,
+      hd, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -435,6 +598,16 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 64: return launch<64>(q, k, v, out, B, T, H, KV, hd, scale, s);
     case 128: return launch<128>(q, k, v, out, B, T, H, KV, hd, scale, s);
     case 192: return launch<192>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    default: break;
+  }
+  if (hd <= MAX_HD || hd > W_MAX_HD || hd % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch ((hd + WC - 1) / WC) {
+    case 4: return launch_wide<4>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 5: return launch_wide<5>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 6: return launch_wide<6>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 7: return launch_wide<7>(q, k, v, out, B, T, H, KV, hd, scale, s);
+    case 8: return launch_wide<8>(q, k, v, out, B, T, H, KV, hd, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -532,19 +532,30 @@ def grouped_ffn_ragged(rows: torch.Tensor, group_starts: torch.Tensor,
     return y
 
 
-# flash_attn.cu: the widest padded head it is instantiated at
-FLASH_MAX_HEAD_DIM = 192
+# flash_attn.cu: the widest padded head of its wgmma route, and the widest
+# head of its wide route
+FLASH_WGMMA_MAX_HEAD_DIM = 192
+FLASH_MAX_HEAD_DIM = 512
+
+
+def flash_route(hd: int) -> str:
+    """Which route of ``flash_attn.cu`` runs head size ``hd``: ``"wgmma"``
+    (tensor cores) up to :data:`FLASH_WGMMA_MAX_HEAD_DIM`, ``"wide"`` (the
+    head dim tiled through shared memory, fp32 on the CUDA cores) past it,
+    up to :data:`FLASH_MAX_HEAD_DIM`.  hd must be a positive multiple of 8
+    (rows of 16 bytes); anything else raises ``ValueError``."""
+    _require(0 < hd <= FLASH_MAX_HEAD_DIM and hd % 8 == 0,
+             f"flash_attention: hd must be a positive multiple of 8 up to "
+             f"{FLASH_MAX_HEAD_DIM}, got {hd}")
+    return "wgmma" if hd <= FLASH_WGMMA_MAX_HEAD_DIM else "wide"
 
 
 def flash_padded_head(hd: int) -> int:
     """The head size the flash kernel runs ``hd`` at: 32 for hd <= 32,
-    else hd rounded up to a multiple of 64 (the 64-column TMA box), up to
-    :data:`FLASH_MAX_HEAD_DIM`; the columns past hd load as zeros.  hd must
-    be a positive multiple of 8 (rows of 16 bytes, as TMA strides need);
-    anything else raises ``ValueError``."""
-    _require(0 < hd <= FLASH_MAX_HEAD_DIM and hd % 8 == 0,
-             f"flash_attention: hd must be a positive multiple of 8 up to "
-             f"{FLASH_MAX_HEAD_DIM}, got {hd}")
+    else hd rounded up to a multiple of 64 (the wgmma route's 64-column
+    TMA box, up to 192; the wide route's 64-column chunk past it); the
+    columns past hd load as zeros.  Raises as :func:`flash_route`."""
+    flash_route(hd)
     return 32 if hd <= 32 else -(-hd // 64) * 64
 
 
@@ -557,10 +568,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     On the CPU: the plain version on KV heads repeated H / KV times (as the
     JAX wrapper repeats them).  On the card: bf16, hd a multiple of 8 up to
-    :data:`FLASH_MAX_HEAD_DIM` (run at :func:`flash_padded_head`), 16-byte
-    aligned data (TMA); the kernel reads each query head's KV head
-    directly, scales q in bf16 and rounds the probabilities to bf16 before
-    PV, as the Pallas body does.
+    :data:`FLASH_MAX_HEAD_DIM` (the route :func:`flash_route` names, run at
+    :func:`flash_padded_head`), 16-byte aligned data (TMA); the kernel
+    reads each query head's KV head directly, scales q in bf16 and rounds
+    the probabilities to bf16 before PV, as the Pallas body does.
     """
     _require(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
              f"flash_attention: q (B, T, H, hd), k/v (B, T, KV, hd), got "

@@ -19,6 +19,8 @@ share one card use (on a card it carries CUDA tensors through the host).
 :func:`spawn` and :class:`RankPool` start ranks as processes of the
 ``spawn`` start method (CUDA survives it); under ``torchrun`` a program
 calls :func:`init_rank` with ``init_method="env://"`` itself.
+:func:`add_mesh_flags` and :func:`mesh_cli` are the launchers' mesh
+flags, shared by ``launch/serve.py`` and ``launch/train.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ from repro_torch.common.device import resolve_device, use_device
 from repro_torch.sharding import comm
 
 BACKENDS = ("gloo", "nccl")
+# the axes of a mesh given by its sizes alone (the launchers' --mesh)
+MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,3 +340,51 @@ def spawn(fn: Callable, world: int, *, backend: str, devices: Sequence,
     with RankPool(world, backend=backend, devices=devices,
                   timeout_s=timeout_s, threads=threads) as pool:
         return pool.run(fn, *args)
+
+
+# =============================================================================
+# The launchers' mesh flags
+# =============================================================================
+
+def add_mesh_flags(ap, verb: str) -> None:
+    """``--mesh``, ``--backend``, ``--devices`` and ``--launcher`` on the
+    launcher's parser (``verb`` says what runs over the mesh)."""
+    ap.add_argument("--mesh", default=None,
+                    help=f"{verb} over a mesh of ranks: 'data,model' sizes "
+                         f"(e.g. 2,2), or 'pod,data,model'")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="with --mesh: the torch.distributed backend")
+    ap.add_argument("--devices", default=None,
+                    help="with --mesh: the ranks' devices, one a rank or "
+                         "one for all (e.g. cuda:0 or cuda:0,cuda:1,...)")
+    ap.add_argument("--launcher", choices=("spawn", "env"),
+                    default="spawn",
+                    help="with --mesh: spawn the ranks here, or run as one "
+                         "rank under torchrun (env://)")
+
+
+def mesh_cli(args) -> Tuple[Tuple[int, ...], List[str], Optional[Mesh]]:
+    """The mesh flags of ``args`` (``--mesh`` given): ``(shape, devices,
+    mesh)``, ``devices`` one a rank.  Under ``--launcher spawn`` ``mesh``
+    is None and the launcher spawns the ranks; under ``--launcher env``
+    this process is torchrun's rank ``RANK``, initialized and bound to the
+    mesh returned."""
+    shape = tuple(int(v) for v in args.mesh.split(","))
+    if len(shape) not in MESH_AXES:
+        raise SystemExit(f"--mesh takes 2 or 3 sizes, got {args.mesh}")
+    if args.backend is None or args.devices is None:
+        raise SystemExit("--mesh needs --backend and --devices")
+    world = math.prod(shape)
+    devices = args.devices.split(",")
+    if len(devices) == 1:
+        devices = devices * world
+    if args.launcher == "spawn":
+        return shape, devices, None
+    rank = int(os.environ["RANK"])
+    if int(os.environ["WORLD_SIZE"]) != world:
+        raise SystemExit(f"torchrun started {os.environ['WORLD_SIZE']} "
+                         f"ranks; --mesh {args.mesh} needs {world}")
+    dev = init_rank(rank, world, backend=args.backend, device=devices[rank],
+                    init_method="env://")
+    return shape, devices, make_mesh(shape, MESH_AXES[len(shape)],
+                                     device=dev)

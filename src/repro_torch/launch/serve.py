@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -61,7 +60,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_reduced, with_options
 from repro_torch.data.pipeline import synthetic_tokens
 from repro_torch.kernels import ops as kops
-from repro_torch.launch.mesh import init_rank, make_mesh, spawn
+from repro_torch.launch.mesh import (MESH_AXES, add_mesh_flags, make_mesh,
+                                     mesh_cli, spawn)
 from repro_torch.launch.train import add_option_flags, parse_option_flags
 from repro_torch.models.transformer import init_caches, init_model
 from repro_torch.serve.decode import decode_step_fn, prefill_fn
@@ -243,9 +243,6 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4,
     return res
 
 
-MESH_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
-
-
 def _serve_rank(rank, shape, kw) -> dict:
     """One rank of :func:`serve_mesh` (a :class:`RankPool` task)."""
     mesh = make_mesh(shape, MESH_AXES[len(shape)], device=rank.device)
@@ -402,18 +399,7 @@ def main():
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mesh", default=None,
-                    help="serve over a mesh of ranks: 'data,model' sizes "
-                         "(e.g. 2,2), or 'pod,data,model'")
-    ap.add_argument("--backend", choices=("gloo", "nccl"), default=None,
-                    help="with --mesh: the torch.distributed backend")
-    ap.add_argument("--devices", default=None,
-                    help="with --mesh: the ranks' devices, one a rank or "
-                         "one for all (e.g. cuda:0 or cuda:0,cuda:1,...)")
-    ap.add_argument("--launcher", choices=("spawn", "env"),
-                    default="spawn",
-                    help="with --mesh: spawn the ranks here, or run as one "
-                         "rank under torchrun (env://)")
+    add_mesh_flags(ap, "serve")
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--moe-grid", default=None,
                     help="logical expert grid 'N,M' (e.g. 16,8)")
@@ -443,36 +429,21 @@ def main():
 
 
 def _main_mesh(args, grid) -> None:
-    shape = tuple(int(v) for v in args.mesh.split(","))
-    if len(shape) not in MESH_AXES:
-        raise SystemExit(f"--mesh takes 2 or 3 sizes, got {args.mesh}")
     if args.engine:
         raise SystemExit("--engine over a mesh is not ported yet")
-    if args.backend is None or args.devices is None:
-        raise SystemExit("--mesh needs --backend and --devices")
-    world = int(np.prod(shape))
-    devices = args.devices.split(",")
-    if len(devices) == 1:
-        devices = devices * world
     kw = dict(reduced=args.reduced, batch=args.batch,
               prompt_len=args.prompt_len, new_tokens=args.new_tokens,
               seed=args.seed, num_layers=args.num_layers, moe_grid=grid)
-    if args.launcher == "spawn":
+    shape, devices, mesh = mesh_cli(args)
+    if mesh is None:
         serve_mesh(args.arch, shape, backend=args.backend, devices=devices,
                    **kw)
         return
-    rank = int(os.environ["RANK"])
-    if int(os.environ["WORLD_SIZE"]) != world:
-        raise SystemExit(f"torchrun started {os.environ['WORLD_SIZE']} "
-                         f"ranks; --mesh {args.mesh} needs {world}")
-    dev = init_rank(rank, world, backend=args.backend, device=devices[rank],
-                    init_method="env://")
-    mesh = make_mesh(shape, MESH_AXES[len(shape)], device=dev)
     res = serve(args.arch, mesh=mesh, **kw)
-    rows = comm.all_gather(torch.as_tensor(res.tokens, device=dev),
+    rows = comm.all_gather(torch.as_tensor(res.tokens, device=mesh.device),
                            res.inputs.plan.dp_axes, axis=0, tiled=True)
-    if rank == 0:
-        print(f"rank 0 of {world} (env://, {args.backend}): prefill "
+    if mesh.rank == 0:
+        print(f"rank 0 of {len(devices)} (env://, {args.backend}): prefill "
               f"{res.prefill_s * 1e3:.1f} ms; decode {res.decode_steps} "
               f"steps: {res.decode_s * 1e3:.1f} ms")
         print("generated (first row):", rows[0].tolist())

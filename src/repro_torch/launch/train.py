@@ -1,4 +1,4 @@
-"""Training entry point: the port of ``repro.launch.train`` for one device.
+"""Training entry point: the port of ``repro.launch.train``.
 
 Runs real optimization steps on the card (``--device cpu`` for the CPU)::
 
@@ -12,6 +12,23 @@ config's ``grid=(0, 0)`` folds to ``(1, 1)``, where the node router has a
 single column.  ``--num-layers`` cuts the depth.  The checkpoint and
 robust-runtime flags (``--zero1``, ``--sentinel``, ``--resume``,
 ``--ckpt*``) are not ported yet and raise (ROADMAP, queue item 8).
+
+Over a mesh of ranks (data, expert and tensor parallel, as the JAX
+package's ``train(..., mesh=...)``): ``--mesh 2,2`` (axes ``data, model``;
+three numbers add ``pod`` in front) spawns one process a rank, with the
+backend and the ranks' devices given explicitly, e.g. on the CPU or four
+ranks sharing one card over gloo::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smile-3.7b \
+      --reduced --steps 2 --batch 8 --seq 32 --mesh 2,2 --backend gloo \
+      --devices cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smile-3.7b \
+      --num-layers 6 --moe-grid 16,8 --router-impl fused --sort-impl radix \
+      --mesh 2,2 --backend gloo --devices cuda:0
+
+(``--backend nccl`` needs a card a rank).  Under ``torchrun`` add
+``--launcher env``: each process is then one rank, initialized from
+``env://``.  ``--batch`` is the global batch, split over the dp axes.
 """
 from __future__ import annotations
 
@@ -19,9 +36,11 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.config import (MOE_OPTIONS, TRAIN_OPTIONS,
                                        ModelConfig, TrainConfig)
@@ -29,9 +48,11 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_reduced, with_options
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import (MESH_AXES, add_mesh_flags, make_mesh,
+                                     mesh_cli, spawn)
 from repro_torch.models.transformer import init_model
 from repro_torch.optim import make_optimizer, make_schedule
-from repro_torch.sharding.plan import single_device_plan
+from repro_torch.sharding.plan import plan_from_mesh, single_device_plan
 from repro_torch.train.step import build_train_step
 
 _UNSET = object()       # float-flag default (argparse type-converts string
@@ -121,31 +142,42 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     a device sync) and ``launches`` (kernel launches per step).
     ``on_step(step)``, where given, is called after each step and its log
     entry (to start or stop a profiler between steps, for instance).
+
+    With ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`; the rank's
+    device is the mesh's) every rank of the mesh calls this: the plan is
+    ``plan_from_mesh(mesh)``, the parameters are the rank's slices of the
+    ones a single device draws, ``batch`` is the global batch (each rank
+    trains on its dp rows), and only rank 0 prints.  Each logged entry
+    also holds ``wire``, the last step's collectives (``comm.WireLog``,
+    emptied as each step starts; its ``timed`` flag, which ``on_step`` may
+    set, times them).
     """
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh of ranks is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
     if (zero1 or sentinel or resume or ckpt or ckpt_every or ckpt_dir
             or ckpt_keep != TrainConfig.ckpt_keep):
         raise NotImplementedError(f"--zero1/--sentinel/--resume/--ckpt*: "
                                   f"{NOT_PORTED}")
     cfg = train_config(arch, reduced=reduced, moe_options=moe_options,
                        moe_grid=moe_grid, num_layers=num_layers)
-    device = resolve_device(device)
-    plan = single_device_plan()
+    if mesh is None:
+        device = resolve_device(device)
+        plan = single_device_plan()
+    else:
+        device, plan = mesh.device, plan_from_mesh(mesh)
+    loud = mesh is None or mesh.rank == 0
     tcfg = TrainConfig(global_batch_size=batch, seq_len=seq, steps=steps,
                        optimizer=optimizer, lr=lr,
                        warmup_steps=max(steps // 10, 1),
                        micro_batch_size=micro_batch, seed=seed)
     params = init_model(cfg, plan, seed=seed, device=device,
-                        compute_cast=False)
+                        compute_cast=False, mesh=mesh)
     opt = make_optimizer(optimizer)
     sched = make_schedule("cosine", lr, tcfg.warmup_steps, steps)
     opt_state = opt.init(params)
 
     pipe = DataPipeline(cfg, batch, seq, seed=seed)
     batch0 = next(pipe)                          # draw 0 (step 1's batch)
-    step_fn = build_train_step(cfg, tcfg, plan, opt, sched, params, batch0)
+    step_fn = build_train_step(cfg, tcfg, plan, opt, sched, params, batch0,
+                               mesh=mesh)
 
     history = []
     _sync(device)
@@ -153,6 +185,8 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     c_last, i_last = kops.launch_counts(), 0
     for i in range(steps):
         b = batch0 if i == 0 else next(pipe)
+        if mesh is not None:
+            mesh.wire.reset()
         params, opt_state, m = step_fn(params, opt_state, b, i + 1)
         if (i + 1) % log_every == 0 or i == 0:
             m = {k: float(v) for k, v in m.items()}     # syncs the device
@@ -164,25 +198,67 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
                      step_ms=(now - t_last) * 1e3 / n,
                      launches={k: (counts[k] - c_last[k]) / n
                                for k in counts})
-            print(f"step {i+1:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                  f"lb {m['lb']:.4f} drop {m['drop_frac']:.3f} "
-                  f"gnorm {m['grad_norm']:.2f} {m['step_ms']:.1f} ms/step "
-                  f"tok/s {m['tokens_per_s']:,.0f}")
+            if mesh is not None:
+                m["wire"] = mesh.wire.summary()
+            if loud:
+                print(f"step {i+1:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+                      f"lb {m['lb']:.4f} drop {m['drop_frac']:.3f} "
+                      f"gnorm {m['grad_norm']:.2f} {m['step_ms']:.1f} "
+                      f"ms/step tok/s {m['tokens_per_s']:,.0f}")
             history.append({"step": i + 1, **m})
             t_last, c_last, i_last = now, counts, i + 1
         if eval_every and (i + 1) % eval_every == 0:
             from repro_torch.train.evaluate import evaluate
             ev = evaluate(params, cfg, plan, batch=batch, seq=seq, seed=seed,
                           n_batches=2)
-            print(f"  eval ce {ev['eval_ce']:.4f} ppl {ev['eval_ppl']:.1f}")
+            if loud:
+                print(f"  eval ce {ev['eval_ce']:.4f} "
+                      f"ppl {ev['eval_ppl']:.1f}")
             history.append({"step": i + 1, **ev})
         if on_step is not None:
             on_step(i + 1)
     pipe.close()
-    if log_file:
+    if log_file and loud:
         with open(log_file, "w") as f:
             json.dump(history, f, indent=1)
     return params, history
+
+
+def _train_rank(rank, shape, kw) -> dict:
+    """One rank of :func:`train_mesh` (a :class:`RankPool` task)."""
+    mesh = make_mesh(shape, MESH_AXES[len(shape)], device=rank.device)
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    _, history = train(mesh=mesh, **kw)
+    peak = (torch.cuda.max_memory_allocated(mesh.device)
+            if mesh.device.type == "cuda" else None)
+    return {"history": history, "rank": mesh.rank, "peak_bytes": peak}
+
+
+def train_mesh(arch: str, shape: Tuple[int, ...], *, backend: str,
+               devices, threads: Optional[int] = None,
+               timeout_s: float = 600.0, **kw) -> Tuple[List[dict],
+                                                        List[dict]]:
+    """:func:`train` (``kw``) over a mesh of ``shape`` (axes
+    ``MESH_AXES``): one process a rank (:func:`repro_torch.launch.mesh.
+    spawn`) under ``backend`` on ``devices[rank]``.  Returns ``(history,
+    results)``: rank 0's history, each entry with ``step_ms_max``, the
+    slowest rank's ``step_ms``, and each rank's result (its ``history``
+    and ``peak_bytes``, the card's peak allocation where it runs on
+    one)."""
+    world = int(np.prod(shape))
+    out = spawn(_train_rank, world, backend=backend, devices=devices,
+                args=(tuple(shape), dict(arch=arch, **kw)), threads=threads,
+                timeout_s=timeout_s)
+    history = [dict(h) for h in out[0]["history"]]
+    for j, h in enumerate(history):
+        if "step_ms" in h:
+            h["step_ms_max"] = max(r["history"][j]["step_ms"] for r in out)
+    last = [h for h in history if "step_ms_max" in h][-1]
+    print(f"mesh {dict(zip(MESH_AXES[len(shape)], shape))}, {backend}: "
+          f"step {last['step']} loss {last['loss']:.4f} "
+          f"{last['step_ms_max']:.1f} ms/step on the slowest rank")
+    return history, out
 
 
 def main():
@@ -207,20 +283,30 @@ def main():
                     help="logical expert grid 'N,M' (e.g. 16,8)")
     ap.add_argument("--num-layers", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    add_mesh_flags(ap, "train")
     add_option_flags(ap, MOE_OPTIONS)
     add_option_flags(ap, TRAIN_OPTIONS)
     args = ap.parse_args()
     grid = (None if args.moe_grid is None
             else tuple(int(v) for v in args.moe_grid.split(",")))
-    train(args.arch, reduced=args.reduced, steps=args.steps,
-          batch=args.batch, seq=args.seq, lr=args.lr,
-          optimizer=args.optimizer, seed=args.seed,
-          log_every=args.log_every, ckpt=args.ckpt,
-          micro_batch=args.micro_batch, log_file=args.log_file,
-          zero1=args.zero1, eval_every=args.eval_every,
-          moe_options=parse_option_flags(args, MOE_OPTIONS),
-          moe_grid=grid, num_layers=args.num_layers, device=args.device,
-          **parse_option_flags(args, TRAIN_OPTIONS))
+    kw = dict(reduced=args.reduced, steps=args.steps, batch=args.batch,
+              seq=args.seq, lr=args.lr, optimizer=args.optimizer,
+              seed=args.seed, log_every=args.log_every, ckpt=args.ckpt,
+              micro_batch=args.micro_batch, log_file=args.log_file,
+              zero1=args.zero1, eval_every=args.eval_every,
+              moe_options=parse_option_flags(args, MOE_OPTIONS),
+              moe_grid=grid, num_layers=args.num_layers,
+              **parse_option_flags(args, TRAIN_OPTIONS))
+    if args.mesh is None:
+        train(args.arch, device=args.device, **kw)
+        return
+    shape, devices, mesh = mesh_cli(args)
+    if mesh is None:
+        train_mesh(args.arch, shape, backend=args.backend, devices=devices,
+                   **kw)
+        return
+    train(args.arch, mesh=mesh, **kw)
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

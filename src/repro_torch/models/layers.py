@@ -162,15 +162,12 @@ def init_ffn(cfg: ModelConfig, d_ff: Optional[int] = None, *,
 def row_parallel(h: torch.Tensor, w: torch.Tensor,
                  plan: MeshPlan) -> torch.Tensor:
     """``h @ w`` with the contracted dim cut over tp (an output
-    projection): each rank's partial product in fp32, summed over tp and
-    rounded to ``h.dtype`` once, as one rank rounds its whole product once.
-    (The reference rounds each partial to bf16 and sums in bf16: two
-    roundings, which took the four-rank serve 5e-2 from the one-rank
-    serve's logits over 32 tokens of the reduced qwen3 on the CPU; summed
-    in fp32 they part by 6e-3.)  The plain product on one rank."""
-    if plan.tp <= 1:
-        return h @ w
-    return comm.psum(h.float() @ w.float(), plan.tp_axis).to(h.dtype)
+    projection): each rank's partial product in the activation dtype,
+    psum'd over tp in that dtype, as the reference rounds and sums it
+    (``repro/models/layers.py:153, 340``), forward and backward (the
+    cotangent's psum runs in the same dtype).  The plain product on one
+    rank."""
+    return comm.psum(h @ w, plan.tp_axis)
 
 
 def ffn_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -121,7 +121,7 @@ def _model_cfg(cfg: ModelConfig, plan: MeshPlan) -> ModelConfig:
 def _check_plan(cfg: ModelConfig, plan: MeshPlan) -> None:
     if plan.tp > 1 and any(st.kind == "rwkv" for st in build_stages(cfg)):
         raise NotImplementedError("rwkv6 over tensor parallelism is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
+                                  "ported yet (ROADMAP queue 1, item 7.5)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:

@@ -17,14 +17,24 @@ full-size temporary: LAMB makes two passes, one for the moments, the
 direction and the norms, one that applies the direction.  The direction
 goes into the gradient's buffer in place, since the gradient is spent once
 the moments hold it; after LAMB's update ``.grad`` holds the applied step.
+
+Over a mesh the parameters are the rank's slices, and ``shard_axes`` (a
+tree shaped as the parameters, ``sharding.specs.sharded_axes_only``)
+names the axes each leaf is cut over: LAMB's trust-ratio norms and the
+clip's squared norms are summed over them, so every slice of a leaf sees
+the leaf's global norms.  The scalars that share an axes tuple go in one
+psum (the same sums, element by element), not one psum a leaf.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, NamedTuple
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Tuple)
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import comm
 
 CHUNK = 1 << 24
 
@@ -35,6 +45,12 @@ class LeafGroup:
     name: str
     pieces: List[torch.Tensor]
     ndim: int                   # ndim of the JAX leaf
+    where: Tuple = ()           # key path of its first piece in the tree
+
+    def of(self, tree):
+        """This group's entry in ``tree``, a tree shaped as the parameters
+        (a spec or axes tree: one entry serves all the pieces)."""
+        return _get(tree, self.where)
 
 
 def _leaves(tree, path=()):
@@ -60,13 +76,14 @@ def leaf_groups(params: Dict) -> List[LeafGroup]:
         if key == "stages":
             continue
         for path, t in _leaves(sub, (key,)):
-            groups.append(LeafGroup(".".join(path), [t], t.dim()))
+            groups.append(LeafGroup(".".join(path), [t], t.dim(), path))
     for i, stage in enumerate(params["stages"]):
         for kind, blocks in stage.items():
             for path, t in _leaves(blocks[0]):
                 groups.append(LeafGroup(
                     ".".join(("stages", str(i), kind) + path),
-                    [_get(b, path) for b in blocks], t.dim() + 1))
+                    [_get(b, path) for b in blocks], t.dim() + 1,
+                    ("stages", i, kind, 0) + path))
     return groups
 
 
@@ -86,10 +103,35 @@ def _pieces(group: LeafGroup, state: Dict, gi: int):
         yield from zip(_chunks(p), _chunks(_grad(p)), _chunks(m), _chunks(v))
 
 
+def group_axes(groups: List[LeafGroup], shard_axes) -> List[Tuple[str, ...]]:
+    """Each group's axes in ``shard_axes`` (a tree shaped as the
+    parameters; None: no axes)."""
+    if shard_axes is None:
+        return [()] * len(groups)
+    return [tuple(g.of(shard_axes)) for g in groups]
+
+
+def psum_scalars(vals: List[torch.Tensor], axes: List[Tuple[str, ...]]
+                 ) -> List[torch.Tensor]:
+    """Each scalar of ``vals`` psum'd over its entry of ``axes``: one psum
+    for all the scalars that share an axes tuple."""
+    out = list(vals)
+    by: Dict[Tuple[str, ...], List[int]] = {}
+    for i, a in enumerate(axes):
+        if a:
+            by.setdefault(a, []).append(i)
+    for a, idx in by.items():
+        s = comm.psum(torch.stack([vals[i] for i in idx]), a,
+                      label="psum.norm")
+        for j, i in enumerate(idx):
+            out[i] = s[j]
+    return out
+
+
 class Optimizer(NamedTuple):
     init: Callable[[Dict], Any]                 # params -> state
-    # (params, state, lr) -> state; updates params and state in place from
-    # each parameter's .grad
+    # (params, state, lr, shard_axes=None) -> state; updates params and
+    # state in place from each parameter's .grad
     update: Callable[..., Any]
 
 
@@ -122,7 +164,8 @@ def _direction(p, m, v, bc1, bc2, eps, decay):
 
 def adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
     @torch.no_grad()
-    def update(params, state, lr):
+    def update(params, state, lr, shard_axes=None):
+        # elementwise: no norm, so the shard axes play no part
         state["step"] += 1
         bc1, bc2 = _bias_corrections(b1, b2, state["step"])
         for gi, group in enumerate(leaf_groups(params)):
@@ -139,13 +182,19 @@ def adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
 def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
          min_trust=0.0, max_trust=10.0) -> Optimizer:
     """LAMB [You et al. 2019] — the paper's optimizer.  The trust ratio
-    ``|p| / |d|`` is taken over each JAX leaf (each :class:`LeafGroup`)."""
+    ``|p| / |d|`` is taken over each JAX leaf (each :class:`LeafGroup`),
+    its norms summed over the leaf's ``shard_axes``.  A first pass over
+    every group updates the moments and leaves the direction in ``.grad``;
+    after the norms' psums a second pass applies it."""
 
     @torch.no_grad()
-    def update(params, state, lr):
+    def update(params, state, lr, shard_axes=None):
         state["step"] += 1
         bc1, bc2 = _bias_corrections(b1, b2, state["step"])
-        for gi, group in enumerate(leaf_groups(params)):
+        groups = leaf_groups(params)
+        axes = group_axes(groups, shard_axes)
+        wns, dns = [], []
+        for gi, group in enumerate(groups):
             decay = weight_decay if group.ndim >= 2 else 0.0
             dev = group.pieces[0].device
             wn = torch.zeros((), dtype=torch.float32, device=dev)
@@ -159,7 +208,12 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
                 wn += p.float().square().sum()
                 dn += d.square().sum()
                 g.copy_(d)
-            wn, dn = wn.sqrt(), dn.sqrt()
+            wns.append(wn)
+            dns.append(dn)
+        n = len(groups)
+        norms = psum_scalars(wns + dns, axes + axes)
+        for gi, group in enumerate(groups):
+            wn, dn = norms[gi].sqrt(), norms[n + gi].sqrt()
             trust = torch.where((wn > 0) & (dn > 0),
                                 torch.clamp(wn / torch.clamp(dn, min=1e-12),
                                             min_trust, max_trust),
@@ -183,16 +237,20 @@ def make_optimizer(name: str, *, weight_decay=0.01, b1=0.9, b2=0.999,
 
 
 @torch.no_grad()
-def clip_by_global_norm(params: Dict, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: Dict, max_norm: float,
+                        shard_axes=None) -> torch.Tensor:
     """Scale every parameter's ``.grad`` in place so that the global norm is
-    at most ``max_norm``; returns the norm before clipping (a tensor)."""
-    grads, sq = [], []
-    for group in leaf_groups(params):
+    at most ``max_norm``; returns the norm before clipping (a tensor).  Each
+    leaf's squared norm is summed over its ``shard_axes`` first."""
+    groups = leaf_groups(params)
+    grads, sq, axes = [], [], []
+    for group, a in zip(groups, group_axes(groups, shard_axes)):
         gs = [p.grad for p in group.pieces if p.grad is not None]
         if gs:
             grads += gs
             sq.append(sum(g.float().square().sum() for g in gs))
-    total = torch.stack(sq).sum().sqrt()
+            axes.append(a)
+    total = torch.stack(psum_scalars(sq, axes)).sum().sqrt()
     scale = torch.clamp(max_norm / torch.clamp(total, min=1e-12), max=1.0)
     for g in grads:
         g.mul_(scale)

@@ -18,9 +18,22 @@ each helper copies it to host memory, runs the collective there and copies
 the result back (gloo's own transport is host memory); under nccl the
 tensors stay on the cards.
 
-The collectives carry no gradient: the serving path runs them under
-``torch.inference_mode``, and a named-axis collective on a tensor that
-needs one raises (training over ranks is a later slice).
+Each collective carries a gradient (a ``torch.autograd.Function``), and
+its backward is what JAX's transpose gives inside ``shard_map`` with
+``check_vma=False``, where every rank's loss is a share of the total and
+the gradient is of their sum: a psum's cotangent is psum'd, an
+all_gather's is psum-scattered (summed over the group, this rank's block
+kept), an All2All's goes back through the inverse All2All, and a ragged
+exchange's through the reverse exchange with the send and receive sizes
+swapped (rows a truncating exchange cut get a zero cotangent).  Every
+backward runs its collective on every rank, a zero cotangent included, so
+ranks whose graphs agree issue the same collectives in the same order.
+``pmax`` and :func:`axis_index` carry none: ``pmax`` raises on a tensor
+that needs a gradient (JAX has no transpose for it).  The
+:class:`WireLog` keeps a backward call under its op's name with
+``.grad`` added (``psum.grad``), so a step's wire reads forward and
+backward apart; the training step's gradient psums log as ``psum.sync``
+and its norms' as ``psum.norm``.
 """
 from __future__ import annotations
 
@@ -116,20 +129,13 @@ class _Call:
         self.mesh.wire.add(self.key, rows, nbytes, dt)
 
 
-def _group(axes: Tuple[str, ...], what: str, *ts):
+def _group(axes: Tuple[str, ...]):
     """The bound mesh's group over ``axes`` (None for the empty tuple or a
     group of one rank, where the helper is the identity)."""
     if not axes:
         return None
     g = bound_mesh().group(axes)
-    if g.size == 1:
-        return None
-    for t in ts:
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                f"comm.{what} over {axes}: the collectives carry no gradient "
-                f"(training over ranks is not ported yet)")
-    return g
+    return None if g.size == 1 else g
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -148,11 +154,7 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-def _reduce(x: torch.Tensor, axes: Axes, op, what: str) -> torch.Tensor:
-    axes = _norm(axes)
-    g = _group(axes, what, x)
-    if g is None:
-        return x
+def _all_reduce(x: torch.Tensor, axes, g, op, what: str) -> torch.Tensor:
     c = _Call(what, axes, x)
     y = _wire(x).clone(memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=op, group=g.pg)
@@ -161,21 +163,44 @@ def _reduce(x: torch.Tensor, axes: Axes, op, what: str) -> torch.Tensor:
     return y
 
 
-def psum(x, axes: Axes):
-    return _reduce(x, axes, dist.ReduceOp.SUM, "psum")
+class _PSum(torch.autograd.Function):
+    """psum; its cotangent is psum'd too."""
+
+    @staticmethod
+    def forward(ctx, x, axes, g, label):
+        ctx.args = (axes, g, label)
+        return _all_reduce(x, axes, g, dist.ReduceOp.SUM, label)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axes, g, label = ctx.args
+        return (_all_reduce(ct, axes, g, dist.ReduceOp.SUM, label + ".grad"),
+                None, None, None)
+
+
+def psum(x, axes: Axes, *, label: str = "psum"):
+    """psum over ``axes``; ``label`` is its op in the wire log (the
+    training step's gradient sync and norms use their own)."""
+    axes = _norm(axes)
+    g = _group(axes)
+    if g is None:
+        return x
+    return _PSum.apply(x, axes, g, label)
 
 
 def pmax(x, axes: Axes):
-    return _reduce(x, axes, dist.ReduceOp.MAX, "pmax")
-
-
-def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True):
-    """Every rank's ``x`` in group order: concatenated along ``axis``
-    (``tiled``) or stacked on a new ``axis``."""
+    """pmax, which carries no gradient: the input must not need one."""
     axes = _norm(axes)
-    g = _group(axes, "all_gather", x)
+    g = _group(axes)
     if g is None:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError(f"comm.pmax over {axes} has no gradient: detach "
+                         f"its input (JAX has no transpose for pmax)")
+    return _all_reduce(x, axes, g, dist.ReduceOp.MAX, "pmax")
+
+
+def _gather(x: torch.Tensor, axes, g, axis: int, tiled: bool) -> torch.Tensor:
     c = _Call("all_gather", axes, x)
     w = _wire(x).contiguous()
     parts = [torch.empty_like(w) for _ in range(g.size)]
@@ -186,19 +211,45 @@ def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True):
     return out
 
 
-def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
-    """Non-tiled All2All over ``axes``: ``x.shape[split_axis]`` equals the
-    group size P; entry ``p`` along it goes to rank ``p``, and the result
-    holds at index ``q`` along ``concat_axis`` what rank ``q`` sent here
-    (``lax.all_to_all(tiled=False)``; every caller passes 0 and 0)."""
+def _psum_scatter(ct: torch.Tensor, axes, g, axis: int,
+                  tiled: bool) -> torch.Tensor:
+    """The transpose of :func:`all_gather`: the cotangent summed over the
+    group, and this rank's block along ``axis`` kept (its entry, where the
+    gather stacked).  One all-reduce of the whole, then this rank's block:
+    gloo has no reduce-scatter, and under nccl this is the same sum (a
+    reduce-scatter would move half the bytes there, and waits for a
+    four-card run to hold it)."""
+    full = _all_reduce(ct, axes, g, dist.ReduceOp.SUM, "all_gather.grad")
+    per = full.shape[axis] // g.size
+    out = full.narrow(axis, g.index * per, per)
+    return out if tiled else out.squeeze(axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, g, axis, tiled):
+        ctx.args = (axes, g, axis, tiled)
+        return _gather(x, axes, g, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_psum_scatter(ct, *ctx.args).contiguous(),
+                None, None, None, None)
+
+
+def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True):
+    """Every rank's ``x`` in group order: concatenated along ``axis``
+    (``tiled``) or stacked on a new ``axis``."""
     axes = _norm(axes)
-    g = _group(axes, "all_to_all", x)
+    g = _group(axes)
     if g is None:
         return x
-    if x.shape[split_axis] != g.size:
-        raise ValueError(f"comm.all_to_all over {axes}: dim {split_axis} is "
-                         f"{x.shape[split_axis]}, the group has {g.size} ranks")
-    c = _Call("all_to_all", axes, x)
+    return _AllGather.apply(x, axes, g, axis, tiled)
+
+
+def _a2a(x: torch.Tensor, axes, g, split_axis: int, concat_axis: int,
+         what: str) -> torch.Tensor:
+    c = _Call(what, axes, x)
     src = _wire(x.movedim(split_axis, 0)).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=g.pg)
@@ -206,6 +257,37 @@ def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
     c.done(_rows(src) * (g.size - 1) // g.size,
            _nbytes(src) * (g.size - 1) // g.size)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """All2All; its cotangent goes back through the inverse All2All (split
+    and concat axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, g, split_axis, concat_axis):
+        ctx.args = (axes, g, split_axis, concat_axis)
+        return _a2a(x, axes, g, split_axis, concat_axis, "all_to_all")
+
+    @staticmethod
+    def backward(ctx, ct):
+        axes, g, split_axis, concat_axis = ctx.args
+        return (_a2a(ct, axes, g, concat_axis, split_axis, "all_to_all.grad"),
+                None, None, None, None)
+
+
+def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
+    """Non-tiled All2All over ``axes``: ``x.shape[split_axis]`` equals the
+    group size P; entry ``p`` along it goes to rank ``p``, and the result
+    holds at index ``q`` along ``concat_axis`` what rank ``q`` sent here
+    (``lax.all_to_all(tiled=False)``; every caller passes 0 and 0)."""
+    axes = _norm(axes)
+    g = _group(axes)
+    if g is None:
+        return x
+    if x.shape[split_axis] != g.size:
+        raise ValueError(f"comm.all_to_all over {axes}: dim {split_axis} is "
+                         f"{x.shape[split_axis]}, the group has {g.size} ranks")
+    return _AllToAll.apply(x, axes, g, split_axis, concat_axis)
 
 
 def axis_index(axes: Axes) -> int:
@@ -307,7 +389,7 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
     if recv_counts is not None:
         assert_count_i32(recv_counts, "ragged_all_to_all(recv_counts)")
     naxes = _norm(axes)
-    g = _group(naxes, "ragged_all_to_all", rows)
+    g = _group(naxes)
     rest = tuple(rows.shape[1:])
     if g is None:
         if rows.shape[0] == recv_rows:
@@ -331,22 +413,55 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
                              f"arrive past the receive bound {recv_rows} "
                              f"(pass allow_truncate=True to cut them)")
         ssz, rsz = sc, rc
-    c = _Call("ragged_all_to_all", naxes, rows)
-    if ssz == sc:
-        send = rows[:sum(sc)]
-    else:
-        off = [0]
-        for n in sc[:-1]:
-            off.append(off[-1] + n)
-        send = torch.cat([rows[o:o + n] for o, n in zip(off, ssz)])
-    send = _wire(send).contiguous()
+    out = _Ragged.apply(rows, naxes, g, sc, ssz, rsz, recv_rows)
+    return out, recv_counts
+
+
+def _exchange(x: torch.Tensor, axes, g, ssz: List[int], rsz: List[int],
+              recv_rows: int, what: str) -> torch.Tensor:
+    """One ``all_to_all_single`` of the compact segments ``x`` (``ssz[p]``
+    rows for peer ``p``, one after another): the ``rsz`` rows that arrive,
+    source-major at row 0 of a zero slab of ``recv_rows``."""
+    rest = tuple(x.shape[1:])
+    c = _Call(what, axes, x)
+    send = _wire(x).contiguous()
     got = send.new_empty((sum(rsz),) + rest)
     dist.all_to_all_single(got, send, rsz, ssz, group=g.pg)
-    out = rows.new_zeros((recv_rows,) + rest)
+    out = x.new_zeros((recv_rows,) + rest)
     out[:got.shape[0]] = got
     sent = sum(ssz) - ssz[g.index]
-    c.done(sent, sent * math.prod(rest) * rows.element_size())
-    return out, recv_counts
+    c.done(sent, sent * math.prod(rest) * x.element_size())
+    return out
+
+
+class _Ragged(torch.autograd.Function):
+    """The ragged exchange: segment ``p`` is the first ``ssz[p]`` of the
+    ``sc[p]`` rows at the exclusive cumsum of ``sc``; what arrives lies
+    source-major from row 0.  The backward sends the cotangent of the
+    arrived rows back with the sizes swapped and puts each segment's at
+    its rows (the rows a truncation cut, and rows past the segments, get
+    zero)."""
+
+    @staticmethod
+    def forward(ctx, rows, axes, g, sc, ssz, rsz, recv_rows):
+        starts = [sum(sc[:i]) for i in range(len(sc))]
+        ctx.args = (axes, g, ssz, rsz, starts, rows.shape[0])
+        send = (rows[:sum(sc)] if ssz == sc else
+                torch.cat([rows[o:o + n] for o, n in zip(starts, ssz)]))
+        return _exchange(send, axes, g, ssz, rsz, recv_rows,
+                         "ragged_all_to_all")
+
+    @staticmethod
+    def backward(ctx, ct):
+        axes, g, ssz, rsz, starts, R = ctx.args
+        back = _exchange(ct[:sum(rsz)], axes, g, rsz, ssz, sum(ssz),
+                         "ragged_all_to_all.grad")
+        out = back.new_zeros((R,) + tuple(back.shape[1:]))
+        o = 0
+        for s, n in zip(starts, ssz):
+            out[s:s + n] = back[o:o + n]
+            o += n
+        return out, None, None, None, None, None, None
 
 
 def name_saved(x):

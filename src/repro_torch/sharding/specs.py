@@ -148,6 +148,13 @@ def shard_axes(spec_tree, plan: MeshPlan):
                                      if a not in _used(s)), spec_tree)
 
 
+def sharded_axes_only(spec_tree, plan: MeshPlan):
+    """For each leaf, the mesh axes it is cut over (the axes its norms are
+    summed over), in mesh order."""
+    return _spec_map(lambda s: tuple(a for a in plan.all_axes
+                                     if a in _used(s)), spec_tree)
+
+
 # =============================================================================
 # Batch / cache specs
 # =============================================================================

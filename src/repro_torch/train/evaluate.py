@@ -1,6 +1,8 @@
 """Evaluation: held-out cross-entropy / perplexity on the synthetic stream
 (the port of ``repro.train.evaluate``).  The eval stream uses a disjoint
-seed space from training (seed + 10_000)."""
+seed space from training (seed + 10_000).  Over a mesh (a plan with named
+axes, on a rank of the bound mesh) each rank scores its dp slice of every
+batch, and the sums are psum'd over the dp axes."""
 from __future__ import annotations
 
 import math
@@ -14,6 +16,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import vocab_parallel_xent
 from repro_torch.sharding import comm
+from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
 from repro_torch.train.step import IGNORE, to_device
 
@@ -42,10 +45,13 @@ def evaluate(params, cfg: ModelConfig, plan: MeshPlan, *, batch: int,
     if step_fn is None:
         step_fn = partial(eval_step_fn, cfg=cfg, plan=plan)
     device = params["embed"]["table"].device
+    mesh = comm.bound_mesh() if plan.all_axes else None
     tot, cnt = 0.0, 0.0
     for i in range(n_batches):
         b = to_device(make_batch(cfg, batch, seq, seed + EVAL_SEED_OFFSET, i),
                       device)
+        if mesh is not None:
+            b = S.shard_params(b, S.batch_specs(b, plan), mesh)
         s, n = step_fn(params, b)
         tot += float(s)
         cnt += float(n)

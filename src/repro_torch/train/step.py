@@ -1,10 +1,10 @@
-"""The training step on one device: the port of ``repro.train.step``.
+"""The training step: the port of ``repro.train.step``.
 
-Loss and backward, gradient accumulation over micro-batches, the global-norm
-clip and the optimizer update.  The parameters are the fp32 masters
-(``init_model(..., compute_cast=False)``); the forward casts each block's
-weights to the activation dtype inside its remat region
-(``forward(..., cast_weights=True)``).
+Loss and backward, gradient accumulation over micro-batches, the gradient
+sync over a mesh, the global-norm clip and the optimizer update.  The
+parameters are the fp32 masters (``init_model(..., compute_cast=False)``);
+the forward casts each block's weights to the activation dtype inside its
+remat region (``forward(..., cast_weights=True)``).
 
 As the JAX package's step does at every call site, the forward runs with
 ``use_kernel=False``: the expert FFN and the dispatch/combine gathers are
@@ -12,12 +12,19 @@ plain tensor code, so the slice-1 kernels (which have no backward) stay off
 this path.  The routing kernels run all the
 same, through ``MoEConfig.router_impl="fused"`` and ``sort_impl="radix"``.
 
-One device only: the mesh, the gradient sync trees, ZeRO-1 and the step
-sentinel come with later slices and raise here.
+Over a mesh of ranks (``build_train_step(..., mesh=)``) every rank runs
+the step the reference runs under ``shard_map``: each rank's loss is its
+share of the global loss (the cross-entropy's ``loss_sum / tp /
+global_count``, the aux losses ``/ n_dev``), its backward runs through the
+collectives' transposes (``sharding.comm``), each leaf's gradient is then
+psum'd over the axes the leaf is replicated on (``specs.shard_axes``), and
+the clip and LAMB sum their norms over the axes it is cut over
+(``specs.sharded_axes_only``).  ZeRO-1 and the step sentinel raise (ROADMAP
+queue item 8).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -25,9 +32,11 @@ from torch.profiler import record_function
 from repro_torch.common.config import ModelConfig, TrainConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import vocab_parallel_xent
-from repro_torch.optim.optimizers import (Optimizer, clip_by_global_norm,
+from repro_torch.optim.optimizers import (CHUNK, Optimizer,
+                                          clip_by_global_norm, group_axes,
                                           leaf_groups)
 from repro_torch.sharding import comm
+from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
 
 IGNORE = -1
@@ -35,20 +44,30 @@ IGNORE = -1
 
 def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan):
     """Masked cross-entropy plus the MoE aux losses.  Returns ``(loss,
-    metrics)``; on one device the gradient-path loss is the loss itself."""
+    metrics)``: ``loss`` is this rank's share of the gradient-path loss
+    (the shares of all ranks sum to the global loss, which is the loss
+    itself on one device), the metrics the global values."""
     tokens, labels = batch["tokens"], batch["labels"]
     if "image_embeds" in batch:
         raise NotImplementedError("vision inputs are not ported yet")
-    S = tokens.shape[-1]
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    positions = torch.arange(tokens.shape[-1], dtype=torch.int32,
+                             device=tokens.device)
     _, logits, stats, _ = T.forward(params, tokens, cfg, plan,
                                     positions=positions, remat=cfg.remat,
                                     use_kernel=False, cast_weights=True)
     ce = vocab_parallel_xent(logits, labels, plan)
     mask = labels != IGNORE
     loss_sum = (ce * mask).sum()
-    cnt = comm.psum(mask.sum().float(), plan.dp_axes)
-    ce_mean = comm.psum(loss_sum, plan.dp_axes) / torch.clamp(cnt, min=1.0)
+    # tokens are distinct across the dp axes only (replicated over tp)
+    cnt = torch.clamp(comm.psum(mask.sum().float(), plan.dp_axes), min=1.0)
+    ce_mean = comm.psum(loss_sum.detach(), plan.dp_axes) / cnt
+    n_dev = 1
+    for _, n in plan.axis_sizes:
+        n_dev *= n
+    # the aux losses are replicated (psum'd inside): each rank's share is
+    # 1 / n_dev of them
+    share = (loss_sum / max(plan.tp, 1) / cnt
+             + (stats.lb_loss + stats.z_loss) / n_dev)
     total = ce_mean + stats.lb_loss + stats.z_loss
     metrics = {"ce": ce_mean, "lb": stats.lb_loss, "z": stats.z_loss,
                "mtp": torch.zeros_like(ce_mean), "drop_frac": stats.drop_frac,
@@ -57,7 +76,7 @@ def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan):
                "wire_faults": stats.wire_faults.sum(),
                "max_load": stats.hop_max_load.max(),
                "load_entropy": stats.hop_load_entropy.min()}
-    return total, {k: v.detach() for k, v in metrics.items()}
+    return share, {k: v.detach() for k, v in metrics.items()}
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -65,23 +84,64 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+@torch.no_grad()
+def sync_grads(groups, axes: List[Tuple[str, ...]]) -> None:
+    """Each group's ``.grad`` psum'd over its ``axes`` (the axes the leaf
+    is replicated on), in place.  The gradients that share an axes tuple
+    are flattened into buckets of at most ``CHUNK`` elements, one psum a
+    bucket (the same sums, element by element)."""
+    by: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for g, a in zip(groups, axes):
+        if a:
+            by.setdefault(a, []).extend(p.grad for p in g.pieces)
+    for a, grads in by.items():
+        bucket: List[torch.Tensor] = []
+        size = 0
+        for gr in grads + [None]:
+            if bucket and (gr is None or size + gr.numel() > CHUNK):
+                flat = comm.psum(torch.cat([b.reshape(-1) for b in bucket]),
+                                 a, label="psum.sync")
+                off = 0
+                for b in bucket:
+                    b.copy_(flat[off:off + b.numel()].view_as(b))
+                    off += b.numel()
+                bucket, size = [], 0
+            if gr is not None:
+                bucket.append(gr)
+                size += gr.numel()
+
+
 def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
                   tcfg: TrainConfig, plan: MeshPlan, opt: Optimizer,
-                  schedule, n_micro: int = 1):
+                  schedule, n_micro: int = 1, sync_axes=None,
+                  norm_axes=None):
     """One optimizer step.  ``params`` are updated in place (and returned);
     returns ``(params, opt_state, metrics)``, the metrics as tensors (no
-    host sync) except ``lr``.  Its three phases are profiler ranges
-    (``train_step.loss_backward``, ``.clip``, ``.optimizer``)."""
-    for g in leaf_groups(params):
+    host sync) except ``lr``.  ``sync_axes`` and ``norm_axes`` (trees
+    shaped as the parameters; None on one device) name the axes each
+    leaf's gradient is psum'd over and its norms are summed over.  Its
+    phases are profiler ranges (``train_step.loss_backward``, ``.sync``,
+    ``.clip``, ``.optimizer``)."""
+    groups = leaf_groups(params)
+    for g in groups:
         for p in g.pieces:
             p.grad = None
     with record_function("train_step.loss_backward"):
         loss, metrics = _loss_backward(params, batch, cfg, plan, n_micro)
+    if sync_axes is not None:
+        with record_function("train_step.sync"):
+            # a leaf no rank's loss reached still takes part in the psums,
+            # so that every rank issues the same collectives
+            for g in groups:
+                for p in g.pieces:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            sync_grads(groups, group_axes(groups, sync_axes))
     lr = schedule(step)
     with record_function("train_step.clip"):
-        gnorm = clip_by_global_norm(params, tcfg.grad_clip)
+        gnorm = clip_by_global_norm(params, tcfg.grad_clip, norm_axes)
     with record_function("train_step.optimizer"):
-        opt_state = opt.update(params, opt_state, lr)
+        opt_state = opt.update(params, opt_state, lr, shard_axes=norm_axes)
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
     return params, opt_state, metrics
 
@@ -117,12 +177,15 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
                      opt: Optimizer, schedule, params_like, batch_like,
                      mesh=None, zero1: bool = False, sentinel: bool = False):
     """Return ``step(params, opt_state, batch, step) -> (params, opt_state,
-    metrics)`` for one device.  ``batch`` may hold numpy arrays; they are
-    moved to the parameters' device.  Marks every parameter of
-    ``params_like`` as requiring grad."""
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh of ranks is not "
-                                  "ported yet (ROADMAP queue 1, item 7)")
+    metrics)``.  ``batch`` may hold numpy arrays; they are moved to the
+    parameters' device.  Marks every parameter of ``params_like`` as
+    requiring grad.
+
+    With ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`, and ``plan``
+    its ``plan_from_mesh``) the parameters are this rank's slices
+    (``init_model(..., mesh=)``) and the step takes the global batch, as
+    the reference's ``shard_map`` does, and cuts this rank's rows
+    (``specs.batch_specs``); the micro-batches split the rank's rows."""
     if zero1 or sentinel:
         raise NotImplementedError(
             "ZeRO-1 and the step sentinel are not ported yet (ROADMAP, "
@@ -135,10 +198,19 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
         local_b = batch_like["tokens"].shape[0] // max(plan.dp, 1)
         n_micro = max(1, local_b // tcfg.micro_batch_size)
     device = params_like["embed"]["table"].device
+    sync_axes = norm_axes = None
+    if mesh is not None:
+        pspec = S.param_specs(params_like, cfg, plan)
+        sync_axes = S.shard_axes(pspec, plan)
+        norm_axes = S.sharded_axes_only(pspec, plan)
 
     def step_fn(params, opt_state, batch, step):
-        return train_step_fn(params, opt_state, to_device(batch, device),
-                             step, cfg=cfg, tcfg=tcfg, plan=plan, opt=opt,
-                             schedule=schedule, n_micro=n_micro)
+        batch = to_device(batch, device)
+        if mesh is not None:
+            batch = S.shard_params(batch, S.batch_specs(batch, plan), mesh)
+        return train_step_fn(params, opt_state, batch, step, cfg=cfg,
+                             tcfg=tcfg, plan=plan, opt=opt,
+                             schedule=schedule, n_micro=n_micro,
+                             sync_axes=sync_axes, norm_axes=norm_axes)
 
     return step_fn

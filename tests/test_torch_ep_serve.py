@@ -14,7 +14,9 @@ them across with ``params_from_jax`` and cut their slices with
 ``src/repro`` changes), so the greedy tokens must be equal and every
 step's logits within ``LOGITS_REL`` of the largest; JAX's logits are read
 out of its ``greedy_sample`` with ``jax.debug.callback``, one vocabulary
-slice a device.
+slice a device.  The same comparison runs in the served config's bf16
+(the JAX side's ``embed_inputs`` as it is), where the tokens must be
+equal and the logits within chip_smoke.py's ``LOGITS_ATOL``.
 
 The port's one-rank serve against its four-rank serve runs the config as
 served (bf16), dropless, through ``serve_mesh`` (one spawned process a
@@ -43,17 +45,20 @@ MESH = ((2, 2), ("data", "model"))
 B, S, NEW = 4, 16, 4
 LOGITS_REL = 1e-4
 BACKENDS = ("sort", "dropless")
+RUNS = [("float32", b) for b in BACKENDS] + [("bfloat16", b)
+                                             for b in BACKENDS]
 TIMEOUT_S = 180
 
 
-def serve_cfg(backend: str, package: str = "torch"):
-    """The reduced config under ``backend``, in fp32."""
+def serve_cfg(backend: str, package: str = "torch",
+              dtype: str = "float32"):
+    """The reduced config under ``backend``, in ``dtype``."""
     if package == "jax":
         from repro.configs import get_reduced, with_options
     else:
         from repro_torch.configs import get_reduced, with_options
     return with_options(get_reduced(ARCH), dispatch_backend=backend
-                        ).replace(dtype="float32")
+                        ).replace(dtype=dtype)
 
 
 def prompts() -> np.ndarray:
@@ -145,7 +150,8 @@ def _jax_main(out_dir: str) -> None:
     from repro.sharding.plan import test_plan
 
     save = JaxSide.saver(out_dir)
-    JT.embed_inputs = functools.partial(JT.embed_inputs, dtype=jnp.float32)
+    embed = JT.embed_inputs
+    JT.embed_inputs = functools.partial(embed, dtype=jnp.float32)
     seen = []
     sample = JDEC.greedy_sample
 
@@ -161,8 +167,11 @@ def _jax_main(out_dir: str) -> None:
     params = jax.tree.map(jnp.asarray,
                           unflat(dict(np.load(params_path(out_dir)))))
     toks = jnp.asarray(prompts())
-    for backend in BACKENDS:
-        cfg = serve_cfg(backend, "jax")
+    for dtype, backend in RUNS:
+        # fp32 runs embed in fp32 (pinned above); bf16 runs as configured
+        JT.embed_inputs = (embed if dtype == "bfloat16" else
+                           functools.partial(embed, dtype=jnp.float32))
+        cfg = serve_cfg(backend, "jax", dtype)
         caches = JT.init_caches(cfg, B, S + NEW, plan)
         pf = JDEC.build_prefill(cfg, plan, params, toks, caches, mesh=mesh)
         logits, out = [], []
@@ -182,8 +191,8 @@ def _jax_main(out_dir: str) -> None:
         dc = JDEC.build_decode_step(cfg, plan, params, tok, caches, mesh=mesh)
         for i in range(NEW - 1):
             tok, caches = step(dc, params, tok, caches, jnp.int32(S + i))
-        save(f"serve/{backend}", {"tokens": np.stack(out, -1),
-                                  "logits": np.stack(logits)})
+        save(f"serve/{dtype}/{backend}", {"tokens": np.stack(out, -1),
+                                          "logits": np.stack(logits)})
 
 
 # =============================================================================
@@ -207,7 +216,7 @@ def ranks(tmp_path_factory, jax_side):
         yield pool
 
 
-def _serve_from_jax_params(rank, params_file, backend):
+def _serve_from_jax_params(rank, params_file, backend, dtype="float32"):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import generate, serve_prompts
     from repro_torch.sharding import specs as S_
@@ -215,7 +224,7 @@ def _serve_from_jax_params(rank, params_file, backend):
     from repro_torch.weights import params_from_jax
     mesh = make_mesh(*MESH, device=rank.device)
     plan = plan_from_mesh(mesh)
-    cfg = serve_cfg(backend)
+    cfg = serve_cfg(backend, dtype=dtype)
     full = params_from_jax(unflat(dict(np.load(params_file))), cfg,
                            device="cpu")
     params = S_.shard_params(full, S_.param_specs(full, cfg, plan), mesh)
@@ -236,7 +245,7 @@ def test_mesh_serve_matches_jax(backend, ranks, jax_side):
     from repro_torch.launch.serve import gather_logits, gather_rows
     got = ranks.run(_serve_from_jax_params, params_path(jax_side.out),
                     backend, timeout_s=TIMEOUT_S)
-    ref = jax_side.get(f"serve/{backend}", timeout_s=TIMEOUT_S)
+    ref = jax_side.get(f"serve/float32/{backend}", timeout_s=TIMEOUT_S)
     np.testing.assert_array_equal(gather_rows(got), ref["tokens"])
     lg = gather_logits(got)
     rel = np.abs(lg - ref["logits"]).max() / np.abs(ref["logits"]).max()
@@ -246,6 +255,24 @@ def test_mesh_serve_matches_jax(backend, ranks, jax_side):
     op = "ragged_all_to_all" if backend == "dropless" else "all_to_all"
     for axis in ("data", "model"):
         assert got[0]["wire"]["decode"][f"{op} {axis} float32"]["calls"] > 0
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_mesh_serve_bf16_matches_jax(backend, ranks, jax_side):
+    """The served config's bf16 on both sides: the tp output projections'
+    partials are rounded to bf16 and psum'd in bf16 as the reference does
+    (``row_parallel``): every row's tokens equal, and every step's logits
+    within chip_smoke.py's ``LOGITS_ATOL`` (3e-2; the reading is 1.12e-2
+    under both backends: bf16 rounds at other places in the two
+    frameworks too)."""
+    from repro_torch.launch.serve import gather_logits, gather_rows
+    got = ranks.run(_serve_from_jax_params, params_path(jax_side.out),
+                    backend, "bfloat16", timeout_s=TIMEOUT_S)
+    ref = jax_side.get(f"serve/bfloat16/{backend}", timeout_s=TIMEOUT_S)
+    n_same, worst = check_tokens_and_logits(
+        ref["tokens"], ref["logits"], gather_rows(got), gather_logits(got),
+        LOGITS_ATOL, f"bf16 mesh serve, {backend}")
+    assert n_same == B
 
 
 def test_four_ranks_serve_as_one(monkeypatch):

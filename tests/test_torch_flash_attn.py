@@ -127,20 +127,32 @@ def test_chunked_attention_kernel_branch_matches_jax(T, H, KV, dtype, hd):
         assert_within_one_bf16_ulp(got, want)
 
 
-# the flash kernel's head-size rule: any positive multiple of 8 up to 192,
-# run at 32 (hd <= 32) or at hd rounded up to the 64-column TMA box
+# the flash kernel's head-size rule: any positive multiple of 8 up to 512,
+# run at 32 (hd <= 32) or at hd rounded up to 64 columns (the wgmma route's
+# TMA box up to 192, the wide route's chunk past it)
 @pytest.mark.parametrize("hd,padded", [(8, 32), (16, 32), (32, 32), (40, 64),
                                        (64, 64), (72, 128), (80, 128),
                                        (96, 128), (128, 128), (136, 192),
-                                       (160, 192), (192, 192)])
+                                       (160, 192), (192, 192), (200, 256),
+                                       (256, 256), (384, 384), (512, 512)])
 def test_flash_padded_head(hd, padded):
     assert ops.flash_padded_head(hd) == padded
 
 
-@pytest.mark.parametrize("hd", [0, -8, 4, 12, 52, 100, 200, 256])
+@pytest.mark.parametrize("hd", [0, -8, 4, 12, 52, 100, 520, 1024])
 def test_flash_padded_head_refuses(hd):
-    with pytest.raises(ValueError, match="multiple of 8 up to 192"):
+    with pytest.raises(ValueError, match="multiple of 8 up to 512"):
         ops.flash_padded_head(hd)
+
+
+@pytest.mark.parametrize("hd,route", [(8, "wgmma"), (128, "wgmma"),
+                                      (192, "wgmma"), (200, "wide"),
+                                      (256, "wide"), (384, "wide"),
+                                      (512, "wide")])
+def test_flash_route(hd, route):
+    """Head sizes past 192 take the wide route (the head dim tiled through
+    shared memory), the rest the wgmma route."""
+    assert ops.flash_route(hd) == route
 
 
 @pytest.mark.parametrize("T", [130, 200, 384 + 64])

@@ -500,7 +500,12 @@ def _assert_flash_close(got, want):
     (1, 256, 4, 4, 80), (2, 384, 8, 2, 96), (1, 384, 8, 2, 160),
     (2, 512, 4, 4, 160), (1, 64, 2, 1, 160), (2, 96, 4, 2, 160),
     (1, 24, 2, 2, 96),
-    (1, 128, 2, 2, 8), (1, 256, 4, 2, 40)])
+    (1, 128, 2, 2, 8), (1, 256, 4, 2, 40),
+    # past 192, the wide route (the head dim in 64-column chunks through
+    # shared memory): hd 256 and 384, a partial last chunk (200, 456), GQA,
+    # T below one 64-key tile and between two, and the widest head (512)
+    (1, 256, 4, 2, 256), (2, 384, 4, 4, 384), (1, 128, 2, 1, 200),
+    (1, 16, 2, 2, 256), (2, 96, 4, 2, 456), (1, 256, 2, 2, 512)])
 def test_flash_attention_kernel(B, T, H, KV, hd):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(T + H)
@@ -522,9 +527,9 @@ def test_flash_attention_kernel(B, T, H, KV, hd):
 def test_flash_attention_kernel_limits():
     dev = _card()
     # head sizes the rule refuses: not a multiple of 8, past the widest
-    for hd in (52, 200):
+    for hd in (52, 520):
         q = torch.zeros((1, 8, 2, hd), dtype=torch.bfloat16, device=dev)
-        with pytest.raises(ValueError, match="multiple of 8 up to 192"):
+        with pytest.raises(ValueError, match="multiple of 8 up to 512"):
             ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.flash_attention(*(torch.zeros((1, 8, 2, 64), device=dev),) * 3)
@@ -853,3 +858,59 @@ def test_four_ranks_on_the_card_serve_dropless_as_one():
         # 2 layers: 3 gathers, 3 combines and one ragged FFN a layer
         assert got == {"dispatch_gather": 18, "combine_gather": 18,
                        "grouped_ffn_ragged": 6}, got
+
+
+def _ragged_grad_on_the_card(rank):
+    """The ragged exchange's backward from autograd's device thread: each
+    rank's loss is sum(recv * ct) with its own small-integer cotangent."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import comm
+    make_mesh((2,), ("model",), device=rank.device)
+    g = torch.Generator().manual_seed(rank.rank)
+    rows = torch.randn((12, 64), generator=g).to(torch.bfloat16).cuda()
+    rows.requires_grad_(True)
+    counts = torch.tensor([[3, 5], [4, 2]][rank.rank], dtype=torch.int32)
+    ct = (torch.arange(24 * 64, dtype=torch.float32).reshape(24, 64) % 7
+          + 8 * rank.rank)
+    recv, _ = comm.ragged_all_to_all(rows, counts.cuda(), "model",
+                                     recv_rows=24)
+    (recv.float() * ct.cuda()).sum().backward()
+    return rows.grad.cpu(), ct
+
+
+@pytest.mark.gpu
+def test_gloo_ragged_all_to_all_gradient_on_the_card():
+    """The cotangent of each arrived row goes back to the row that was
+    sent (rows past the segments get zero), as JAX's transpose."""
+    _card()
+    from repro_torch.launch.mesh import RankPool
+    with RankPool(2, backend="gloo", devices=["cuda:0"] * 2,
+                  timeout_s=300) as pool:
+        (g0, ct0), (g1, ct1) = pool.run(_ragged_grad_on_the_card)
+    bf = torch.bfloat16
+    z = torch.zeros((4, 64), dtype=bf)
+    assert torch.equal(g0, torch.cat([ct0[:3], ct1[:5], z[:4]]).to(bf))
+    assert torch.equal(g1, torch.cat([ct0[3:7], ct1[5:7], z, z[:2]]).to(bf))
+
+
+@pytest.mark.gpu
+def test_four_ranks_on_the_card_train_as_one():
+    """``train_mesh`` on 4 gloo ranks sharing the card against one rank's
+    ``train()`` (reduced smile-3.7b, bf16, the routing kernels on): each
+    step's loss within tests/distributed/_train_equiv.py's 2e-2, and each
+    rank launches the routing kernels 4 times a step (1 MoE layer, 2
+    hops, the forward and the remat recompute)."""
+    _card()
+    from repro_torch.launch.train import train, train_mesh
+    kw = dict(reduced=True, steps=2, batch=8, seq=32, log_every=1,
+              moe_options={"router_impl": "fused", "sort_impl": "radix"})
+    _, one = train("smile-3.7b", device="cuda", **kw)
+    hist, out = train_mesh("smile-3.7b", (2, 2), backend="gloo",
+                           devices=["cuda:0"] * 4, timeout_s=300, **kw)
+    for h, o in zip(hist, one):
+        assert abs(h["loss"] - o["loss"]) <= 2e-2, (h["loss"], o["loss"])
+    for r in out:
+        for h in r["history"]:
+            got = {k: v for k, v in h["launches"].items() if v}
+            assert got == {"router_fused": 4, "group_sort": 4}, got
+        assert r["peak_bytes"] > 0
