@@ -165,7 +165,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     and direction (forward, the backward's ``.grad``, the gradient sync,
     the norms) with rows, bytes and time, and each hop's All2All bytes
     forward and backward for both routers.
-18. A ``{"kernels": [...]}`` line, then the card line, then the last line
+18. The robust runtime.  (a) On phase 17's ranks (no second spawn), its
+    smile-3.7b config, weights and batches under ZeRO-1 LAMB with the step
+    sentinel, through ``build_train_step(..., zero1=True,
+    sentinel=True)``: the same 4 steps (one warm-up, 3 timed); step 1's
+    gradient norm within 6e-2 relative of phase 17's, steps 2-4's losses
+    within 2e-2; the launch counts (set to 0 just before, read just after)
+    the routing wrappers' alone, at phase 2's shapes.  A fifth step times
+    each collective, as phase 17's fifth does.  Then one step with a
+    NaN in one element of rank 3's slice of the last MoE layer's experts:
+    every rank must report ``skip == 1`` and keep every tensor of its
+    parameters and ZeRO-1 state bit-unchanged (a digest of each, taken on
+    the card before and after), and the step clock.  (b) On one rank,
+    ``train()`` on smile-3.7b at full width with 2 of 12 layers (a dense
+    and a MoE layer), batch 16 x 128, the sentinel on: 4 steps twice, which
+    must be bit-identical; then ``ckpt_every=2, ckpt_keep=1,
+    halt_after=2`` and ``resume=True``, whose final parameters must be the
+    first run's, bit for bit; the snapshots are deleted.  Printed: the
+    slowest rank's ms a step and tokens/s and each rank's peak memory
+    beside phase 17's, a step's collectives by op and direction (ZeRO-1's
+    ``psum_scatter`` and ``all_gather`` over ``data`` beside phase 17's
+    gradient psum), the snapshot's bytes and its save, checksum and
+    restore seconds.
+19. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -2744,8 +2766,8 @@ def train_wire_lines(wire: dict, what: str):
     rows and bytes sent, time inside comm, and the time inside comm by
     direction.  Returns {(hop axes, direction): bytes} of the All2Alls'
     payload."""
-    names = {"grad": "backward", "sync": "gradient sync",
-             "norm": "norms"}
+    names = {"grad": "backward", "sync": "gradient sync", "norm": "norms",
+             "params": "parameter gather", "sentinel": "sentinel verdict"}
     hops, inside = {}, {}
     for key, e in sorted(wire.items()):
         op, axes, dtype = key.split(" ")
@@ -2763,11 +2785,14 @@ def train_wire_lines(wire: dict, what: str):
     return hops
 
 
-def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False):
+def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False,
+                     after=None):
     """smile-3.7b's MLM training (MESH_TRAIN) over MESH_SHAPE: 4 ranks
     under gloo, after the one-rank ``train()`` of the same weights and
     batches in this process (then freed); then switch-3.7b, the same cut.
-    (``devices=["cpu"] * 4, reduced=True`` rehearses it on the CPU.)"""
+    ``after(pool, runs)``, where given, runs on the same ranks before they
+    stop.  (``devices=["cpu"] * 4, reduced=True`` rehearses it on the
+    CPU.)"""
     from repro_torch.launch.mesh import RankPool
     from repro_torch.launch.train import train
     kw = dict(MESH_TRAIN, reduced=reduced)
@@ -2803,8 +2828,16 @@ def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False):
                 "switch-3.7b": pool.run(_mesh_train_rank,
                                         dict(kw, arch="switch-3.7b"),
                                         MESH_SWITCH_STEPS)}
-    print(f"  both mesh runs, the ranks' start included: "
-          f"{time.perf_counter() - t0:.1f} s")
+        print(f"  both mesh runs, the ranks' start included: "
+              f"{time.perf_counter() - t0:.1f} s")
+        check_mesh_train(runs, one, kw, tokens, cuda, reduced)
+        if after is not None:
+            after(pool, runs)
+
+
+def check_mesh_train(runs, one, kw, tokens, cuda, reduced):
+    """Phase 17's checks and prints over both archs' runs (``one``: the
+    one-rank run's history)."""
     hops = {}
     for arch, out in runs.items():
         hist = [r["history"] for r in out]
@@ -2872,6 +2905,331 @@ def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False):
         if got != held:
             raise AssertionError(f"mesh train {arch}: routing shapes {got}, "
                                  f"phase 2 holds {held}")
+
+
+# phase 18, the robust runtime.  (a) On phase 17's ranks, its config,
+# weights and batches under ZeRO-1 LAMB with the sentinel: the same 4
+# steps (one warm-up, 3 timed), one with each collective timed (the card
+# synchronized around it, as phase 17's fifth), then one step with a NaN
+# in one element of POISON_RANK's slice of the last MoE layer's experts
+# (w1: every slot of that expert goes through it, after every routing
+# decision of the forward).  (b) On one rank: smile-3.7b at full width with 2 of 12 layers
+# (a dense and a MoE layer, the paper's pair), batch 16 x 128 (phase 2's
+# "train hop-1/2" routing shapes), the sentinel on: 4 steps twice, then
+# halted at step 2 with a snapshot, and resumed
+ROBUST_STEPS = 1 + MESH_TRAIN_TIMED
+POISON_RANK = 3
+ROBUST_ONE = dict(arch="smile-3.7b", reduced=False, num_layers=2, batch=16,
+                  seq=128, optimizer="lamb", moe_grid=(16, 8), steps=4,
+                  log_every=1, sentinel=True,
+                  moe_options={"router_impl": "fused", "sort_impl": "radix"})
+# a step's routing calls on one rank at 2 layers: one MoE layer x 2 hops x
+# (the forward, the remat recompute)
+ROBUST_ONE_CALLS = 4
+CKPT_SMOKE_DIR = ROOT / ".ckpt_smoke"
+
+
+def tensor_digests(torch, tensors) -> list:
+    """A digest of each fp32 tensor's bits, computed on its device: the sum
+    of its int32 words and their sum weighted by position (int64, wrapping),
+    a chunk at a time; one host read for all of them."""
+    from repro_torch.optim.optimizers import _chunks
+    out = []
+    for t in tensors:
+        acc = torch.zeros(2, dtype=torch.int64, device=t.device)
+        off = 0
+        for c in _chunks(t.detach()):
+            w = c.view(torch.int32).to(torch.int64)
+            pos = torch.arange(off + 1, off + 1 + w.numel(), device=t.device,
+                               dtype=torch.int64) * 2654435761
+            acc += torch.stack([w.sum(), (w * pos).sum()])
+            off += w.numel()
+        out.append(acc)
+    return torch.stack(out).cpu().tolist()
+
+
+def _robust_mesh_rank(rank, kw, steps, horizon, poison_rank):
+    """A phase-18 rank: phase 17's mesh, weights and batches, ZeRO-1 LAMB
+    and the sentinel through ``build_train_step``, ``steps`` steps on the
+    schedule of phase 17's run (``horizon`` steps), every launch count set
+    to 0 just before and read just after; one more with its collectives
+    timed; then the poisoned step, the parameters' and the optimizer
+    state's digests taken before and after it."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.core import dispatch, moe
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import leaf_groups, make_optimizer, make_schedule
+    from repro_torch.sharding.plan import plan_from_mesh
+    from repro_torch.train.sentinel import FIELDS, init_sentinel_state
+    from repro_torch.train.step import build_train_step, zero1_state
+    from repro_torch.weights import state_leaves
+    mesh = rank.state["mesh"]
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = train_config(kw["arch"], reduced=kw["reduced"],
+                       moe_options=kw["moe_options"], moe_grid=kw["moe_grid"],
+                       num_layers=kw["num_layers"])
+    plan = plan_from_mesh(mesh)
+    lr = 3e-4                                  # train()'s default
+    tcfg = TrainConfig(global_batch_size=kw["batch"], seq_len=kw["seq"],
+                       steps=horizon, optimizer=kw["optimizer"], lr=lr,
+                       warmup_steps=max(horizon // 10, 1), sentinel=True)
+    params = init_model(cfg, plan, seed=0, device=dev, compute_cast=False,
+                        mesh=mesh)
+    state = zero1_state(params, cfg, plan)
+    sent = init_sentinel_state(dev)
+    pipe = DataPipeline(cfg, kw["batch"], kw["seq"], seed=0)
+    b = next(pipe)
+    step = build_train_step(cfg, tcfg, plan, make_optimizer(kw["optimizer"]),
+                            make_schedule("cosine", lr, tcfg.warmup_steps,
+                                          horizon),
+                            params, b, mesh=mesh, zero1=True, sentinel=True)
+    shapes = RoutingShapes(ops)
+    moe.kops = dispatch.kops = shapes
+    hist = []
+
+    def one(i, b):
+        nonlocal params, state, sent
+        mesh.wire.reset()
+        sync()
+        t0 = time.perf_counter()
+        params, state, m, sent = step(params, state, b, i + 1, sent)
+        m = {k: float(v) for k, v in m.items()}
+        sync()
+        hist.append({"step": i + 1, **m,
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "wire": mesh.wire.summary()})
+
+    ops.reset_launch_counts()
+    try:
+        for i in range(steps):
+            one(i, b if i == 0 else next(pipe))
+    finally:
+        moe.kops = dispatch.kops = ops
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    mesh.wire.timed = True
+    try:
+        one(steps, next(pipe))
+    finally:
+        mesh.wire.timed = False
+    if mesh.rank == poison_rank:
+        w1 = [g for g in leaf_groups(params)
+              if g.name.endswith(".experts.w1")][-1]
+        with torch.no_grad():
+            w1.pieces[-1].view(-1)[0] = float("nan")
+    tensors = [t for leaf in state_leaves(params, state)
+               for t in leaf.tensors]
+    before, clock = tensor_digests(torch, tensors), state.step
+    params, state, m, sent = step(params, state, next(pipe), steps + 2, sent)
+    after = tensor_digests(torch, tensors)
+    pipe.close()
+    out = {"history": hist, "launches": launches, "peak": peak,
+           "shapes": sorted(shapes.seen), "skip": float(m["skip"]),
+           "loss": float(m["loss"]), "unchanged": before == after,
+           "tensors": len(tensors), "clock": (clock, state.step),
+           "sentinel": {k: float(getattr(sent, k)) for k in FIELDS}}
+    del params, state, tensors
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_robust_mesh(torch, ops, pool, p17, reduced=False):
+    """Phase 18 (a) on phase 17's ranks (``pool``; ``p17``: phase 17's
+    smile-3.7b results by rank)."""
+    kw = dict(MESH_TRAIN, reduced=reduced)
+    if reduced:
+        kw.update(num_layers=None, moe_grid=None)
+    cuda = p17[0]["peak"] is not None
+    t0 = time.perf_counter()
+    out = pool.run(_robust_mesh_rank, kw, ROBUST_STEPS,
+                   1 + MESH_TRAIN_TIMED + 1, POISON_RANK)
+    hist = [o["history"] for o in out]
+    ref = [r["history"] for r in p17]
+    for r, h in enumerate(hist):
+        if [(e["loss"], e["grad_norm"], e["skip"]) for e in h] != [
+                (e["loss"], e["grad_norm"], e["skip"]) for e in hist[0]]:
+            raise AssertionError(f"robust mesh: rank {r}'s metrics are not "
+                                 f"rank 0's")
+    for e, f in zip(hist[0][:ROBUST_STEPS], ref[0]):
+        print(f"  ZeRO-1 + sentinel step {e['step']}: loss {e['loss']:.5f} "
+              f"(phase 17 {f['loss']:.5f}) grad norm {e['grad_norm']:.5f} "
+              f"({f['grad_norm']:.5f}) skip {e['skip']:g}; slowest rank "
+              f"{max(h[e['step'] - 1]['step_ms'] for h in hist):.1f} ms")
+    dg = abs(hist[0][0]["grad_norm"] - ref[0][0]["grad_norm"]) / max(
+        ref[0][0]["grad_norm"], 1e-6)
+    dl = max(abs(e["loss"] - f["loss"]) for e, f in
+             zip(hist[0][1:], ref[0][1:ROBUST_STEPS]))
+    print(f"  against phase 17: step 1 grad norm {dg:.3e} relative (bound "
+          f"{MESH_TRAIN_GNORM_REL}); steps 2-{ROBUST_STEPS} loss {dl:.3e} "
+          f"apart at most (bound {MESH_TRAIN_LOSS_ATOL})")
+    if not (dg <= MESH_TRAIN_GNORM_REL and dl <= MESH_TRAIN_LOSS_ATOL):
+        raise AssertionError("robust mesh: ZeRO-1 parts from phase 17")
+    if any(e["skip"] for e in hist[0]):
+        raise AssertionError("robust mesh: a healthy step was skipped")
+    tokens = kw["batch"] * kw["seq"]
+    ms = [max(h[i]["step_ms"] for h in hist) for i in range(1, ROBUST_STEPS)]
+    ms17 = [max(h[i]["step_ms"] for h in ref) for i in range(1, ROBUST_STEPS)]
+    mean, mean17 = sum(ms) / len(ms), sum(ms17) / len(ms17)
+    print(f"  slowest rank, timed steps {[round(x, 1) for x in ms]}: mean "
+          f"{mean:.1f} ms a step, {tokens / mean * 1e3:,.0f} tokens/s; phase "
+          f"17 {mean17:.1f} ms, {tokens / mean17 * 1e3:,.0f} tokens/s (gloo "
+          f"through the host, 4 processes on one card)")
+    if cuda:
+        print(f"  peak memory by rank: "
+              + ", ".join(f"{o['peak'] / 2**30:.2f} GiB" for o in out)
+              + "; phase 17: "
+              + ", ".join(f"{r['peak'] / 2**30:.2f} GiB" for r in p17))
+    last = hist[0][-1]
+    train_wire_lines(last["wire"], f"rank 0, step {last['step']} "
+                     f"({last['step_ms']:.1f} ms; phase 17's "
+                     f"{ref[0][-1]['step_ms']:.1f}):")
+    last = last["wire"]
+    zero = sum(e["bytes"] for k, e in last.items()
+               if k.split(" ")[0] in ("psum_scatter.sync", "all_gather.params")
+               and k.split(" ")[1] == "data")
+    plain = sum(e["bytes"] for k, e in ref[0][-1]["wire"].items()
+                if k.split(" ")[0] == "psum.sync" and k.split(" ")[1] == "data")
+    print(f"  the gradient sync over data a step: ZeRO-1's psum_scatter and "
+          f"all_gather {zero / 2**20:.3f} MiB, phase 17's psum "
+          f"{plain / 2**20:.3f} MiB")
+    calls = MESH_TRAIN_CALLS[kw["arch"]] * ROBUST_STEPS
+    want = {k: (calls if cuda and k in ("router_fused", "group_sort") else 0)
+            for k in out[0]["launches"]}
+    for r, o in enumerate(out):
+        if o["launches"] != want:
+            raise AssertionError(f"robust mesh: rank {r} launches "
+                                 f"{o['launches']}, expected {want}")
+    if not reduced:
+        held = {("router_fused", t, E, k) for name, t, E, k, *_ in
+                ROUTER_SHAPES if name in MESH_TRAIN_HELD[kw["arch"]]} | {
+                ("group_sort", A, K) for name, A, K, _ in SORT_SHAPES
+                if name in MESH_TRAIN_HELD[kw["arch"]]}
+        got = {tuple(x) for o in out for x in o["shapes"]}
+        if not got <= held:
+            raise AssertionError(f"robust mesh: routing shapes {got}, phase "
+                                 f"2 holds {held}")
+    print(f"  poisoned step (a NaN in rank {POISON_RANK}'s slice of the last "
+          f"MoE layer's experts): loss {out[0]['loss']}, skip by rank "
+          f"{[o['skip'] for o in out]}; {out[0]['tensors']} tensors a rank "
+          f"bit-unchanged: {[o['unchanged'] for o in out]}; ZeRO-1 step "
+          f"clock {out[0]['clock']}; sentinel {out[0]['sentinel']}")
+    for r, o in enumerate(out):
+        s = o["sentinel"]
+        if not (o["skip"] == 1.0 and o["unchanged"]
+                and o["clock"] == (ROBUST_STEPS + 1, ROBUST_STEPS + 1)
+                and s["nonfinite"] == 1.0 and s["skipped"] == 1.0
+                and s["steps"] == ROBUST_STEPS + 2):
+            raise AssertionError(f"robust mesh: rank {r} did not skip the "
+                                 f"poisoned step cleanly: {o['skip']}, "
+                                 f"{o['unchanged']}, {o['clock']}, {s}")
+    print(f"  part (a) {time.perf_counter() - t0:.1f} s")
+
+
+def _same_bits(torch, a, b) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def phase_robust_one_rank(torch, ops, device="cuda", reduced=False):
+    """Phase 18 (b): ``train()`` on one rank (ROBUST_ONE), every launch
+    count set to 0 just before the four runs and read just after: 4 steps
+    twice (bit-identical), then halted at step 2 with a snapshot
+    (``ckpt_every=2, ckpt_keep=1``) and resumed, bit-identical to the
+    first run; the snapshots are deleted afterwards.  (``device="cpu",
+    reduced=True`` rehearses it on the CPU.)"""
+    import shutil
+    from repro_torch.core import dispatch, moe
+    from repro_torch.launch.train import train
+    from repro_torch.optim import leaf_groups
+    kw = dict(ROBUST_ONE, reduced=reduced, device=device)
+    if reduced:
+        kw.update(num_layers=None, moe_grid=None)
+    cuda = torch.device(device).type == "cuda"
+    leaves = lambda p: [t.detach() for g in leaf_groups(p) for t in g.pieces]
+    d = str(CKPT_SMOKE_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    shapes = RoutingShapes(ops)
+    moe.kops = dispatch.kops = shapes
+    ops.reset_launch_counts()
+    try:
+        p, ha = train(**kw)
+        first = [t.clone() for t in leaves(p)]
+        n = sum(t.numel() for t in first)
+        del p
+        p, hb = train(**kw)
+        twice = _same_bits(torch, first, leaves(p))
+        del p
+        _, hc = train(**kw, ckpt_dir=d, ckpt_every=2, ckpt_keep=1,
+                      halt_after=2)
+        snaps = sorted(os.listdir(d))
+        p, hr = train(**kw, ckpt_dir=d, resume=True)
+        resumed = _same_bits(torch, first, leaves(p))
+        del p, first
+    finally:
+        moe.kops = dispatch.kops = ops
+        shutil.rmtree(d, ignore_errors=True)
+    launches = ops.launch_counts()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    steps = [e for e in ha if "step" in e]
+    ms = [e["step_ms"] for e in steps[1:]]
+    print(f"  {n / 1e9:.3f} B fp32 parameters; 4 steps: loss "
+          f"{[round(e['loss'], 5) for e in steps]}, steps 2-4 "
+          f"{[round(x, 1) for x in ms]} ms")
+    save = hc[-2]["checkpoints"]["saves"][0]
+    got = hr[-2]["checkpoints"]["restored"]
+    print(f"  snapshot at step {save['step']} ({snaps}): {save['bytes']:,} "
+          f"bytes ({save['bytes'] / 2**30:.2f} GiB, stored npz); save "
+          f"{save['save_s']:.2f} s, sha256 {save['sha256_s']:.2f} s; "
+          f"restore from step {got['step']}: sha256 {got['sha256_s']:.2f} s, "
+          f"load {got['load_s']:.2f} s")
+    print(f"  two uninterrupted runs bit-identical: {twice}; halted at step "
+          f"2 and resumed, bit-identical to the uninterrupted run: {resumed}")
+    if not (twice and resumed):
+        raise AssertionError("robust one rank: a run is not bit-identical")
+    if snaps != ["ckpt_00000002.npz", "manifest.json"] or got["step"] != 2:
+        raise AssertionError(f"robust one rank: snapshots {snaps}, "
+                             f"restored {got}")
+    if [e["step"] for e in hr if "step" in e] != [3, 4]:
+        raise AssertionError("robust one rank: the resumed run did not "
+                             "take steps 3 and 4")
+    calls = ROBUST_ONE_CALLS * (4 + 4 + 2 + 2)
+    want = {k: (calls if cuda and k in ("router_fused", "group_sort") else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"robust one rank: launches {launches}, "
+                             f"expected {want}")
+    if not reduced:
+        names = ("train hop-1", "train hop-2")
+        held = {("router_fused", t, E, k) for name, t, E, k, *_ in
+                ROUTER_SHAPES if name in names} | {
+                ("group_sort", A, K) for name, A, K, _ in SORT_SHAPES
+                if name in names}
+        if shapes.seen != held:
+            raise AssertionError(f"robust one rank: routing shapes "
+                                 f"{shapes.seen}, phase 2 holds {held}")
+    print(f"  part (b) {time.perf_counter() - t0:.1f} s")
 
 
 class PhaseClock:
@@ -3013,7 +3371,19 @@ def main() -> int:
     clock.start(f"phase 17: train smile-3.7b (then switch-3.7b) over a (data "
                 f"2, model 2) mesh of 4 ranks sharing the card under gloo, "
                 f"full width, 6 of 12 layers ({card})")
-    phase_mesh_train(torch, ops)
+
+    def robust_mesh(pool, runs):
+        clock.start(f"phase 18: the robust runtime ({card}). (a) ZeRO-1 LAMB "
+                    f"and the sentinel on phase 17's ranks (gloo through the "
+                    f"host), its config, weights and batches, then a "
+                    f"poisoned step")
+        phase_robust_mesh(torch, ops, pool, runs["smile-3.7b"])
+
+    phase_mesh_train(torch, ops, after=robust_mesh)
+    print(f"  (b) one rank: smile-3.7b, full width, 2 of 12 layers, the "
+          f"sentinel on; two runs, then a halted run's snapshot and its "
+          f"resume ({card})")
+    phase_robust_one_rank(torch, ops)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

@@ -318,7 +318,8 @@ class MoEConfig:
                     # config time instead of running a plan nothing injects
                     raise ValueError(
                         f"fault_plan={val!r}: fault injection is not ported "
-                        f"to repro_torch yet; pass fault_plan=None")
+                        f"to repro_torch yet (ROADMAP queue 1, item 8); pass "
+                        f"fault_plan=None")
         cfg = dataclasses.replace(self, **kw)
         # registry-declared prerequisites, checked on the RESULT so partial
         # updates can't configure a knob onto a path that ignores it (an

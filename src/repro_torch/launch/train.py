@@ -9,9 +9,23 @@ The MoE option flags (``--router-impl``, ``--sort-impl``, ...) are derived
 from the port's copy of ``MOE_OPTIONS``, as in the JAX package.
 ``--moe-grid N,M`` sets the logical expert grid: on one device a SMILE
 config's ``grid=(0, 0)`` folds to ``(1, 1)``, where the node router has a
-single column.  ``--num-layers`` cuts the depth.  The checkpoint and
-robust-runtime flags (``--zero1``, ``--sentinel``, ``--resume``,
-``--ckpt*``) are not ported yet and raise (ROADMAP, queue item 8).
+single column.  ``--num-layers`` cuts the depth.
+
+The robust runtime, as the JAX package's: ``--zero1`` shards LAMB's
+moments over each leaf's replicated axes; ``--sentinel`` skips a step
+whose loss or gradients are not finite, or whose loss spikes;
+``--ckpt-dir DIR --ckpt-every N --ckpt-keep K`` keeps a checksummed
+keep-last-K rotation of snapshots, ``--resume`` restores the newest valid
+one (falling back past corrupt ones) and replays the data stream from
+there, bit-identical to an uninterrupted run; ``--ckpt PATH`` writes a
+final snapshot.  On the CPU::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smile-3.7b \
+      --reduced --steps 4 --batch 4 --seq 32 --device cpu --sentinel \
+      --ckpt-dir run --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smile-3.7b \
+      --reduced --steps 6 --batch 4 --seq 32 --device cpu --sentinel \
+      --ckpt-dir run --ckpt-every 2 --resume
 
 Over a mesh of ranks (data, expert and tensor parallel, as the JAX
 package's ``train(..., mesh=...)``): ``--mesh 2,2`` (axes ``data, model``;
@@ -53,12 +67,13 @@ from repro_torch.launch.mesh import (MESH_AXES, add_mesh_flags, make_mesh,
 from repro_torch.models.transformer import init_model
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.sharding.plan import plan_from_mesh, single_device_plan
-from repro_torch.train.step import build_train_step
+from repro_torch.train.checkpoint import CheckpointManager, save_checkpoint
+from repro_torch.train.sentinel import FIELDS as SENTINEL_FIELDS
+from repro_torch.train.sentinel import init_sentinel_state
+from repro_torch.train.step import build_train_step, zero1_state
 
 _UNSET = object()       # float-flag default (argparse type-converts string
                         # defaults, so "" cannot be the sentinel there)
-NOT_PORTED = ("not ported yet: ZeRO-1, the step sentinel and checkpointing "
-              "come with ROADMAP queue item 8")
 
 
 def _float_or_off(v: str):
@@ -130,18 +145,33 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
           log_file: str = "", zero1: bool = False, eval_every: int = 0,
           moe_options: Optional[dict] = None, sentinel: bool = False,
           resume: bool = False, ckpt_every: int = 0, ckpt_keep: int = 3,
-          ckpt_dir: str = "", moe_grid: Optional[Tuple[int, int]] = None,
+          ckpt_dir: str = "", halt_after: int = 0,
+          moe_grid: Optional[Tuple[int, int]] = None,
           num_layers: Optional[int] = None, device="cuda",
           on_step: Optional[Callable[[int], None]] = None):
-    """Run a training run from random weights (seed ``seed``) on the
-    synthetic stream.  Returns ``(params, history)``.
+    """Run (or resume) a training run from random weights (seed ``seed``)
+    on the synthetic stream.  Returns ``(params, history)``.
 
     Each logged step's history entry holds the step's metrics, the
     cumulative ``tokens_per_s`` (as the JAX package), and, over the steps
     since the previous entry, ``step_ms`` (wall time per step, measured to
-    a device sync) and ``launches`` (kernel launches per step).
-    ``on_step(step)``, where given, is called after each step and its log
-    entry (to start or stop a profiler between steps, for instance).
+    a device sync, checkpoint writes left out) and ``launches`` (kernel
+    launches per step).  ``on_step(step)``, where given, is called after
+    each step and its log entry (to start or stop a profiler between
+    steps, for instance).
+
+    The robust runtime, as the reference's: ``zero1`` shards LAMB's
+    moments over each leaf's replicated axes; ``sentinel`` skips a bad
+    step's update (the sentinel's counters end the history); ``ckpt_dir``
+    with ``ckpt_every`` keeps a ``ckpt_keep``-deep checksummed rotation,
+    and a skipped step saves a snapshot too; ``resume`` restores the
+    newest valid snapshot of ``ckpt_dir`` (corrupt ones fall back) and
+    skips the data stream's draws the restored steps consumed, so the run
+    is bit-identical to an uninterrupted one; ``halt_after`` stops after
+    that many steps, keeping the ``steps`` schedule's horizon (a crash,
+    for the resume tests); ``ckpt`` writes a final snapshot.  Where
+    snapshots were written or read, an entry ``{"checkpoints": {"saves",
+    "restored"}}`` (bytes and seconds) comes before the sentinel's.
 
     With ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`; the rank's
     device is the mesh's) every rank of the mesh calls this: the plan is
@@ -152,10 +182,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     emptied as each step starts; its ``timed`` flag, which ``on_step`` may
     set, times them).
     """
-    if (zero1 or sentinel or resume or ckpt or ckpt_every or ckpt_dir
-            or ckpt_keep != TrainConfig.ckpt_keep):
-        raise NotImplementedError(f"--zero1/--sentinel/--resume/--ckpt*: "
-                                  f"{NOT_PORTED}")
+    if resume and not ckpt_dir:
+        raise ValueError("--resume needs --ckpt-dir (the rotation to resume "
+                         "from)")
     cfg = train_config(arch, reduced=reduced, moe_options=moe_options,
                        moe_grid=moe_grid, num_layers=num_layers)
     if mesh is None:
@@ -164,60 +193,110 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     else:
         device, plan = mesh.device, plan_from_mesh(mesh)
     loud = mesh is None or mesh.rank == 0
+    say = print if loud else (lambda *a: None)
     tcfg = TrainConfig(global_batch_size=batch, seq_len=seq, steps=steps,
                        optimizer=optimizer, lr=lr,
                        warmup_steps=max(steps // 10, 1),
-                       micro_batch_size=micro_batch, seed=seed)
+                       micro_batch_size=micro_batch, seed=seed,
+                       sentinel=sentinel, ckpt_every=ckpt_every,
+                       ckpt_keep=ckpt_keep, ckpt_dir=ckpt_dir)
     params = init_model(cfg, plan, seed=seed, device=device,
                         compute_cast=False, mesh=mesh)
     opt = make_optimizer(optimizer)
     sched = make_schedule("cosine", lr, tcfg.warmup_steps, steps)
-    opt_state = opt.init(params)
+    opt_state = (zero1_state(params, cfg, plan) if zero1
+                 else opt.init(params))
+    sent = init_sentinel_state(device) if sentinel else None
+
+    mgr = (CheckpointManager(ckpt_dir, keep=ckpt_keep, cfg=cfg, mesh=mesh)
+           if ckpt_dir else None)
+    start = 0
+    if resume:
+        got = mgr.restore_latest(params, opt_state, extra_like=sent, log=say)
+        if got is not None:
+            opt_state, start = got[1], got[2]
+            say(f"resumed from step {start} ({mgr.dir})")
+        else:
+            say(f"no valid checkpoint in {mgr.dir} — starting fresh")
 
     pipe = DataPipeline(cfg, batch, seq, seed=seed)
     batch0 = next(pipe)                          # draw 0 (step 1's batch)
+    # the stream is deterministic in (seed, draw): skip the draws the
+    # restored steps consumed, so step S + 1 sees its own batch
+    for _ in range(max(start - 1, 0)):
+        next(pipe)
     step_fn = build_train_step(cfg, tcfg, plan, opt, sched, params, batch0,
-                               mesh=mesh)
+                               mesh=mesh, zero1=zero1, sentinel=sentinel)
+
+    def save(step):
+        nonlocal t0, t_last
+        t = time.perf_counter()
+        mgr.save(step, params, opt_state, extra=sent)
+        t0 += time.perf_counter() - t       # a write is not a step's time
+        t_last += time.perf_counter() - t
 
     history = []
+    until = min(steps, halt_after + start) if halt_after else steps
     _sync(device)
     t0 = t_last = time.perf_counter()
-    c_last, i_last = kops.launch_counts(), 0
-    for i in range(steps):
+    c_last, i_last = kops.launch_counts(), start
+    for i in range(start, until):
         b = batch0 if i == 0 else next(pipe)
         if mesh is not None:
             mesh.wire.reset()
-        params, opt_state, m = step_fn(params, opt_state, b, i + 1)
-        if (i + 1) % log_every == 0 or i == 0:
+        if sentinel:
+            params, opt_state, m, sent = step_fn(params, opt_state, b, i + 1,
+                                                 sent)
+            anomaly = float(m["skip"]) > 0
+        else:
+            params, opt_state, m = step_fn(params, opt_state, b, i + 1)
+            anomaly = False
+        if (i + 1) % log_every == 0 or i == start:
             m = {k: float(v) for k, v in m.items()}     # syncs the device
             _sync(device)
             now, counts = time.perf_counter(), kops.launch_counts()
             n = i + 1 - i_last
-            toks = batch * seq * (i + 1)
+            toks = batch * seq * (i + 1 - start)
             m.update(tokens_per_s=toks / (now - t0),
                      step_ms=(now - t_last) * 1e3 / n,
                      launches={k: (counts[k] - c_last[k]) / n
                                for k in counts})
             if mesh is not None:
                 m["wire"] = mesh.wire.summary()
-            if loud:
-                print(f"step {i+1:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                      f"lb {m['lb']:.4f} drop {m['drop_frac']:.3f} "
-                      f"gnorm {m['grad_norm']:.2f} {m['step_ms']:.1f} "
-                      f"ms/step tok/s {m['tokens_per_s']:,.0f}")
+            say(f"step {i+1:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+                f"lb {m['lb']:.4f} drop {m['drop_frac']:.3f} "
+                f"gnorm {m['grad_norm']:.2f} {m['step_ms']:.1f} ms/step "
+                f"tok/s {m['tokens_per_s']:,.0f}"
+                + (f" skip {m['skip']:.0f}" if sentinel else ""))
             history.append({"step": i + 1, **m})
             t_last, c_last, i_last = now, counts, i + 1
+        if anomaly and mgr is not None:
+            # the skipped step left the state bit-unchanged: this snapshot
+            # is the last good state, taken while it is still current
+            save(i + 1)
+            say(f"step {i+1}: anomaly (update skipped) — snapshot saved")
+        elif mgr is not None and ckpt_every and (i + 1) % ckpt_every == 0:
+            save(i + 1)
         if eval_every and (i + 1) % eval_every == 0:
             from repro_torch.train.evaluate import evaluate
             ev = evaluate(params, cfg, plan, batch=batch, seq=seq, seed=seed,
                           n_batches=2)
-            if loud:
-                print(f"  eval ce {ev['eval_ce']:.4f} "
-                      f"ppl {ev['eval_ppl']:.1f}")
+            say(f"  eval ce {ev['eval_ce']:.4f} ppl {ev['eval_ppl']:.1f}")
             history.append({"step": i + 1, **ev})
         if on_step is not None:
             on_step(i + 1)
     pipe.close()
+    if ckpt:
+        save_checkpoint(ckpt, params, opt_state, until, extra=sent, cfg=cfg,
+                        mesh=mesh)
+        say(f"saved checkpoint -> {ckpt}")
+    if mgr is not None and (mgr.saves or mgr.restored):
+        history.append({"checkpoints": {"saves": mgr.saves,
+                                        "restored": mgr.restored}})
+    if sentinel:
+        history.append({"sentinel": {
+            k: float(getattr(sent, k)) for k in SENTINEL_FIELDS
+            if k not in ("loss_ema", "ema_steps")}})
     if log_file and loud:
         with open(log_file, "w") as f:
             json.dump(history, f, indent=1)
@@ -276,8 +355,7 @@ def main():
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--log-file", default="")
     ap.add_argument("--zero1", action="store_true",
-                    help="shard optimizer state over replicated axes "
-                         "(not ported yet)")
+                    help="shard optimizer state over replicated axes")
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--moe-grid", default=None,
                     help="logical expert grid 'N,M' (e.g. 16,8)")

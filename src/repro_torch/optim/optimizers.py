@@ -77,7 +77,7 @@ def leaf_groups(params: Dict) -> List[LeafGroup]:
             continue
         for path, t in _leaves(sub, (key,)):
             groups.append(LeafGroup(".".join(path), [t], t.dim(), path))
-    for i, stage in enumerate(params["stages"]):
+    for i, stage in enumerate(params.get("stages", ())):
         for kind, blocks in stage.items():
             for path, t in _leaves(blocks[0]):
                 groups.append(LeafGroup(
@@ -179,6 +179,52 @@ def adamw(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01) -> Optimizer:
     return Optimizer(_moments_init, update)
 
 
+def lamb_directions(group: LeafGroup, state: Dict, gi: int, b1, b2, eps,
+                    decay, bc1, bc2, scale=None):
+    """LAMB's first pass over one group: each piece's ``.grad`` (scaled by
+    ``scale`` first, where given) into the moments, then replaced by the
+    direction.  Returns the group's ``(|p|^2, |d|^2)``, fp32 tensors."""
+    dev = group.pieces[0].device
+    wn = torch.zeros((), dtype=torch.float32, device=dev)
+    dn = torch.zeros((), dtype=torch.float32, device=dev)
+    for p in group.pieces:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    for p, g, m, v in _pieces(group, state, gi):
+        if scale is not None:
+            g.mul_(scale)
+        _update_moments(g, m, v, b1, b2)
+        d = _direction(p, m, v, bc1, bc2, eps, decay)
+        wn += p.float().square().sum()
+        dn += d.square().sum()
+        g.copy_(d)
+    return wn, dn
+
+
+def trust_rates(norms: List[torch.Tensor], lr, min_trust, max_trust
+                ) -> List[torch.Tensor]:
+    """Each group's ``lr * trust`` from the summed squared norms ``norms``
+    (the ``n`` groups' ``|p|^2``, then their ``|d|^2``)."""
+    n = len(norms) // 2
+    out = []
+    for wn, dn in zip(norms[:n], norms[n:]):
+        wn, dn = wn.sqrt(), dn.sqrt()
+        trust = torch.where((wn > 0) & (dn > 0),
+                            torch.clamp(wn / torch.clamp(dn, min=1e-12),
+                                        min_trust, max_trust),
+                            torch.ones_like(wn))
+        out.append(lr * trust)
+    return out
+
+
+def apply_directions(group: LeafGroup, rate) -> None:
+    """LAMB's second pass: each piece minus ``rate`` times the direction
+    its ``.grad`` holds."""
+    for p in group.pieces:
+        for pc, dc in zip(_chunks(p), _chunks(p.grad)):
+            pc.sub_(dc.mul_(rate))
+
+
 def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
          min_trust=0.0, max_trust=10.0) -> Optimizer:
     """LAMB [You et al. 2019] — the paper's optimizer.  The trust ratio
@@ -196,32 +242,14 @@ def lamb(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01,
         wns, dns = [], []
         for gi, group in enumerate(groups):
             decay = weight_decay if group.ndim >= 2 else 0.0
-            dev = group.pieces[0].device
-            wn = torch.zeros((), dtype=torch.float32, device=dev)
-            dn = torch.zeros((), dtype=torch.float32, device=dev)
-            for p in group.pieces:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            for p, g, m, v in _pieces(group, state, gi):
-                _update_moments(g, m, v, b1, b2)
-                d = _direction(p, m, v, bc1, bc2, eps, decay)
-                wn += p.float().square().sum()
-                dn += d.square().sum()
-                g.copy_(d)
+            wn, dn = lamb_directions(group, state, gi, b1, b2, eps, decay,
+                                     bc1, bc2)
             wns.append(wn)
             dns.append(dn)
-        n = len(groups)
-        norms = psum_scalars(wns + dns, axes + axes)
-        for gi, group in enumerate(groups):
-            wn, dn = norms[gi].sqrt(), norms[n + gi].sqrt()
-            trust = torch.where((wn > 0) & (dn > 0),
-                                torch.clamp(wn / torch.clamp(dn, min=1e-12),
-                                            min_trust, max_trust),
-                                torch.ones_like(wn))
-            rate = lr * trust
-            for p in group.pieces:
-                for pc, dc in zip(_chunks(p), _chunks(p.grad)):
-                    pc.sub_(dc.mul_(rate))
+        rates = trust_rates(psum_scalars(wns + dns, axes + axes), lr,
+                            min_trust, max_trust)
+        for group, rate in zip(groups, rates):
+            apply_directions(group, rate)
         return state
 
     return Optimizer(_moments_init, update)

@@ -22,18 +22,20 @@ Each collective carries a gradient (a ``torch.autograd.Function``), and
 its backward is what JAX's transpose gives inside ``shard_map`` with
 ``check_vma=False``, where every rank's loss is a share of the total and
 the gradient is of their sum: a psum's cotangent is psum'd, an
-all_gather's is psum-scattered (summed over the group, this rank's block
-kept), an All2All's goes back through the inverse All2All, and a ragged
-exchange's through the reverse exchange with the send and receive sizes
-swapped (rows a truncating exchange cut get a zero cotangent).  Every
-backward runs its collective on every rank, a zero cotangent included, so
-ranks whose graphs agree issue the same collectives in the same order.
-``pmax`` and :func:`axis_index` carry none: ``pmax`` raises on a tensor
-that needs a gradient (JAX has no transpose for it).  The
+all_gather's is psum-scattered (one ``reduce_scatter_tensor``: summed
+over the group, this rank's block kept) and a psum_scatter's is
+all-gathered, an All2All's goes back through the inverse All2All, and a
+ragged exchange's through the reverse exchange with the send and receive
+sizes swapped (rows a truncating exchange cut get a zero cotangent).
+Every backward runs its collective on every rank, a zero cotangent
+included, so ranks whose graphs agree issue the same collectives in the
+same order.  ``pmax`` and :func:`axis_index` carry none: ``pmax`` raises
+on a tensor that needs a gradient (JAX has no transpose for it).  The
 :class:`WireLog` keeps a backward call under its op's name with
 ``.grad`` added (``psum.grad``), so a step's wire reads forward and
 backward apart; the training step's gradient psums log as ``psum.sync``
-and its norms' as ``psum.norm``.
+(under ZeRO-1 ``psum_scatter.sync``, and the updated parameters'
+all-gather ``all_gather.params``) and its norms' as ``psum.norm``.
 """
 from __future__ import annotations
 
@@ -200,8 +202,9 @@ def pmax(x, axes: Axes):
     return _all_reduce(x, axes, g, dist.ReduceOp.MAX, "pmax")
 
 
-def _gather(x: torch.Tensor, axes, g, axis: int, tiled: bool) -> torch.Tensor:
-    c = _Call("all_gather", axes, x)
+def _gather(x: torch.Tensor, axes, g, axis: int, tiled: bool,
+            what: str) -> torch.Tensor:
+    c = _Call(what, axes, x)
     w = _wire(x).contiguous()
     parts = [torch.empty_like(w) for _ in range(g.size)]
     dist.all_gather(parts, w, group=g.pg)
@@ -211,40 +214,88 @@ def _gather(x: torch.Tensor, axes, g, axis: int, tiled: bool) -> torch.Tensor:
     return out
 
 
-def _psum_scatter(ct: torch.Tensor, axes, g, axis: int,
-                  tiled: bool) -> torch.Tensor:
-    """The transpose of :func:`all_gather`: the cotangent summed over the
-    group, and this rank's block along ``axis`` kept (its entry, where the
-    gather stacked).  One all-reduce of the whole, then this rank's block:
-    gloo has no reduce-scatter, and under nccl this is the same sum (a
-    reduce-scatter would move half the bytes there, and waits for a
-    four-card run to hold it)."""
-    full = _all_reduce(ct, axes, g, dist.ReduceOp.SUM, "all_gather.grad")
-    per = full.shape[axis] // g.size
-    out = full.narrow(axis, g.index * per, per)
+def _reduce_scatter(x: torch.Tensor, axes, g, axis: int, tiled: bool,
+                    what: str) -> torch.Tensor:
+    """``x`` summed over the group, and this rank's block along ``axis``
+    kept (its entry, where ``tiled`` is off): one
+    ``reduce_scatter_tensor``, which gloo runs too (the same sums as an
+    all-reduce, half its bytes).  Logs the bytes this rank sends, all
+    blocks but its own."""
+    c = _Call(what, axes, x)
+    src = _wire(x.movedim(axis, 0)).contiguous()
+    if src.shape[0] % g.size:
+        raise ValueError(f"comm.psum_scatter over {axes}: dim {axis} is "
+                         f"{src.shape[0]}, not a multiple of {g.size} ranks")
+    out = src.new_empty((src.shape[0] // g.size,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=g.pg)
+    out = out.to(x.device).movedim(0, axis)
+    c.done(_rows(src) * (g.size - 1) // g.size,
+           _nbytes(src) * (g.size - 1) // g.size)
     return out if tiled else out.squeeze(axis)
 
 
 class _AllGather(torch.autograd.Function):
+    """all_gather; its cotangent is psum-scattered."""
+
     @staticmethod
-    def forward(ctx, x, axes, g, axis, tiled):
-        ctx.args = (axes, g, axis, tiled)
-        return _gather(x, axes, g, axis, tiled)
+    def forward(ctx, x, axes, g, axis, tiled, label):
+        ctx.args = (axes, g, axis, tiled, label)
+        return _gather(x, axes, g, axis, tiled, label)
 
     @staticmethod
     def backward(ctx, ct):
-        return (_psum_scatter(ct, *ctx.args).contiguous(),
-                None, None, None, None)
+        axes, g, axis, tiled, label = ctx.args
+        return (_reduce_scatter(ct, axes, g, axis, tiled, label + ".grad"),
+                None, None, None, None, None)
 
 
-def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True):
+class _PSumScatter(torch.autograd.Function):
+    """psum_scatter; its cotangent is all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, axes, g, axis, tiled, label):
+        ctx.args = (axes, g, axis, tiled, label)
+        return _reduce_scatter(x, axes, g, axis, tiled, label)
+
+    @staticmethod
+    def backward(ctx, ct):
+        axes, g, axis, tiled, label = ctx.args
+        return (_gather(ct.contiguous(), axes, g, axis, tiled,
+                        label + ".grad"),
+                None, None, None, None, None)
+
+
+def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True,
+               label: str = "all_gather"):
     """Every rank's ``x`` in group order: concatenated along ``axis``
-    (``tiled``) or stacked on a new ``axis``."""
+    (``tiled``) or stacked on a new ``axis``; ``label`` is its op in the
+    wire log."""
     axes = _norm(axes)
     g = _group(axes)
     if g is None:
         return x
-    return _AllGather.apply(x, axes, g, axis, tiled)
+    return _AllGather.apply(x, axes, g, axis, tiled, label)
+
+
+def psum_scatter(x, axes: Axes, *, scatter_dimension: int = 0,
+                 tiled: bool = True, label: str = "psum_scatter"):
+    """``lax.psum_scatter``: ``x`` summed over ``axes``, and this rank's
+    block along ``scatter_dimension`` kept (``tiled``: the dim is cut
+    into group-size blocks; else the dim is the group size and this
+    rank's entry is taken, the dim dropped).  Its backward is the
+    all_gather of the cotangent.  On one device ``x`` (its one entry)."""
+    axes = _norm(axes)
+    g = _group(axes)
+    if g is None:
+        return x if tiled else x.squeeze(scatter_dimension)
+    return _PSumScatter.apply(x, axes, g, scatter_dimension, tiled, label)
+
+
+def barrier(axes: Axes) -> None:
+    """Wait until every rank of the group over ``axes`` gets here."""
+    g = _group(_norm(axes))
+    if g is not None:
+        dist.barrier(group=g.pg)
 
 
 def _a2a(x: torch.Tensor, axes, g, split_axis: int, concat_axis: int,

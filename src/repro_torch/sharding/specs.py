@@ -12,7 +12,7 @@ spec.
 :func:`shard_params` cuts this rank's slice out of a full tree: a dim
 split over axes ``A`` is cut into ``size(A)`` equal parts and the rank
 keeps part ``index(A)``, its linear index over ``A`` in the order named,
-as JAX places shards.
+as JAX places shards; :func:`gather_leaf` is its inverse.
 """
 from __future__ import annotations
 
@@ -155,6 +155,14 @@ def sharded_axes_only(spec_tree, plan: MeshPlan):
                                      if a in _used(s)), spec_tree)
 
 
+def zero1_spec(sync: Tuple[str, ...], norm: Tuple[str, ...]) -> Spec:
+    """The spec of a ZeRO-1 flat moment (``repro.optim.zero1.state_specs``):
+    dim 0 over the leaf's shard axes, then its replicated ones (``norm +
+    sync``), so each rank's chunk sits at its linear index over them in
+    that order."""
+    return (_one(tuple(norm) + tuple(sync)),)
+
+
 # =============================================================================
 # Batch / cache specs
 # =============================================================================
@@ -233,3 +241,38 @@ def shard_params(full_tree, spec_tree, mesh):
             return None
         return shard_leaf(t, s, mesh)
     return walk(full_tree, spec_tree)
+
+
+@torch.no_grad()
+def gather_leaf(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The full leaf whose slice under ``spec`` this rank holds in ``x``:
+    the inverse of :func:`shard_leaf`.  Each cut dim is all-gathered over
+    its axes' group, which orders its ranks in mesh order, and its blocks
+    are then put in the spec's own axis order (a dim over ``("model",
+    "data")`` is model-major).  Every rank of the mesh must call it."""
+    from repro_torch.sharding import comm
+    if len(spec) != x.dim():
+        raise ValueError(f"spec {spec} for a leaf of {x.dim()} dims")
+    out = x
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = comm._norm(e)
+        order = tuple(a for a in mesh.axes if a in axes)
+        parts = comm.all_gather(out.contiguous(), order, axis=dim,
+                                tiled=False, label="all_gather.leaf")
+        sizes = dict(mesh.axis_sizes)
+        perm = [0] * mesh.size(order)
+        for j in range(len(perm)):
+            c, r = {}, j                 # member j's coordinates over order
+            for a in reversed(order):
+                c[a] = r % sizes[a]
+                r //= sizes[a]
+            i = 0                        # its linear index in spec order
+            for a in axes:
+                i = i * sizes[a] + c[a]
+            perm[i] = j
+        parts = parts.index_select(dim, torch.tensor(perm,
+                                                     device=parts.device))
+        out = parts.flatten(dim, dim + 1)
+    return out

@@ -19,8 +19,15 @@ global_count``, the aux losses ``/ n_dev``), its backward runs through the
 collectives' transposes (``sharding.comm``), each leaf's gradient is then
 psum'd over the axes the leaf is replicated on (``specs.shard_axes``), and
 the clip and LAMB sum their norms over the axes it is cut over
-(``specs.sharded_axes_only``).  ZeRO-1 and the step sentinel raise (ROADMAP
-queue item 8).
+(``specs.sharded_axes_only``).
+
+``zero1=True`` shards LAMB's moments over each leaf's replicated axes
+(:mod:`repro_torch.optim.zero1`): the raw gradients skip the psums and
+are reduce-scattered into owned chunks, clipped there, and the updated
+chunks all-gathered.  ``sentinel=True`` judges each step after the
+reduction and the clip, before the moments see anything
+(:mod:`repro_torch.train.sentinel`): a non-finite or spiking step skips
+the optimizer and leaves the parameters and its state bit-unchanged.
 """
 from __future__ import annotations
 
@@ -35,9 +42,12 @@ from repro_torch.models.layers import vocab_parallel_xent
 from repro_torch.optim.optimizers import (CHUNK, Optimizer,
                                           clip_by_global_norm, group_axes,
                                           leaf_groups)
+from repro_torch.optim.zero1 import (Zero1State, init_state_shapes,
+                                     zero1_apply, zero1_reduce_and_clip)
 from repro_torch.sharding import comm
 from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
+from repro_torch.train import sentinel as SEN
 
 IGNORE = -1
 
@@ -111,17 +121,24 @@ def sync_grads(groups, axes: List[Tuple[str, ...]]) -> None:
                 size += gr.numel()
 
 
-def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
-                  tcfg: TrainConfig, plan: MeshPlan, opt: Optimizer,
-                  schedule, n_micro: int = 1, sync_axes=None,
-                  norm_axes=None):
+def train_step_fn(params, opt_state, batch, step, sent=None, *,
+                  cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
+                  opt: Optimizer, schedule, n_micro: int = 1,
+                  sync_axes=None, norm_axes=None, zero1: bool = False,
+                  sentinel: bool = False):
     """One optimizer step.  ``params`` are updated in place (and returned);
     returns ``(params, opt_state, metrics)``, the metrics as tensors (no
     host sync) except ``lr``.  ``sync_axes`` and ``norm_axes`` (trees
     shaped as the parameters; None on one device) name the axes each
     leaf's gradient is psum'd over and its norms are summed over.  Its
     phases are profiler ranges (``train_step.loss_backward``, ``.sync``,
-    ``.clip``, ``.optimizer``)."""
+    ``.clip``, ``.optimizer``).
+
+    With ``zero1`` the optimizer is ZeRO-1 LAMB (``opt_state`` a
+    :class:`~repro_torch.optim.zero1.Zero1State`, whatever ``opt`` is, as
+    in the reference).  With ``sentinel`` the step takes and returns a
+    fifth value, the :class:`~repro_torch.train.sentinel.SentinelState`,
+    the update runs only on a good step, and the metrics gain ``skip``."""
     groups = leaf_groups(params)
     for g in groups:
         for p in g.pieces:
@@ -129,20 +146,57 @@ def train_step_fn(params, opt_state, batch, step, *, cfg: ModelConfig,
     with record_function("train_step.loss_backward"):
         loss, metrics = _loss_backward(params, batch, cfg, plan, n_micro)
     if sync_axes is not None:
-        with record_function("train_step.sync"):
-            # a leaf no rank's loss reached still takes part in the psums,
-            # so that every rank issues the same collectives
-            for g in groups:
-                for p in g.pieces:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-            sync_grads(groups, group_axes(groups, sync_axes))
+        # a leaf no rank's loss reached still takes part in the psums,
+        # so that every rank issues the same collectives
+        for g in groups:
+            for p in g.pieces:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
     lr = schedule(step)
-    with record_function("train_step.clip"):
-        gnorm = clip_by_global_norm(params, tcfg.grad_clip, norm_axes)
+    if zero1:
+        with record_function("train_step.sync"):
+            g_upd, gnorm, scale = zero1_reduce_and_clip(
+                params, sync_axes_tree=sync_axes, norm_axes_tree=norm_axes,
+                plan=plan, grad_clip=tcfg.grad_clip)
+        grads = [t for x in g_upd for t in ([x] if torch.is_tensor(x)
+                                            else x)]
+
+        def apply(g_own, state, params):
+            return params, zero1_apply(
+                g_own, scale, state, params, lr, sync_axes_tree=sync_axes,
+                norm_axes_tree=norm_axes, plan=plan, b1=tcfg.b1, b2=tcfg.b2,
+                eps=tcfg.eps, weight_decay=tcfg.weight_decay)
+    else:
+        if sync_axes is not None:
+            with record_function("train_step.sync"):
+                sync_grads(groups, group_axes(groups, sync_axes))
+        with record_function("train_step.clip"):
+            gnorm = clip_by_global_norm(params, tcfg.grad_clip, norm_axes)
+        g_upd = None
+        grads = [p.grad for g in groups for p in g.pieces
+                 if p.grad is not None]
+
+        def apply(_, state, params):
+            return params, opt.update(params, state, lr,
+                                      shard_axes=norm_axes)
     with record_function("train_step.optimizer"):
-        opt_state = opt.update(params, opt_state, lr, shard_axes=norm_axes)
+        if sentinel:
+            # the verdict after the reduction and the clip, before the
+            # moments see anything
+            ok, nonfin, spike = SEN.step_verdict(metrics["loss"], grads,
+                                                 sent, plan.all_axes)
+            params, opt_state = SEN.gated_update(ok, apply, g_upd,
+                                                 opt_state, params)
+            alarm = SEN.router_alarm(metrics["max_load"],
+                                     metrics["load_entropy"])
+            sent = SEN.update_sentinel(sent, metrics["loss"], ok, nonfin,
+                                       spike, alarm)
+            metrics = dict(metrics, skip=(~ok).to(torch.float32))
+        else:
+            params, opt_state = apply(g_upd, opt_state, params)
     metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+    if sentinel:
+        return params, opt_state, metrics, sent
     return params, opt_state, metrics
 
 
@@ -173,6 +227,13 @@ def _loss_backward(params, batch, cfg, plan, n_micro):
     return loss, metrics
 
 
+def _axes_trees(params, cfg: ModelConfig, plan: MeshPlan):
+    """Each leaf's sync and shard axes (``specs.shard_axes``,
+    ``specs.sharded_axes_only``)."""
+    pspec = S.param_specs(params, cfg, plan)
+    return S.shard_axes(pspec, plan), S.sharded_axes_only(pspec, plan)
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
                      opt: Optimizer, schedule, params_like, batch_like,
                      mesh=None, zero1: bool = False, sentinel: bool = False):
@@ -185,11 +246,12 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
     its ``plan_from_mesh``) the parameters are this rank's slices
     (``init_model(..., mesh=)``) and the step takes the global batch, as
     the reference's ``shard_map`` does, and cuts this rank's rows
-    (``specs.batch_specs``); the micro-batches split the rank's rows."""
-    if zero1 or sentinel:
-        raise NotImplementedError(
-            "ZeRO-1 and the step sentinel are not ported yet (ROADMAP, "
-            "queue item 8)")
+    (``specs.batch_specs``); the micro-batches split the rank's rows.
+
+    With ``zero1`` the optimizer state is :func:`zero1_state`'s.  With
+    ``sentinel`` the step is ``step(params, opt_state, batch, step, sent)
+    -> (params, opt_state, metrics, sent)``, ``sent`` from
+    ``train.sentinel.init_sentinel_state``, and a bad step is skipped."""
     for g in leaf_groups(params_like):
         for p in g.pieces:
             p.requires_grad_(True)
@@ -200,17 +262,23 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, plan: MeshPlan,
     device = params_like["embed"]["table"].device
     sync_axes = norm_axes = None
     if mesh is not None:
-        pspec = S.param_specs(params_like, cfg, plan)
-        sync_axes = S.shard_axes(pspec, plan)
-        norm_axes = S.sharded_axes_only(pspec, plan)
+        sync_axes, norm_axes = _axes_trees(params_like, cfg, plan)
 
-    def step_fn(params, opt_state, batch, step):
+    def step_fn(params, opt_state, batch, step, sent=None):
         batch = to_device(batch, device)
         if mesh is not None:
             batch = S.shard_params(batch, S.batch_specs(batch, plan), mesh)
-        return train_step_fn(params, opt_state, batch, step, cfg=cfg,
+        return train_step_fn(params, opt_state, batch, step, sent, cfg=cfg,
                              tcfg=tcfg, plan=plan, opt=opt,
                              schedule=schedule, n_micro=n_micro,
-                             sync_axes=sync_axes, norm_axes=norm_axes)
+                             sync_axes=sync_axes, norm_axes=norm_axes,
+                             zero1=zero1, sentinel=sentinel)
 
     return step_fn
+
+
+def zero1_state(params, cfg: ModelConfig, plan: MeshPlan) -> Zero1State:
+    """The zero ZeRO-1 optimizer state of ``params`` (the rank's slices
+    over a mesh, ``plan`` its ``plan_from_mesh``)."""
+    sync_axes, norm_axes = _axes_trees(params, cfg, plan)
+    return init_state_shapes(params, sync_axes, norm_axes, plan)

@@ -17,6 +17,13 @@ off) is held to the same gradients and loss curve: its expert FFN runs the
 plain ragged path (``use_kernel=False``) on both sides, as the JAX train
 step does.
 
+The robust runtime's options of ``train()`` (``zero1``, ``sentinel``,
+``resume``, ``ckpt``, ``ckpt_every``, ``ckpt_dir``, ``ckpt_keep``) and
+``--zero1`` through the CLI each run a step or two and do what they say
+(``test_train_option_runs``, ``test_cli_zero1_runs``; the JAX-side
+comparisons of those are in ``test_torch_zero1.py`` and
+``test_torch_checkpoint.py``).
+
 Pallas does not run on this JAX, so the JAX side's fused router and radix
 sort take their oracles (``ROUTER_FUSED_MIN_ROWS`` and ``RADIX_MIN_ROWS``
 raised past every call here; the JAX package's own tests hold the oracles
@@ -24,6 +31,7 @@ bit-identical to the kernels); the port's wrappers run their plain versions
 on the CPU.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -233,24 +241,121 @@ def test_evaluate_matches_jax_fp32(monkeypatch):
     np.testing.assert_allclose(tev["eval_ce"], jev["eval_ce"], rtol=1e-5)
 
 
-UNPORTED = {"zero1": True, "sentinel": True, "resume": True,
-            "ckpt": "run", "ckpt_every": 5, "ckpt_dir": "run",
-            "ckpt_keep": 5}
+def _tiny(**kw):
+    return TL.train("smile-3.7b", steps=kw.pop("steps", 2), batch=2, seq=16,
+                    lr=1e-3, log_every=1, device="cpu", moe_options=OPTS,
+                    **kw)
 
 
-@pytest.mark.parametrize("flag", list(UNPORTED))
-def test_unported_train_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        TL.train("smile-3.7b", steps=1, batch=2, seq=16, device="cpu",
-                 **{flag: UNPORTED[flag]})
+@pytest.fixture(scope="module")
+def one_thread():
+    """Tiny tensors: one intra-op thread (the suite's workers share the
+    host's cores, and threads that wait on each other cost more than the
+    work)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
-def test_cli_zero1_raises(monkeypatch):
+@pytest.fixture(scope="module")
+def plain_run(one_thread):
+    """Two plain steps: the parameters the options are held to."""
+    return _tiny()[0]
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for _, x, y in _pairs(a, b))
+
+
+def _option_zero1(tmp_path, capsys, plain):
+    """ZeRO-1 on one rank shards nothing: LAMB, to the bit."""
+    p, h = _tiny(zero1=True)
+    assert _same(p, plain) and np.isfinite(h[-1]["loss"])
+
+
+def _option_sentinel(tmp_path, capsys, plain):
+    p, h = _tiny(sentinel=True)
+    assert [e["skip"] for e in h[:2]] == [0.0, 0.0]
+    assert h[-1]["sentinel"] == {"steps": 2.0, "skipped": 0.0,
+                                 "nonfinite": 0.0, "spikes": 0.0,
+                                 "router_alarms": h[-1]["sentinel"][
+                                     "router_alarms"]}
+    assert _same(p, plain)
+
+
+def _option_resume(tmp_path, capsys, plain):
+    d = str(tmp_path / "run")
+    _tiny(steps=2, ckpt_dir=d, ckpt_every=1, halt_after=1)
+    p, h = _tiny(steps=2, ckpt_dir=d, resume=True)
+    assert "resumed from step 1" in capsys.readouterr().out
+    assert h[0]["step"] == 2 and _same(p, plain)
+
+
+def _option_ckpt(tmp_path, capsys, plain):
+    from repro_torch.train.checkpoint import load_checkpoint
+    path = str(tmp_path / "final.npz")
+    p, _ = _tiny(ckpt=path)
+    like, _ = _tiny(steps=0)
+    got, _, step = load_checkpoint(path, like)
+    assert step == 2 and _same(got, p) and _same(got, plain)
+
+
+def _option_ckpt_every(tmp_path, capsys, plain):
+    d = tmp_path / "run"
+    _, h = _tiny(steps=3, ckpt_dir=str(d), ckpt_every=2)
+    assert sorted(os.listdir(d)) == ["ckpt_00000002.npz", "manifest.json"]
+    assert [s["step"] for s in h[-1]["checkpoints"]["saves"]] == [2]
+
+
+def _option_ckpt_dir(tmp_path, capsys, plain):
+    """An empty run directory: resume starts fresh."""
+    d = str(tmp_path / "empty")
+    p, _ = _tiny(ckpt_dir=d, resume=True)
+    assert "no valid checkpoint" in capsys.readouterr().out
+    assert _same(p, plain)
+
+
+def _option_ckpt_keep(tmp_path, capsys, plain):
+    d = tmp_path / "run"
+    _tiny(steps=3, ckpt_dir=str(d), ckpt_every=1, ckpt_keep=2)
+    assert sorted(os.listdir(d)) == ["ckpt_00000002.npz",
+                                     "ckpt_00000003.npz", "manifest.json"]
+
+
+TRAIN_OPTIONS = {"zero1": _option_zero1, "sentinel": _option_sentinel,
+                 "resume": _option_resume, "ckpt": _option_ckpt,
+                 "ckpt_every": _option_ckpt_every,
+                 "ckpt_dir": _option_ckpt_dir,
+                 "ckpt_keep": _option_ckpt_keep}
+
+
+@pytest.mark.parametrize("flag", list(TRAIN_OPTIONS))
+def test_train_option_runs(flag, tmp_path, capsys, plain_run):
+    """Each robust-runtime option of ``train()`` runs a step or two on the
+    CPU and does what it says."""
+    TRAIN_OPTIONS[flag](tmp_path, capsys, plain_run)
+
+
+def test_cli_zero1_runs(monkeypatch, one_thread):
+    got = {}
+    real = TL.train
+
+    def spy(*a, **kw):
+        got["kw"] = kw
+        got["params"], got["hist"] = real(*a, **kw)
+        return got["params"], got["hist"]
+
+    monkeypatch.setattr(TL, "train", spy)
     monkeypatch.setattr("sys.argv", ["train", "--arch", "smile-3.7b",
                                      "--reduced", "--device", "cpu",
-                                     "--zero1"])
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        TL.main()
+                                     "--steps", "2", "--batch", "2",
+                                     "--seq", "16", "--log-every", "1",
+                                     "--zero1", "--sentinel"])
+    TL.main()
+    assert got["kw"]["zero1"] is True and got["kw"]["sentinel"] is True
+    assert [h["step"] for h in got["hist"][:2]] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in got["hist"][:2])
 
 
 def test_train_runs_and_logs():
