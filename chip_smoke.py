@@ -187,7 +187,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ``psum_scatter`` and ``all_gather`` over ``data`` beside phase 17's
     gradient psum), the snapshot's bytes and its save, checksum and
     restore seconds.
-19. A ``{"kernels": [...]}`` line, then the card line, then the last line
+19. Fault containment, on phase 17's ranks (no second spawn; it runs
+    between phase 18's two parts), the kernel path (bf16):
+    (a) ``tests/distributed/_faults.py``'s matrix (``fault_cells``: the
+    healthy layer under each wire policy, the inert plan, each fault
+    kind under ``off``, each wire fault on each hop under ``quarantine``,
+    ``counts`` under ``quarantine``, ``bitflip:0`` under ``detect``) on
+    qwen3-moe-30b-a3b's MoE layer (phase 16's weights and slice, 256
+    tokens a rank, both SMILE hops ragged) and switch-3.7b's (d 768, 128
+    experts top-1, 512 tokens a rank), dropless, held to _faults.py's
+    exact accounting (``check_fault_cell``: events ``4 x`` the expected,
+    ``wire_faults`` at (hop, victim) only, drops of exactly ``1/P``,
+    healthy ``detect``/``quarantine`` and the inert plan bit-equal to the
+    plain path), with every rank's launch counts its path's a call;
+    (b) phase 16's dropless serve (8 new tokens) under ``detect`` and
+    ``quarantine`` beside ``off``: tokens and logits bit-equal to ``off``
+    on every rank; then each policy twice, warm, in turns (off, detect,
+    quarantine, and back) with the collectives timed: the slowest rank's
+    prefill and decode-step times, and rank 0's collectives a forward by
+    op with their rows, bytes and time;
+    (c) phase 17's smile-3.7b cut to one dense and one MoE layer,
+    dropless, under ZeRO-1 and the sentinel: a step with ``bitflip:0``
+    under ``quarantine`` continues on every rank (finite loss, ``skip``
+    0) with ``wire_faults`` at (hop 0, victim) only, ``4 x`` the MoE
+    layers; a ``nanrows`` step with the wire off is skipped on every
+    rank with every tensor and the step clock bit-unchanged.
+20. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -2416,6 +2441,7 @@ def _mesh_rank_init(rank, serve_kw, dtype):
     if "mesh" not in st:
         st["mesh"] = make_mesh(MESH_SHAPE, ("data", "model"),
                                device=rank.device)
+    if "plan" not in st:                # phase 17's ranks have a mesh
         st["plan"] = plan_from_mesh(st["mesh"])
     st.pop("params", None)
     if rank.device.type == "cuda":
@@ -3232,6 +3258,485 @@ def phase_robust_one_rank(torch, ops, device="cuda", reduced=False):
     print(f"  part (b) {time.perf_counter() - t0:.1f} s")
 
 
+# phase 19, fault containment: tests/distributed/_faults.py's matrix on
+# phase 17's ranks at full width, on the kernel path (bf16): qwen3-moe's
+# MoE layer (phase 16's weights and slice, 256 tokens a rank as at its
+# prefill) and switch-3.7b's (512 tokens a rank as phase 17's); the wire's
+# cost on phase 16's dropless serve; a faulted ZeRO-1 + sentinel step
+FAULT_LAYERS = {"qwen3-moe-30b-a3b": dict(tokens=256),
+                "switch-3.7b": dict(tokens=512, num_layers=2)}
+# per layer call on a rank: the dropless hops' gathers (SMILE: two hops and
+# the compaction of hop 2's arrivals; Switch: one hop and its compaction)
+# and one ragged FFN
+FAULT_LAYER_LAUNCHES = {
+    "qwen3-moe-30b-a3b": {**ZERO_LAUNCHES, "dispatch_gather": 3,
+                          "combine_gather": 3, "grouped_ffn_ragged": 1},
+    "switch-3.7b": {**ZERO_LAUNCHES, "dispatch_gather": 2,
+                    "combine_gather": 2, "grouped_ffn_ragged": 1}}
+WIRE_POLICIES = ("off", "detect", "quarantine")
+WIRE_SERVE_TOKENS = 8
+# phase 17's smile-3.7b cut to one dense and one MoE layer, dropless
+FAULT_TRAIN = dict(MESH_TRAIN, num_layers=2, moe_options={
+    **MESH_TRAIN["moe_options"], "dispatch_backend": "dropless"})
+
+
+def fault_cells(levels) -> dict:
+    """name -> MoE options: _faults.py's matrix for a layer whose ragged
+    hops are ``levels``."""
+    out = {"healthy": {}, "inert": {"fault_plan": "counts@0:7"},
+           "counts": {"fault_plan": "counts"},
+           "nanrows": {"fault_plan": "nanrows"},
+           "skew": {"fault_plan": "skew"}}
+    for lvl in levels:
+        out[f"dropseg:{lvl}"] = {"fault_plan": f"dropseg:{lvl}"}
+    for pol in ("detect", "quarantine"):
+        out[f"healthy-{pol}"] = {"wire_integrity": pol}
+    for kind in ("nanrows", "bitflip", "inflate", "dupseg"):
+        for lvl in levels:
+            out[f"quarantine-{kind}:{lvl}"] = {
+                "wire_integrity": "quarantine", "fault_plan": f"{kind}:{lvl}"}
+    out["quarantine-counts"] = {"wire_integrity": "quarantine",
+                                "fault_plan": "counts"}
+    out["detect-bitflip:0"] = {"wire_integrity": "detect",
+                               "fault_plan": "bitflip:0"}
+    for kind in ("inflate", "dupseg"):
+        out[f"{kind}:0"] = {"fault_plan": f"{kind}:0"}
+    return out
+
+
+def check_fault_cell(name, r, y0, hops, n_dev):
+    """_faults.py's assertions for one cell: ``r`` holds the cell's global
+    output ``y`` and statistics (numpy), ``y0`` the healthy plain run's
+    output, ``hops`` {level: (P, groups a rank)} of the ragged hops and
+    ``n_dev`` the ranks; the expectations come from the port's site
+    selectors.  Raises AssertionError."""
+    import numpy as np
+    from repro_torch.common import faultinject as FI
+    y, df, hdf, ev, wf = (r["y"], float(r["drop_frac"]), r["hop_drop_frac"],
+                          r["fault_events"], r["wire_faults"])
+    finite = bool(np.isfinite(y).all())
+
+    def need(ok, *what):
+        if not ok:
+            raise AssertionError(f"fault cell {name}: {what}")
+
+    def counts_events():
+        fp = FI.parse_fault_plan("counts")
+        want = np.zeros_like(ev)
+        for lvl, (Pn, nl) in hops.items():
+            want[lvl] = n_dev * FI.expected_count_events(fp, lvl, Pn, nl)
+        return want
+
+    def one_source(lvl, victim):
+        wev = np.zeros_like(ev)
+        wev[lvl] = n_dev
+        wwf = np.zeros_like(wf)
+        wwf[lvl, victim] = n_dev
+        need(np.array_equal(ev, wev), "events", ev, wev)
+        need(np.array_equal(wf, wwf), "wire faults", np.nonzero(wf), victim)
+
+    def drop_of(lvl):
+        Pn = hops[lvl][0]
+        need(hdf[lvl] == np.float32(1.0 / Pn), "drop", hdf, Pn)
+        need(not np.delete(hdf, lvl).any(), "other hops' drops", hdf)
+
+    if name == "healthy":
+        need(df == 0.0 and not ev.any() and not wf.any() and finite,
+             df, ev, finite)
+    elif name in ("inert", "healthy-detect", "healthy-quarantine"):
+        need(np.array_equal(y.view(np.uint8), y0.view(np.uint8)),
+             "not bit-equal to the plain path")
+        need(df == 0.0 and not ev.any() and not wf.any(), df, ev)
+    elif name in ("counts", "quarantine-counts"):
+        need(np.array_equal(ev, counts_events()), "events", ev,
+             counts_events())
+        need(df > 0.0 and finite and not wf.any(), df, finite)
+    elif name.startswith("dropseg:"):
+        need(not ev.any() and finite, ev, finite)
+        drop_of(int(name.split(":")[1]))
+    elif name == "nanrows":
+        need(bool(np.isnan(y).any()), "no NaN reached the output")
+        need(not ev.any() and df == 0.0, ev, df)
+    elif name == "skew":
+        need(df == 0.0 and not ev.any() and finite, df, ev, finite)
+        for lvl in hops:
+            need(r["hop_max_load"][lvl] == 1.0
+                 and r["hop_load_entropy"][lvl] < 0.05,
+                 "watchdog", r["hop_max_load"], r["hop_load_entropy"])
+    elif name.startswith("quarantine-"):
+        kind, lvl = name[len("quarantine-"):].split(":")
+        lvl = int(lvl)
+        Pn, nl = hops[lvl]
+        one_source(lvl, FI.wire_fault_victim(
+            FI.parse_fault_plan(f"{kind}:{lvl}"), lvl, Pn, nl))
+        drop_of(lvl)
+        need(finite, "non-finite output")
+    elif name == "detect-bitflip:0":
+        Pn, nl = hops[0]
+        one_source(0, FI.wire_fault_victim(FI.parse_fault_plan("bitflip:0"),
+                                           0, Pn, nl))
+        need(df == 0.0 and not hdf.any() and finite, df, hdf, finite)
+        need(not np.array_equal(y, y0), "the flipped payload left no trace")
+    elif name in ("inflate:0", "dupseg:0"):
+        need(not ev.any() and not wf.any() and finite, ev, finite)
+        need(name == "dupseg:0" or df == 0.0, df)
+    else:
+        raise AssertionError(f"no check for fault cell {name}")
+
+
+def _first_moe(params):
+    """The MoE parameters of the first block that has them."""
+    for st in params["stages"]:
+        for blocks in st.values():
+            for b in blocks:
+                if "moe" in b:
+                    return b["moe"]
+    raise ValueError("no MoE block")
+
+
+def _fault_layer_rank(rank, arch, reduced, cells, seed):
+    """A phase-19 rank: ``arch``'s MoE layer at full width (the first MoE
+    block of ``init_model(seed=0)``'s slice, bf16) on random local tokens,
+    once for each cell on the kernel path; each cell's launch counts set
+    to 0 just before and read just after; the ragged hops' (P, groups a
+    rank) recorded."""
+    import torch
+    from repro_torch.core import pipeline as PL
+    from repro_torch.core.moe import moe_layer
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.sharding.plan import plan_from_mesh
+    st = rank.state
+    mesh = st["mesh"]
+    plan = plan_from_mesh(mesh)
+    kw = FAULT_LAYERS[arch]
+    cfg = train_config(arch, reduced=reduced,
+                       num_layers=None if reduced else kw.get("num_layers"),
+                       moe_grid=None if reduced else (16, 8),
+                       moe_options={"dispatch_backend": "dropless"})
+    if arch == SERVE["arch"]:
+        params = _first_moe(st["params"])        # phase 16's weights
+    else:
+        params = _first_moe(init_model(cfg, plan, seed=0, device=rank.device,
+                                       mesh=mesh))
+    gen = torch.Generator(device=rank.device).manual_seed(seed + rank.rank)
+    t = 16 if reduced else kw["tokens"]
+    x = torch.randn((t, cfg.d_model), generator=gen,
+                    device=rank.device).to(torch.bfloat16)
+    hops = {}
+    orig = PL._ragged_forward
+
+    def record(rows, starts, seg_lens, spec, block, fp=None, level=0):
+        hops[level] = (spec.n_ranks, spec.groups_per_rank)
+        return orig(rows, starts, seg_lens, spec, block, fp=fp, level=level)
+
+    PL._ragged_forward = record
+    out = {}
+    try:
+        for name, opts in cells.items():
+            c = cfg.moe.with_options(**opts)
+            ops.reset_launch_counts()
+            with torch.inference_mode():
+                y, stt = moe_layer(params, x, c, plan, act=cfg.act,
+                                   use_kernel=True)
+            out[name] = {"y": y.float().cpu().numpy(),
+                         "launches": ops.launch_counts(),
+                         **{k: getattr(stt, k).cpu().numpy() for k in (
+                             "drop_frac", "hop_drop_frac", "fault_events",
+                             "hop_max_load", "hop_load_entropy",
+                             "wire_faults")}}
+    finally:
+        PL._ragged_forward = orig
+    return {"cells": out, "hops": hops}
+
+
+def _wire_serve_rank(rank, policy, new_tokens, keep, timed=False):
+    """Phase 16's dropless serve on the rank's slice under the wire
+    ``policy`` (``timed``: the time inside each collective taken, the card
+    synchronized around it); the launch counts set to 0 just before and
+    read just after."""
+    from repro_torch.configs import with_options
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    st = rank.state
+    st["mesh"].wire.reset(timed=timed)
+    cfg = with_options(st["cfg"], dispatch_backend="dropless",
+                       wire_integrity=policy)
+    ops.reset_launch_counts()
+    res = generate(st["params"], st["prompts"], cfg, st["plan"],
+                   new_tokens=new_tokens, keep_logits=keep, use_kernel=True)
+    return {"tokens": res.tokens, "logits": res.logits,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "steps": res.decode_steps, "wire": res.wire,
+            "launches": ops.launch_counts(), "finite": res.logits_finite}
+
+
+def _fault_train_rank(rank, kw):
+    """Phase 19 (c): FAULT_TRAIN under ZeRO-1 and the sentinel on the
+    rank: one step with the wire quarantining a bit flip at hop 0, then a
+    ``nanrows`` step with the wire off, its parameters' and state's
+    digests taken before and after; the MoE statistics of each step's
+    first forward kept."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import with_options
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.sharding.plan import plan_from_mesh
+    from repro_torch.train.sentinel import init_sentinel_state
+    from repro_torch.train.step import build_train_step, zero1_state
+    from repro_torch.weights import state_leaves
+    mesh = rank.state["mesh"]
+    dev = mesh.device
+    cfg = train_config(kw["arch"], reduced=kw["reduced"],
+                       moe_options=kw["moe_options"], moe_grid=kw["moe_grid"],
+                       num_layers=kw["num_layers"])
+    plan = plan_from_mesh(mesh)
+    tcfg = TrainConfig(global_batch_size=kw["batch"], seq_len=kw["seq"],
+                       steps=4, optimizer=kw["optimizer"], lr=3e-4,
+                       warmup_steps=1, sentinel=True)
+    params = init_model(cfg, plan, seed=0, device=dev, compute_cast=False,
+                        mesh=mesh)
+    state = zero1_state(params, cfg, plan)
+    sent = init_sentinel_state(dev)
+    pipe = DataPipeline(cfg, kw["batch"], kw["seq"], seed=0)
+    b = next(pipe)
+    opt = make_optimizer(kw["optimizer"])
+    sched = make_schedule("cosine", 3e-4, 1, 4)
+    seen = []
+    orig = T.forward
+
+    def forward(*a, **k):
+        out = orig(*a, **k)
+        seen.append(out[2])
+        return out
+
+    runs = []
+    T.forward = forward
+    ops.reset_launch_counts()
+    try:
+        for i, opts in enumerate(({"wire_integrity": "quarantine",
+                                   "fault_plan": "bitflip:0"},
+                                  {"fault_plan": "nanrows"})):
+            c = with_options(cfg, **opts)
+            step = build_train_step(c, tcfg, plan, opt, sched, params, b,
+                                    mesh=mesh, zero1=True, sentinel=True)
+            tensors = [t for leaf in state_leaves(params, state)
+                       for t in leaf.tensors]
+            before, clock = tensor_digests(torch, tensors), state.step
+            seen.clear()
+            params, state, m, sent = step(params, state, b, i + 1, sent)
+            after = tensor_digests(torch, tensors)
+            st = seen[0]
+            runs.append({"skip": float(m["skip"]), "loss": float(m["loss"]),
+                         "fault_events": st.fault_events.cpu().numpy(),
+                         "wire_faults": st.wire_faults.cpu().numpy(),
+                         "metric_events": float(m["fault_events"]),
+                         "unchanged": before == after,
+                         "clock": (clock, state.step)})
+            b = next(pipe)
+    finally:
+        T.forward = orig
+    pipe.close()
+    launches = ops.launch_counts()
+    del params, state
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches}
+
+
+def check_fault_train(out, n_dev):
+    """Phase 19 (c)'s checks over the ranks' ``_fault_train_rank``
+    results: the quarantined bit flip's step continues on every rank with
+    a finite loss and its wire faults at (hop 0, one source) only, ``n_dev
+    x`` the MoE layers, in the step's metrics too (a remat recompute
+    counts nothing more); the ``nanrows`` step is skipped with every
+    tensor and the step clock bit-unchanged.  Returns ``(MoE layers,
+    flagged source)``."""
+    import numpy as np
+    q, n = [o["runs"][0] for o in out], [o["runs"][1] for o in out]
+    for r, (a, b) in enumerate(zip(q, n)):
+        if not (a["skip"] == 0.0 and math.isfinite(a["loss"])):
+            raise AssertionError(f"faulted training: rank {r} did not "
+                                 f"continue past the quarantined bit flip: "
+                                 f"{a}")
+        if not (b["skip"] == 1.0 and b["unchanged"]
+                and b["clock"][0] == b["clock"][1]):
+            raise AssertionError(f"faulted training: rank {r} did not skip "
+                                 f"the nanrows step cleanly: {b}")
+        if out[r]["launches"] != out[0]["launches"]:
+            raise AssertionError("faulted training: the ranks' launches "
+                                 "differ")
+    wf = q[0]["wire_faults"]
+    layers = int(round(float(wf.sum()) / n_dev))
+    hop0 = np.nonzero(wf[0])[0].tolist()
+    if not (layers >= 1 and len(hop0) == 1 and not wf[1:].any()
+            and wf[0, hop0[0]] == n_dev * layers
+            and all(a["metric_events"] == n_dev * layers for a in q)):
+        raise AssertionError(f"faulted training: wire faults {wf}, events "
+                             f"{[a['metric_events'] for a in q]}")
+    return layers, hop0[0]
+
+
+def phase_fault_containment(torch, ops, pool, cuda=True, reduced=False):
+    """Phase 19 on phase 17's ranks (``pool``): (a) the fault matrix of
+    two MoE layers at full width, (b) the wire's cost on phase 16's
+    dropless serve, (c) containment in a ZeRO-1 + sentinel training step.
+    (``cuda=False, reduced=True`` on CPU ranks rehearses it.)"""
+    import numpy as np
+    from repro_torch.common import faultinject as FI
+    from repro_torch.sharding import comm
+    n_dev = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    if cuda:
+        # the parity fold and its length and tag terms wrap int32 on the card
+        # as on the CPU: a hop-2 slab's words, bf16 and fp32
+        g = torch.Generator().manual_seed(0)
+        lens = torch.randint(0, 900, (64,), generator=g, dtype=torch.int32)
+        bounds = torch.cat([torch.zeros(1, dtype=torch.int32),
+                            torch.cumsum(lens + 7, 0).to(torch.int32)])
+        tags = torch.arange(64, dtype=torch.int32) * 3001
+        for dt in (torch.bfloat16, torch.float32):
+            rows = (torch.randn((int(bounds[-1]), 2048), generator=g)
+                    * 1e4).to(dt)
+            a = comm.segment_parity_words(rows.cuda(), bounds.cuda(),
+                                          lens.cuda(), tags.cuda()).cpu()
+            b = comm.segment_parity_words(rows, bounds, lens, tags)
+            if not torch.equal(a, b):
+                raise AssertionError(f"parity words on the card part from "
+                                     f"the CPU's ({dt})")
+        print(f"  parity words of 64 segments x 2048 lanes (bf16, fp32; "
+              f"tags to 189,063, terms wrapping int32): the card's equal "
+              f"the CPU's")
+        # a nanrows plan hands the routers NaN rows: the fused router's ids
+        # must be lax.top_k's (NaN first, lowest index), never past E
+        from repro_torch.kernels import ref
+        x = torch.randn((512, 768), generator=g).to(torch.bfloat16)
+        x[::37] = float("nan")
+        w = torch.randn((768, 16), generator=g) / 28.0
+        for k in (1, 2):
+            got = ops.router_fused(x.cuda(), w.cuda(), k)[1].cpu()
+            want = ref.router_fused_ref(x, w, k)[1]
+            if not (torch.equal(got, want) and int(got.max()) < 16):
+                raise AssertionError(f"router_fused on NaN rows, k {k}: ids "
+                                     f"part from the plain version's")
+        print(f"  router_fused on 512 rows, 14 of them NaN, k 1 and 2: ids "
+              f"equal the plain version's (NaN first, lowest index)")
+    serve_kw = dict(arch=SERVE["arch"], reduced=reduced,
+                    num_layers=None if reduced else SERVE["num_layers"],
+                    moe_grid=None if reduced else SERVE["moe_grid"],
+                    batch=8, prompt_len=128)
+    pool.run(_mesh_rank_init, serve_kw, "bfloat16")
+
+    # ---- (a) the matrix -----------------------------------------------------
+    for arch in FAULT_LAYERS:
+        levels = (0, 1) if arch == SERVE["arch"] else (0,)
+        cells = fault_cells(levels)
+        t1 = time.perf_counter()
+        got = pool.run(_fault_layer_rank, arch, reduced, cells, 1)
+        hops = got[0]["hops"]
+        if sorted(hops) != list(levels) or any(g["hops"] != hops
+                                               for g in got):
+            raise AssertionError(f"faults {arch}: ragged hops {hops}")
+        res = {}
+        for name in cells:
+            rs = [g["cells"][name] for g in got]
+            for r, x in enumerate(rs):
+                for k in ("drop_frac", "hop_drop_frac", "fault_events",
+                          "wire_faults"):
+                    if not np.array_equal(x[k], rs[0][k]):
+                        raise AssertionError(f"faults {arch} {name}: rank "
+                                             f"{r}'s {k} is not rank 0's")
+                want = (FAULT_LAYER_LAUNCHES[arch] if cuda
+                        else dict.fromkeys(x["launches"], 0))
+                if x["launches"] != want:
+                    raise AssertionError(f"faults {arch} {name}: rank {r} "
+                                         f"launches {x['launches']}, "
+                                         f"expected {want}")
+            res[name] = {**rs[0], "y": np.concatenate([x["y"] for x in rs])}
+        y0 = res["healthy"]["y"]
+        for name, r in res.items():
+            check_fault_cell(name, r, y0, hops, n_dev)
+        victims = {f"{k}:{lvl}": FI.wire_fault_victim(
+            FI.parse_fault_plan(f"{k}:{lvl}"), lvl, *hops[lvl])
+            for k in ("nanrows", "bitflip", "inflate", "dupseg")
+            for lvl in levels}
+        print(f"  (a) {arch}'s MoE layer, {len(cells)} cells, ragged hops "
+              f"(P, groups a rank) {hops}: every cell held "
+              f"({time.perf_counter() - t1:.1f} s); counts events "
+              f"{res['counts']['fault_events'].tolist()} drop "
+              f"{float(res['counts']['drop_frac']):.4f}; quarantined "
+              f"sources {victims}; detect bitflip:0 flagged "
+              f"{np.argwhere(res['detect-bitflip:0']['wire_faults']).tolist()}"
+              f"; launches a call {got[0]['cells']['healthy']['launches']}")
+
+    # ---- (b) the wire's cost on the dropless serve --------------------------
+    t1 = time.perf_counter()
+    keep = {p: pool.run(_wire_serve_rank, p, WIRE_SERVE_TOKENS, True)
+            for p in WIRE_POLICIES}
+    for p in WIRE_POLICIES[1:]:
+        for r, (a, b) in enumerate(zip(keep["off"], keep[p])):
+            same = (np.array_equal(a["tokens"], b["tokens"])
+                    and np.array_equal(a["logits"].view(np.uint8),
+                                       b["logits"].view(np.uint8)))
+            if not (same and b["finite"]):
+                raise AssertionError(f"wire serve {p}: rank {r}'s tokens or "
+                                     f"logits are not the plain path's")
+            if b["launches"] != a["launches"]:
+                raise AssertionError(f"wire serve {p}: rank {r} launches "
+                                     f"{b['launches']}, off "
+                                     f"{a['launches']}")
+    # warm, in turns (off, detect, quarantine, then back), each collective
+    # timed; a policy's times are the better of its two runs
+    timed = {p: [] for p in WIRE_POLICIES}
+    for p in WIRE_POLICIES + WIRE_POLICIES[::-1]:
+        timed[p].append(pool.run(_wire_serve_rank, p, WIRE_SERVE_TOKENS,
+                                 False, True))
+    print(f"  (b) phase 16's dropless serve, {WIRE_SERVE_TOKENS} new tokens: "
+          f"tokens and logits under detect and quarantine bit-equal to off "
+          f"on every rank ({time.perf_counter() - t1:.1f} s)")
+    for p in WIRE_POLICIES:
+        pre = [max(x["prefill_s"] for x in w) * 1e3 for w in timed[p]]
+        dec = [max(x["decode_s"] / max(x["steps"], 1) for x in w) * 1e3
+               for w in timed[p]]
+        print(f"  {p}, warm, the collectives timed, slowest rank (two runs "
+              f"in turns): prefill {pre[0]:.2f}, {pre[1]:.2f} ms, decode "
+              f"{dec[0]:.2f}, {dec[1]:.2f} ms a step")
+        x = min(timed[p], key=lambda w: max(y["decode_s"] for y in w))[0]
+        for phase in ("prefill", "decode"):
+            n = 1 if phase == "prefill" else max(x["steps"], 1)
+            inside = wire_lines(x["wire"][phase], n, f"{p} {phase}")
+            total = (x["prefill_s"] if phase == "prefill"
+                     else x["decode_s"] / n)
+            print(f"    {p} {phase}, rank 0 (the faster run): inside comm "
+                  f"{inside / n * 1e3:.2f} of {total * 1e3:.2f} ms")
+
+    # ---- (c) containment in training ----------------------------------------
+    t1 = time.perf_counter()
+    kw = dict(FAULT_TRAIN, reduced=reduced)
+    if reduced:
+        kw.update(num_layers=None, moe_grid=None)
+    out = pool.run(_fault_train_rank, kw)
+    layers, victim = check_fault_train(out, n_dev)
+    q, n = [o["runs"][0] for o in out], [o["runs"][1] for o in out]
+    wf = q[0]["wire_faults"]
+    print(f"  (c) {kw['arch']} ({kw['num_layers']} layers, dropless) under "
+          f"ZeRO-1 and the sentinel: quarantined bitflip:0 step loss "
+          f"{q[0]['loss']:.5f}, skip {[a['skip'] for a in q]}, wire faults "
+          f"at (hop 0, source {victim}) {wf[0, victim]:g} = {n_dev} ranks x "
+          f"{layers} MoE layer(s); nanrows step loss {n[0]['loss']}, skip "
+          f"{[b['skip'] for b in n]}, every tensor and the step clock "
+          f"bit-unchanged {[b['unchanged'] for b in n]}; launches a rank "
+          f"{out[0]['launches']} ({time.perf_counter() - t1:.1f} s)")
+    print(f"  phase 19 {time.perf_counter() - t0:.1f} s")
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -3378,11 +3883,18 @@ def main() -> int:
                     f"host), its config, weights and batches, then a "
                     f"poisoned step")
         phase_robust_mesh(torch, ops, pool, runs["smile-3.7b"])
+        clock.start(f"phase 19: fault containment on phase 17's ranks "
+                    f"({card}). (a) _faults.py's matrix on qwen3-moe's and "
+                    f"switch-3.7b's MoE layers at full width; (b) the "
+                    f"checksummed wire's cost on phase 16's dropless serve; "
+                    f"(c) a quarantined bit flip and a nanrows step under "
+                    f"ZeRO-1 and the sentinel")
+        phase_fault_containment(torch, ops, pool)
 
     phase_mesh_train(torch, ops, after=robust_mesh)
-    print(f"  (b) one rank: smile-3.7b, full width, 2 of 12 layers, the "
-          f"sentinel on; two runs, then a halted run's snapshot and its "
-          f"resume ({card})")
+    clock.start(f"phase 18 (b): one rank: smile-3.7b, full width, 2 of 12 "
+                f"layers, the sentinel on; two runs, then a halted run's "
+                f"snapshot and its resume ({card})")
     phase_robust_one_rank(torch, ops)
     clock.stop()
 

@@ -5,8 +5,6 @@ the port never imports the JAX package.  Every architecture in
 ``repro_torch.configs`` instantiates a :class:`ModelConfig`.  The option
 registries and their help strings are kept verbatim: the tests hold this
 copy equal to the reference field by field and default by default.
-The one difference is :meth:`MoEConfig.with_options`, which rejects a
-``fault_plan`` because fault injection is not ported yet.
 """
 from __future__ import annotations
 
@@ -314,12 +312,11 @@ class MoEConfig:
                     raise ValueError(f"{key}={val!r}: expected a string or "
                                      f"None")
                 if key == "fault_plan":
-                    # the fault-injection harness is not ported: fail at
-                    # config time instead of running a plan nothing injects
-                    raise ValueError(
-                        f"fault_plan={val!r}: fault injection is not ported "
-                        f"to repro_torch yet (ROADMAP queue 1, item 8); pass "
-                        f"fault_plan=None")
+                    # fail at config time, not silently mid-run (parse_
+                    # fault_plan raises ValueError on malformed specs)
+                    from repro_torch.common.faultinject import (
+                        parse_fault_plan)
+                    parse_fault_plan(val)
         cfg = dataclasses.replace(self, **kw)
         # registry-declared prerequisites, checked on the RESULT so partial
         # updates can't configure a knob onto a path that ignores it (an

@@ -34,7 +34,8 @@
 //
 // Softmax and top-k: one warp per token; softmax max-subtracted, exp(l - m)
 // / sum as torch.softmax; k rounds of max extraction in which the lowest
-// expert index wins ties, the order lax.top_k guarantees.  Gate
+// expert index wins ties and NaN ranks above every number, the order
+// lax.top_k guarantees.  Gate
 // renormalisation stays in the wrapper.
 //
 // Positions: one warp walks the block's assignments in token-major,
@@ -85,6 +86,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// top-k's order: NaN above every number (as lax.top_k), the lower expert
+// index on ties, so that a NaN row (a fault plan's) picks its lanes in
+// order and never an index past E
+__device__ __forceinline__ bool ranks_above(float v, int j, float b, int bj) {
+  const bool vn = v != v, bn = b != b;
+  if (vn != bn) return vn;
+  return v > b || ((v == b || vn) && j < bj);
+}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -326,12 +336,12 @@ router_kernel(const T* __restrict__ x, const float* __restrict__ w, int t,
       int bi = E;
       for (int j = lane; j < E; j += 32) {
         const float v = work[j];
-        if (v > best || (v == best && j < bi)) { best = v; bi = j; }
+        if (ranks_above(v, j, best, bi)) { best = v; bi = j; }
       }
       for (int off = 16; off > 0; off >>= 1) {
         const float ob = __shfl_xor_sync(0xffffffffu, best, off);
         const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+        if (ranks_above(ob, oi, best, bi)) { best = ob; bi = oi; }
       }
       if (lane == 0) {
         gates[(size_t)row * k + q] = best;

@@ -104,7 +104,9 @@ def group_sort_ref(keys: torch.Tensor, num_keys: int):
 def topk_lowest_index(probs: torch.Tensor, k: int):
     """Top-k of each row by ``k`` max-extraction rounds, the lowest index
     winning ties (the order ``lax.top_k`` guarantees and ``torch.topk``
-    does not promise).  Returns ``(gates (t, k), idx (t, k) int32)``."""
+    does not promise), NaN above every number as in ``lax.top_k`` (a NaN
+    row, as a fault plan makes, picks its lanes in order).  Returns
+    ``(gates (t, k), idx (t, k) int32)``."""
     E = probs.shape[-1]
     if not 1 <= k <= E:
         raise ValueError(f"top-k {k} must be in [1, {E}]")
@@ -112,8 +114,9 @@ def topk_lowest_index(probs: torch.Tensor, k: int):
     work = probs
     gsel, isel = [], []
     for _ in range(k):
-        g = work.max(dim=-1, keepdim=True).values
-        sel = torch.where(work == g, lane, E).min(dim=-1, keepdim=True).values
+        # argmax: the first of the largest, NaN the largest
+        sel = work.argmax(dim=-1, keepdim=True)
+        g = work.gather(-1, sel)
         gsel.append(g)
         isel.append(sel)
         work = torch.where(lane == sel, -math.inf, work)

@@ -192,6 +192,10 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         plan = single_device_plan()
     else:
         device, plan = mesh.device, plan_from_mesh(mesh)
+    # a fault plan or a checked wire: the log line carries the MoE layers'
+    # fault events and wire verdicts
+    faulted = cfg.moe is not None and (cfg.moe.fault_plan is not None
+                                       or cfg.moe.wire_integrity != "off")
     loud = mesh is None or mesh.rank == 0
     say = print if loud else (lambda *a: None)
     tcfg = TrainConfig(global_batch_size=batch, seq_len=seq, steps=steps,
@@ -267,7 +271,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
                 f"lb {m['lb']:.4f} drop {m['drop_frac']:.3f} "
                 f"gnorm {m['grad_norm']:.2f} {m['step_ms']:.1f} ms/step "
                 f"tok/s {m['tokens_per_s']:,.0f}"
-                + (f" skip {m['skip']:.0f}" if sentinel else ""))
+                + (f" skip {m['skip']:.0f}" if sentinel else "")
+                + (f" faults {m['fault_events']:g} wire {m['wire_faults']:g}"
+                   if faulted else ""))
             history.append({"step": i + 1, **m})
             t_last, c_last, i_last = now, counts, i + 1
         if anomaly and mgr is not None:

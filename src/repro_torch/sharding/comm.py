@@ -47,6 +47,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.dispatch import ragged_row_membership
+
 Axes = Union[None, str, Tuple[str, ...]]
 
 # the mesh this process is bound to (launch.mesh.make_mesh sets it)
@@ -407,7 +409,8 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
                       axes: Axes, *, recv_rows: int,
                       seg_rows: Optional[int] = None,
                       recv_counts: Optional[torch.Tensor] = None,
-                      allow_truncate: bool = False
+                      allow_truncate: bool = False,
+                      arrive_counts: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All2All of exact per-peer row segments.
 
@@ -435,6 +438,18 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
     ``recv`` is ``rows`` zero-padded or cut to ``recv_rows`` (``rows``
     itself when it has ``recv_rows`` rows), with ``recv_counts =
     send_counts``.
+
+    ``arrive_counts`` (P,) are the rows each source really sends here,
+    where the receiver's belief ``recv_counts`` may part from them (a
+    quarantined or rewritten count grid): the exchange moves what the
+    peers send, sized by ``arrive_counts``, and lays out what the receiver
+    believes: source ``p``'s row ``i < recv_counts[p]`` at the exclusive
+    cumsum of ``recv_counts`` is its arrived row ``i`` while ``i <
+    arrive_counts[p]``, zero past it; arrived rows past the belief are
+    discarded, and rows past ``recv_rows`` cut (no truncating plan: every
+    arrival moves).  Where the belief passes what was sent, the JAX
+    package's emulations read the sender's next staged rows there; this
+    exchange reads zeros.  Where they agree it is the plain exchange.
     """
     assert_count_i32(send_counts, "ragged_all_to_all(send_counts)")
     if recv_counts is not None:
@@ -451,6 +466,14 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
         return out, send_counts
     if recv_counts is None:
         recv_counts = exchange_counts(send_counts, naxes)
+    if arrive_counts is not None:
+        assert_count_i32(arrive_counts, "ragged_all_to_all(arrive_counts)")
+        sc, rc, ac = torch.stack([send_counts, recv_counts,
+                                  arrive_counts]).tolist()
+        place = (None if ac == rc and sum(rc) <= recv_rows
+                 else _belief_layout(ac, rc, recv_rows))
+        out = _Ragged.apply(rows, naxes, g, sc, sc, ac, recv_rows, place)
+        return out, recv_counts
     sc = send_counts.tolist()
     rc = recv_counts.tolist()
     if allow_truncate:
@@ -464,22 +487,44 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
                              f"arrive past the receive bound {recv_rows} "
                              f"(pass allow_truncate=True to cut them)")
         ssz, rsz = sc, rc
-    out = _Ragged.apply(rows, naxes, g, sc, ssz, rsz, recv_rows)
+    out = _Ragged.apply(rows, naxes, g, sc, ssz, rsz, recv_rows, None)
     return out, recv_counts
 
 
+def _belief_layout(ac: List[int], rc: List[int], recv_rows: int
+                   ) -> List[Tuple[int, int, int]]:
+    """The copies ``(arrived row, out row, rows)`` that lay arrivals of
+    ``ac[p]`` rows a source out as the receiver believes (``rc[p]`` rows a
+    source at their exclusive cumsum), cut at ``recv_rows``."""
+    place, a, o = [], 0, 0
+    for n_a, n_r in zip(ac, rc):
+        n = max(min(n_a, n_r, recv_rows - o), 0)
+        if n:
+            place.append((a, o, n))
+        a += n_a
+        o += n_r
+    return place
+
+
 def _exchange(x: torch.Tensor, axes, g, ssz: List[int], rsz: List[int],
-              recv_rows: int, what: str) -> torch.Tensor:
+              recv_rows: int, what: str, place=None) -> torch.Tensor:
     """One ``all_to_all_single`` of the compact segments ``x`` (``ssz[p]``
     rows for peer ``p``, one after another): the ``rsz`` rows that arrive,
-    source-major at row 0 of a zero slab of ``recv_rows``."""
+    source-major at row 0 of a zero slab of ``recv_rows``, or copied to
+    it by ``place`` (``(arrived row, out row, rows)`` triples).  Only
+    copies touch the rows: a checksummed wire's parity rows are integers
+    in float lanes."""
     rest = tuple(x.shape[1:])
     c = _Call(what, axes, x)
     send = _wire(x).contiguous()
     got = send.new_empty((sum(rsz),) + rest)
     dist.all_to_all_single(got, send, rsz, ssz, group=g.pg)
     out = x.new_zeros((recv_rows,) + rest)
-    out[:got.shape[0]] = got
+    if place is None:
+        out[:got.shape[0]] = got
+    else:
+        for a, o, n in place:
+            out[o:o + n] = got[a:a + n]
     sent = sum(ssz) - ssz[g.index]
     c.done(sent, sent * math.prod(rest) * x.element_size())
     return out
@@ -488,31 +533,174 @@ def _exchange(x: torch.Tensor, axes, g, ssz: List[int], rsz: List[int],
 class _Ragged(torch.autograd.Function):
     """The ragged exchange: segment ``p`` is the first ``ssz[p]`` of the
     ``sc[p]`` rows at the exclusive cumsum of ``sc``; what arrives lies
-    source-major from row 0.  The backward sends the cotangent of the
-    arrived rows back with the sizes swapped and puts each segment's at
-    its rows (the rows a truncation cut, and rows past the segments, get
+    source-major from row 0, or where ``place`` copies it.  The backward
+    gathers the cotangent of the arrived rows, sends it back with the
+    sizes swapped and puts each segment's at its rows (the rows a
+    truncation cut or a belief discarded, and rows past the segments, get
     zero)."""
 
     @staticmethod
-    def forward(ctx, rows, axes, g, sc, ssz, rsz, recv_rows):
+    def forward(ctx, rows, axes, g, sc, ssz, rsz, recv_rows, place):
         starts = [sum(sc[:i]) for i in range(len(sc))]
-        ctx.args = (axes, g, ssz, rsz, starts, rows.shape[0])
+        ctx.args = (axes, g, ssz, rsz, starts, rows.shape[0], place)
         send = (rows[:sum(sc)] if ssz == sc else
                 torch.cat([rows[o:o + n] for o, n in zip(starts, ssz)]))
         return _exchange(send, axes, g, ssz, rsz, recv_rows,
-                         "ragged_all_to_all")
+                         "ragged_all_to_all", place)
 
     @staticmethod
     def backward(ctx, ct):
-        axes, g, ssz, rsz, starts, R = ctx.args
-        back = _exchange(ct[:sum(rsz)], axes, g, rsz, ssz, sum(ssz),
+        axes, g, ssz, rsz, starts, R, place = ctx.args
+        if place is None:
+            arrived = ct[:sum(rsz)]
+        else:
+            arrived = ct.new_zeros((sum(rsz),) + tuple(ct.shape[1:]))
+            for a, o, n in place:
+                arrived[a:a + n] = ct[o:o + n]
+        back = _exchange(arrived, axes, g, rsz, ssz, sum(ssz),
                          "ragged_all_to_all.grad")
         out = back.new_zeros((R,) + tuple(back.shape[1:]))
         o = 0
         for s, n in zip(starts, ssz):
             out[s:s + n] = back[o:o + n]
             o += n
-        return out, None, None, None, None, None, None
+        return out, None, None, None, None, None, None, None
+
+
+# --------------------------------------------------- wire integrity (parity)
+# Fold multipliers of the per-segment integrity word: both odd (units mod
+# 2^32, so distinct lengths and tags map to distinct residues) and far
+# apart, so that a one-row value delta cannot mimic either.
+WIRE_LEN_MULT = 1000003
+WIRE_TAG_MULT = 777767777
+
+_LANE_INT = {4: torch.int32, 2: torch.int16}
+
+
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor wrapped to int32 (two's complement), explicitly, the
+    same on every device."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def int_lane_view(rows: torch.Tensor) -> torch.Tensor:
+    """A float slab's bits as int32 lanes (16-bit lanes sign-extended); no
+    gradient.  The fold of a bf16 slab and of its fp32 upcast differ: folds
+    compare only with folds of the same payload dtype."""
+    return rows.detach().view(_LANE_INT[rows.element_size()]).to(torch.int32)
+
+
+def words_to_rows(words: torch.Tensor, dtype) -> torch.Tensor:
+    """Int32 integrity words stored as rows of a ``dtype`` slab: a 32-bit
+    lane holds the whole word, a 16-bit lane its low half (the even
+    elements of the little-endian int16 view)."""
+    assert_count_i32(words, "words_to_rows(words)")
+    if dtype.itemsize == 4:
+        return words.view(dtype)
+    return words.view(torch.int16)[..., 0::2].contiguous().view(dtype)
+
+
+def stored_words(words: torch.Tensor, dtype) -> torch.Tensor:
+    """Int32 words projected onto what a ``dtype`` slab round-trips: the
+    domain in which expected words are compared with received parity rows
+    (a 16-bit row holds only the low half)."""
+    return int_lane_view(words_to_rows(words, dtype))
+
+
+def segment_bounds(off: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(S+1,) bounds of concatenated segments: their offsets and the end
+    of the last."""
+    return torch.cat([off, off[-1:] + counts[-1:]])
+
+
+def segment_parity_words(rows: torch.Tensor, bounds: torch.Tensor,
+                         lens: torch.Tensor, tags: torch.Tensor
+                         ) -> torch.Tensor:
+    """The integrity word of each segment of a concatenated-segments slab.
+
+    ``rows`` (R, d); ``bounds`` (S+1,) ascending segment offsets (segment
+    ``s`` spans ``[bounds[s], bounds[s+1])``, its first ``lens[s]`` rows
+    occupied); ``tags`` (S,) the identity tag of each.  Returns (S, d)
+    int32: the wrapping sum of the occupied rows' int32 lanes plus ``lens
+    * WIRE_LEN_MULT + tags * WIRE_TAG_MULT``.  The fold is an int32
+    ``index_add_``, which wraps and does not depend on the order of its
+    adds; the length and tag term is taken in int64 and wrapped.
+    """
+    assert_count_i32(lens, "segment_parity_words(lens)")
+    assert_count_i32(tags, "segment_parity_words(tags)")
+    S = lens.shape[0]
+    seg, _, valid = ragged_row_membership(bounds, lens, rows.shape[0])
+    contrib = torch.where(valid[:, None], int_lane_view(rows), 0)
+    fold = torch.zeros((S, rows.shape[1]), dtype=torch.int32,
+                       device=rows.device)
+    fold.index_add_(0, torch.where(valid, seg, 0).long(), contrib)
+    term = lens.long() * WIRE_LEN_MULT + tags.long() * WIRE_TAG_MULT
+    return _wrap_i32(fold.long() + term[:, None])
+
+
+def checksummed_ragged_all_to_all(rows: torch.Tensor, parity: torch.Tensor,
+                                  send_counts: torch.Tensor, axes: Axes, *,
+                                  recv_rows: int, recv_counts: torch.Tensor,
+                                  nl: int, allow_truncate: bool = False,
+                                  arrive_counts: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A ragged exchange with per-segment parity rows riding the slab.
+
+    ``rows`` (R, d) staged as :func:`ragged_all_to_all` takes them;
+    ``parity`` (P*nl, d) parity rows in the payload dtype, destination-
+    major (rows ``p*nl:(p+1)*nl`` ride at the tail of peer ``p``'s
+    segment).  ``recv_counts`` (and ``arrive_counts``, where the belief may
+    part from what arrives) are per-source data counts; the wire moves
+    ``send_counts + nl`` rows a peer and ``recv_rows`` bounds the wire
+    layout.  Returns ``(wire_recv, wire_recv_counts)``, which
+    :func:`split_checksummed_recv` splits.  One gather builds the
+    interleaved staging and one ordinary ragged exchange of the widened
+    counts moves it: no extra collective.
+    """
+    assert_count_i32(send_counts, "checksummed_ragged_all_to_all(send_counts)")
+    assert_count_i32(recv_counts, "checksummed_ragged_all_to_all(recv_counts)")
+    P, R = send_counts.shape[0], rows.shape[0]
+    scw = send_counts + nl
+    seg, within, valid = ragged_row_membership(
+        segment_bounds(excl_cumsum(scw), scw), scw, R + P * nl)
+    sc_seg = send_counts[seg.long()]
+    src = torch.where(within < sc_seg,
+                      excl_cumsum(send_counts)[seg.long()] + within,
+                      R + seg * nl + (within - sc_seg))
+    ext = torch.cat([rows, parity.to(rows.dtype)])
+    wire = torch.where(valid[:, None],
+                       ext[torch.where(valid, src, 0).long()], 0)
+    return ragged_all_to_all(
+        wire, scw, axes, recv_rows=recv_rows, recv_counts=recv_counts + nl,
+        allow_truncate=allow_truncate,
+        arrive_counts=None if arrive_counts is None else arrive_counts + nl)
+
+
+def split_checksummed_recv(wire: torch.Tensor, recv_counts: torch.Tensor,
+                           nl: int, recv_rows: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A checksummed receive split back into the payload slab and the
+    parity rows.  ``recv_counts`` (P,) believed data counts; ``recv_rows``
+    the data slab's bound.  Returns ``(data (recv_rows, d), parity (P, nl,
+    d))``: ``data`` laid out as the plain receive (source ``p`` at the
+    exclusive cumsum of ``recv_counts``, zero elsewhere).  Gathers clamp at
+    the slab's edge, so a caller that truncated the wire masks the sources
+    whose region did not fully arrive."""
+    assert_count_i32(recv_counts, "split_checksummed_recv(recv_counts)")
+    P = recv_counts.shape[0]
+    rest = tuple(wire.shape[1:])
+    woff = excl_cumsum(recv_counts + nl)
+    seg, within, valid = ragged_row_membership(
+        segment_bounds(excl_cumsum(recv_counts), recv_counts), recv_counts,
+        recv_rows)
+    last = wire.shape[0] - 1
+    src = torch.where(valid, woff[seg.long()] + within, 0).clamp(max=last)
+    data = torch.where(valid.reshape((-1,) + (1,) * len(rest)),
+                       wire[src.long()], 0)
+    pidx = (woff[:, None] + recv_counts[:, None]
+            + torch.arange(nl, dtype=torch.int32, device=wire.device)[None])
+    parity = wire[pidx.reshape(-1).clamp(max=last).long()]
+    return data, parity.reshape((P, nl) + rest)
 
 
 def name_saved(x):

@@ -17,6 +17,10 @@ JAX package's ``repro.train.checkpoint`` and ``repro.train.sentinel``.
   ZeRO-1: a healthy sentinel step is bit-identical to the sentinel-off
   step; a NaN in the experts skips the step, leaves the parameters and
   the optimizer state bit-unchanged and bumps the counters.
+* The reference's fault-plan sentinel cases: a ``nanrows`` plan makes the
+  loss NaN and the step skipped, plain and ZeRO-1, with every tensor
+  bit-unchanged and the loss EMA untouched; a ``skew`` plan counts one
+  router alarm, in both packages.
 """
 import os
 import shutil
@@ -175,9 +179,10 @@ def test_manager_stray_without_manifest(tmp_path):
 
 # ------------------------------------------------- files across the packages
 
-def _trained(steps=1, zero1=False):
+def _trained(steps=1, zero1=False, **moe_options):
     """Reduced smile-3.7b after ``steps`` sentinel steps on the CPU: its
-    parameters, optimizer state and sentinel carry."""
+    parameters, optimizer state and sentinel carry (``moe_options``, such
+    as a fault plan, on top of the fused router and the radix sort)."""
     from repro_torch.configs import get_reduced, with_options
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models.transformer import init_model
@@ -185,7 +190,7 @@ def _trained(steps=1, zero1=False):
     from repro_torch.common.config import TrainConfig
     from repro_torch.sharding.plan import single_device_plan
     from repro_torch.train.step import build_train_step, zero1_state
-    cfg = with_options(get_reduced("smile-3.7b"), **OPTS)
+    cfg = with_options(get_reduced("smile-3.7b"), **OPTS, **moe_options)
     plan = single_device_plan()
     params = init_model(cfg, plan, seed=3, device="cpu", compute_cast=False)
     opt = make_optimizer("lamb")
@@ -402,3 +407,60 @@ def test_sentinel_step_healthy_and_poisoned(zero1):
     assert (s_on.step if zero1 else s_on["step"]) == 1
     assert (float(sent.nonfinite), float(sent.skipped),
             float(sent.ema_steps)) == (1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("zero1", [False, True], ids=["plain", "zero1"])
+def test_sentinel_skips_a_nanrows_plan(zero1):
+    """``tests/test_sentinel.py``'s poisoned steps: every MoE layer's
+    dispatch buffer gets NaN rows, so the loss is NaN and the update is
+    skipped."""
+    cfg, params, state, sent, step, batch = _trained(0, zero1,
+                                                     fault_plan="nanrows")
+    before = _bits(params, state)
+    params, state, m, sent = step(params, state, batch, 1, sent)
+    assert not np.isfinite(float(m["loss"])) and float(m["skip"]) == 1.0
+    assert all(torch.equal(a, b) for a, b in zip(before, _bits(params,
+                                                               state)))
+    assert (state.step if zero1 else state["step"]) == 0
+    assert (float(sent.nonfinite), float(sent.skipped), float(sent.steps),
+            float(sent.ema_steps)) == (1.0, 1.0, 1.0, 0.0)
+
+
+def test_skew_plan_counts_a_router_alarm_in_both_packages(monkeypatch):
+    """Every assignment on one group: the watchdog's max load is 1 and
+    the sentinel counts a router alarm (without skipping the step), in the
+    port and in the JAX package (its site RNG seeded as the port's)."""
+    import random
+
+    import jax.numpy as jnp
+
+    from repro.common import faultinject as JFI
+    from repro.common.config import TrainConfig as JTrainConfig
+    from repro.configs import get_reduced as jreduced
+    from repro.data.pipeline import make_batch as jbatch
+    from repro.models.transformer import init_model as jinit
+    from repro.optim import make_optimizer as jopt
+    from repro.optim import make_schedule as jsched
+    from repro.sharding.plan import single_device_plan as jplan
+    from repro.train.step import build_train_step as jbuild
+    cfg, params, state, sent, step, batch = _trained(0, fault_plan="skew")
+    params, state, m, sent = step(params, state, batch, 1, sent)
+    assert float(m["skip"]) == 0.0 and float(m["max_load"]) == 1.0
+    assert float(sent.router_alarms) == 1.0
+
+    monkeypatch.setattr(JFI, "_rng", lambda fp, level, *tag: random.Random(
+        repr((fp.seed, fp.kind, level) + tag)))
+    jcfg = jreduced("smile-3.7b")
+    jcfg = jcfg.replace(moe=jcfg.moe.with_options(fault_plan="skew"))
+    jp = jinit(jax.random.PRNGKey(0), jcfg, jplan())
+    jb = {k: jnp.asarray(v) for k, v in jbatch(jcfg, 2, 16, 0, 0).items()}
+    opt = jopt("lamb")
+    fn, _ = jbuild(jcfg, JTrainConfig(global_batch_size=2, seq_len=16,
+                                      steps=10, optimizer="lamb",
+                                      sentinel=True),
+                   jplan(), opt, jsched("cosine", 1e-3, 1, 10), jp, jb,
+                   mesh=None, sentinel=True)
+    _, _, jm, jsent = fn(jp, opt.init(jp), jb, jnp.int32(1),
+                         JS.init_sentinel_state())
+    assert float(jm["skip"]) == 0.0 and float(jm["max_load"]) == 1.0
+    assert float(jsent.router_alarms) == 1.0

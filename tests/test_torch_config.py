@@ -62,6 +62,8 @@ def test_registry_lists_equal():
     {"sort_impl": "radix"},
     {"router_impl": "fused", "tight_level2_capacity": True},
     {"wire_integrity": "detect", "dispatch_backend": "dropless"},
+    {"fault_plan": "counts@3:1"}, {"fault_plan": "off"},
+    {"fault_plan": None},
 ])
 def test_with_options_accepts_like_reference(kw):
     assert (dataclasses.asdict(TC.MoEConfig().with_options(**kw))
@@ -71,15 +73,10 @@ def test_with_options_accepts_like_reference(kw):
 @pytest.mark.parametrize("kw", [
     {"nope": 1}, {"dispatch_backend": "x"}, {"ragged_a2a": 1},
     {"recv_bound_factor": 2.0}, {"recv_bound_factor": True},
+    {"fault_plan": "bogus"}, {"fault_plan": "counts:x"},
 ])
 def test_with_options_rejects_like_reference(kw):
     with pytest.raises(ValueError):
         JC.MoEConfig().with_options(**kw)
     with pytest.raises(ValueError):
         TC.MoEConfig().with_options(**kw)
-
-
-def test_fault_plan_rejected_until_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        TC.MoEConfig().with_options(fault_plan="counts")
-    assert TC.MoEConfig().with_options(fault_plan=None).fault_plan is None

@@ -361,9 +361,10 @@ def test_single_rank_ragged_hop_matches(A, G, block, wire):
                               G)
     jhs, jev, jbad = JP._ragged_forward(jrows, jstarts, jseg,
                                         JP.HopSpec(**kw), block)
-    ths, tev = TP._ragged_forward(trows, tstarts, tseg, TP.HopSpec(**kw),
-                                  block)
-    assert jbad is None and float(tev) == float(jev) == 0
+    ths, tev, tbad = TP._ragged_forward(trows, tstarts, tseg,
+                                        TP.HopSpec(**kw), block)
+    assert jbad is None and tbad is None
+    assert float(tev) == float(jev) == 0
     for f in dataclasses.fields(jhs):
         a, b = getattr(ths, f.name), getattr(jhs, f.name)
         if b is None or isinstance(b, int):
@@ -374,15 +375,7 @@ def test_single_rank_ragged_hop_matches(A, G, block, wire):
     jback, jsurv, _ = JP._ragged_reverse(jnp.asarray(y), jhs,
                                          JP.HopSpec(**kw))
     assert jsurv is None
-    tback, tsurv = TP._ragged_reverse(torch.from_numpy(y), ths,
-                                      TP.HopSpec(**kw))
-    assert tsurv is None
+    tback, tsurv, trbad = TP._ragged_reverse(torch.from_numpy(y), ths,
+                                             TP.HopSpec(**kw))
+    assert tsurv is None and trbad is None
     _eq(tback, jback)
-
-
-def test_fault_plan_raises():
-    from repro_torch.common.config import MoEConfig
-    cfg = dataclasses.replace(MoEConfig(), fault_plan="counts@0")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TP.execute_pipeline(torch.zeros((2, 4)), [], {}, cfg, act="silu",
-                            use_kernel=False, sync=())

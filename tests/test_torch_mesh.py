@@ -477,8 +477,8 @@ def _skew_hop_task(rank):
         spec = PL.HopSpec(name="t", axes=test_plan(4, 2).ep_axes,
                           n_ranks=WORLD, num_groups=V, exchange="ragged",
                           recv_bound_factor=SKEW_HOP["factor"])
-        hs, ev = PL._ragged_forward(rows, starts, seg_lens, spec, st.cap)
-        back, ok = PL._ragged_reverse(hs.recv * 2.0, hs, spec)
+        hs, ev, _ = PL._ragged_forward(rows, starts, seg_lens, spec, st.cap)
+        back, ok, _ = PL._ragged_reverse(hs.recv * 2.0, hs, spec)
     return {"back": back.numpy(), "ok": ok.numpy(), "kept": hs.kept.numpy(),
             "rc": hs.recv_counts.numpy(), "recv": hs.recv.numpy(),
             "ev": ev.reshape(1).numpy(),

@@ -35,6 +35,9 @@ oracles, ``remat=False``).
   (sentinel on).
 * ``specs.gather_leaf`` inverts ``shard_leaf`` for specs in and out of
   mesh order, and ``comm.psum_scatter`` and its backward hold to numpy.
+* Fault containment in training (``chip_smoke.py`` phase 19 (c) on the
+  reduced config): a bit flip quarantined on the checksummed wire, counted
+  once a rank and layer, the step going on; a ``nanrows`` step skipped.
 """
 import functools
 import os
@@ -441,6 +444,27 @@ def test_resume_over_the_mesh_is_bit_identical(zero1, ranks, tmp_path):
     for r, g in enumerate(got):
         assert g["same"], (r, "resumed run parts from the uninterrupted one")
         assert g["first"] == 3 and g["restored"] == 2, g
+
+
+def _fault_train_task(rank):
+    from chip_smoke import FAULT_TRAIN, _fault_train_rank
+    rank.state.setdefault("mesh", comm.bound_mesh())
+    return _fault_train_rank(rank, dict(FAULT_TRAIN, reduced=True,
+                                        num_layers=None, moe_grid=None))
+
+
+def test_faulted_steps_under_zero1_and_the_sentinel(ranks):
+    """``chip_smoke.py`` phase 19 (c) on reduced smile-3.7b, dropless: a
+    bit flip on hop 0's wire under ``quarantine`` is flagged once a rank
+    and layer (the remat recompute counts nothing more) and the step goes
+    on; a ``nanrows`` step is skipped with everything bit-unchanged."""
+    from chip_smoke import check_fault_train
+
+    from repro_torch.common import faultinject as FI
+    out = ranks.run(_fault_train_task, timeout_s=TIMEOUT_S)
+    layers, victim = check_fault_train(out, WORLD)
+    assert layers == 1                 # reduced smile-3.7b: one MoE layer
+    assert victim == FI.wire_victim(FI.parse_fault_plan("bitflip:0"), 0, 2)
 
 
 def test_gather_leaf_inverts_shard_leaf(ranks):
