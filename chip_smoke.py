@@ -212,7 +212,44 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     0) with ``wire_faults`` at (hop 0, victim) only, ``4 x`` the MoE
     layers; a ``nanrows`` step with the wire off is skipped on every
     rank with every tensor and the step clock bit-unchanged.
-20. A ``{"kernels": [...]}`` line, then the card line, then the last line
+20. The rest of serving over phase 16's mesh (4 ranks sharing the card
+    under gloo, a new ``RankPool``), after the one-rank runs of the same
+    weights in this process.  (a) The continuous-batching engine over the
+    mesh (``Engine(..., mesh=)``: every rank runs the same scheduler, the
+    decode batch is all 8 slots replicated over ``data``, the steps run
+    eagerly) on qwen3-moe-30b-a3b at phase 13's cut (dropless, then sort
+    at ``NO_DROP_CF``, where no token drops on either side) and on
+    qwen1.5-0.5b at full width and depth, the first 8 of phase 13's
+    requests: a bf16 kernel-path run (every launch count set to 0 just
+    before and read just after: each rank's its path's per forward times
+    the forwards run; 0 captures; the wire timed: the slowest rank's tick,
+    TTFT and TPOT mean, p50 and p90, tokens/s, and rank 0's time inside
+    ``comm`` by op; rank 0 keeps each kernel's first call at each shape of
+    the decode step and of the largest prefill bucket and holds it against
+    its plain version after the run), then an fp32 plain-path run.  Every
+    rank's tokens equal in each run.  Against the one-rank engine: in bf16
+    each request's first-token logits within 5% of the largest (phase
+    16's bf16 bound) and the token agreement printed; in fp32 each
+    request's tokens equal (or a near tie) and its logits within phase 4's
+    tolerance up to the token whose tick parted its route
+    (``engine_route_parts``), at most 1% of the token-layers parted and at
+    least half the requests keeping their route.  (b) Phase 16's dropless
+    serve (a ring cache of 160) with ``kv_seq_shard`` (80 slots a model
+    rank, every KV head, the queries all-gathered and the softmax
+    partials merged) against the same serve without it, on phase 3's
+    weights (the KV projections all-gathered over ``model``), each row
+    held by phase 16's ``check_tokens_and_logits`` up to where its route
+    parts: fp32 on the plain path (at most 1% of the token-layers parted,
+    half the rows keeping their route), bf16 on the kernel path (its
+    prefill logits printed), with each rank's launches.  (c) rwkv6-1.6b at
+    full width and depth over tensor parallelism (16 of 32 heads a rank):
+    the fixed-batch serve (batch 8, prompt 128, 8 new tokens) and the
+    cache-less kernel forward (4 x 2,048 tokens; 24 WKV6 launches a rank,
+    the kernel held at a rank's shape) against one rank, fp32 within
+    phase 4's tolerance (bf16 printed: one extra bf16 rounding a layer, the
+    reference's, moves rwkv6's logits at 24 layers by more than their
+    spread).
+21. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -572,19 +609,28 @@ def bound(nbytes: float, ops: float, peak_ops: float):
             else "operations")
 
 
-def add_row(rows, name, shape, got, want, ms, plain_ms, b,
-            library_ms=None):
+def make_row(name, shape, got, want, ms, plain_ms, b, library_ms=None):
+    """A kernel's row (its error against the plain version, its times and
+    bound) and the line that prints it."""
     err = (got.float() - want.float()).abs().max().item()
     rel = err / max(want.float().abs().max().item(), 1e-30)
-    rows.setdefault(name, []).append(dict(
-        shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
     lib = ("n/a" if library_ms is None else f"{library_ms:.4f} ms, kernel "
            f"{ms / library_ms:.2f}x of it")
-    print(f"  {name:15s} {shape:13s} max abs err {err:.3e} (over max "
-          f"|ref|: {rel:.2e})  kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]}; kernel at "
-          f"{100 * b[0] / ms:.1f}% of it)  library {lib}")
+    line = (f"  {name:15s} {shape:13s} max abs err {err:.3e} (over max "
+            f"|ref|: {rel:.2e})  kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]}; kernel at "
+            f"{100 * b[0] / ms:.1f}% of it)  library {lib}")
+    return dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=library_ms), line
+
+
+def add_row(rows, name, shape, got, want, ms, plain_ms, b,
+            library_ms=None):
+    row, line = make_row(name, shape, got, want, ms, plain_ms, b,
+                         library_ms)
+    rows.setdefault(name, []).append(row)
+    print(line)
 
 
 def phase_kernels(torch, ops, ref):
@@ -2193,34 +2239,136 @@ def phase_engine_card_vs_cpu(torch, ops, arch, moe_options=None):
     if a.ticks != b.ticks:
         raise AssertionError(f"{arch} engine: {a.ticks} ticks on the CPU, "
                              f"{b.ticks} on the card")
+    n_same, worst = check_request_tokens(
+        a.finished, _np_logits(logits["cpu"]), b.finished,
+        _np_logits(logits["cuda"]), LOGITS_ATOL, f"{arch} engine")
+    print(f"  {arch} {moe_options or ''}: {n_same} of {len(a.finished)} "
+          f"requests' tokens equal; largest logits difference up to where a "
+          f"request parts {worst:.3e}")
+
+
+@contextlib.contextmanager
+def record_engine_moe(eng):
+    """While open, each MoE layer call of ``eng``'s steps appends ``(y,
+    owners)`` to the yielded list: the call's output rows on the host (over
+    a mesh the rank's share of the call's tokens, ``comm.split_tokens``)
+    and, for each of the call's tokens in order, ``(uid, the index of the
+    token its tick generates)``, or None for a dead slot or a prefill
+    chunk's padding.  It wraps ``transformer.moe_layer`` and the engine's
+    ticks."""
+    from repro_torch.models import transformer as T
+    calls, owners = [], []
+    orig = T.moe_layer
+    saved = {k: eng.__dict__.get(k) for k in ("_prefill_tick",
+                                              "_decode_tick")}
+    prefill_tick, decode_tick = eng._prefill_tick, eng._decode_tick
+
+    def moe_layer(*a, **kw):
+        y, stats = orig(*a, **kw)
+        calls.append((y.float().cpu().numpy(), list(owners)))
+        return y, stats
+
+    def prefill():
+        if eng.prefilling:
+            req, _, start = eng.prefilling[0]
+            n = min(len(req.prompt) - start, eng.buckets[-1])
+            bucket = next(b for b in eng.buckets if b >= n)
+            owners[:] = [(req.uid, 0)] * n + [None] * (bucket - n)
+        prefill_tick()
+
+    def decode():
+        owners[:] = [(r.uid, len(r.generated)) if eng._live[i] else None
+                     for i, r in enumerate(eng.slot_req)]
+        decode_tick()
+
+    T.moe_layer = moe_layer
+    eng._prefill_tick, eng._decode_tick = prefill, decode
+    try:
+        yield calls
+    finally:
+        T.moe_layer = orig
+        for k, v in saved.items():
+            if v is None:
+                del eng.__dict__[k]
+            else:
+                setattr(eng, k, v)
+
+
+def engine_route_parts(one_calls, mesh_calls):
+    """Where the mesh engine's tokens took other experts than one rank's
+    (ROUTE_REL, as :func:`routing_parts`): ``one_calls`` from
+    :func:`record_engine_moe` on one rank, ``mesh_calls`` the same from a
+    data rank's model ranks, in model order (their shares put back in
+    token order).  Returns ``({uid: the index of the first token whose
+    tick's route parted, or the request's length}, parted token-layers,
+    all)``."""
+    import numpy as np
+    if any(len(c) != len(one_calls) for c in mesh_calls):
+        raise AssertionError(f"MoE calls: {len(one_calls)} on one rank, "
+                             f"{[len(c) for c in mesh_calls]} on the mesh")
+    upto, parted, total = {}, 0, 0
+    for i, (want, owners) in enumerate(one_calls):
+        got = np.concatenate([c[i][0] for c in mesh_calls])[:len(owners)]
+        rel = (np.abs(got - want).max(1)
+               / np.maximum(np.abs(want).max(1), 1e-30))
+        for o, r in zip(owners, rel):
+            if o is None:
+                continue
+            u, j = o
+            upto.setdefault(u, 1 << 30)
+            total += 1
+            if r > ROUTE_REL:
+                parted += 1
+                upto[u] = min(upto[u], j)
+    return upto, parted, total
+
+
+def _np_logits(kept):
+    """:func:`keep_logits`' ``{uid: [logits tensor, ...]}`` as numpy."""
+    return {u: [x.float().numpy() for x in v] for u, v in kept.items()}
+
+
+def check_request_tokens(want_tok, want_lg, got_tok, got_lg, atol: float,
+                         what: str, upto=None):
+    """Two engine runs of one trace: ``{uid: tokens}`` and ``{uid: [(V,)
+    logits of each token]}`` (numpy) each.  Every request's tokens equal
+    or, where they first part, a near tie: that token's logits within
+    ``atol`` and the first run's top-2 margin under ``2 * atol``; up to
+    where a request parts (each run was fed the same tokens until then),
+    logits within ``atol``.  ``upto[uid]`` (default all) compares a
+    request's first tokens only.  Returns ``(requests equal, largest
+    logits difference)``."""
+    import numpy as np
     n_same, worst = 0, 0.0
-    for u in sorted(a.finished):
-        ta, tb = a.finished[u], b.finished[u]
-        la, lb = logits["cpu"][u], logits["cuda"][u]
-        # the first token that parts, or the last; up to it both runs were
-        # fed the same tokens
+    for u in sorted(want_tok):
+        if len(want_tok[u]) != len(got_tok[u]):
+            raise AssertionError(f"{what}: request {u} gave "
+                                 f"{len(got_tok[u])} tokens, expected "
+                                 f"{len(want_tok[u])}")
+        n = len(want_tok[u]) if upto is None else upto.get(u, len(
+            want_tok[u]))
+        if n == 0:
+            continue
+        ta, tb = list(want_tok[u][:n]), list(got_tok[u][:n])
         j = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
                  len(ta) - 1)
-        errs = [(x - y).abs().max().item() for x, y in zip(la[:j + 1],
-                                                           lb[:j + 1])]
+        errs = [float(np.abs(want_lg[u][i] - got_lg[u][i]).max())
+                for i in range(j + 1)]
         worst = max(worst, max(errs))
         if ta == tb:
             n_same += 1
             continue
-        err = errs[j]
-        top2 = la[j].topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        print(f"  request {u} parts at token {j}: logits max abs "
-              f"difference {err:.3e}, top-2 margin {margin:.3e}")
-        if not (err <= LOGITS_ATOL and margin < 2 * LOGITS_ATOL):
-            raise AssertionError(f"{arch} engine, request {u}, token {j}: "
-                                 f"error {err}, margin {margin}")
-    print(f"  {arch} {moe_options or ''}: {n_same} of {len(a.finished)} "
-          f"requests' tokens equal; largest logits difference up to where a "
-          f"request parts {worst:.3e}")
-    if not worst <= LOGITS_ATOL:
-        raise AssertionError(f"{arch} engine: logits {worst} apart")
-
+        top2 = np.sort(want_lg[u][j])[-2:]
+        margin = float(top2[1] - top2[0])
+        print(f"  {what}: request {u} parts at token {j}: logits max abs "
+              f"difference {errs[j]:.3e}, top-2 margin {margin:.3e}")
+        if not (errs[j] <= atol and margin < 2 * atol):
+            raise AssertionError(f"{what}, request {u}, token {j}: error "
+                                 f"{errs[j]}, margin {margin}")
+    if not worst <= atol:
+        raise AssertionError(f"{what}: logits {worst} apart (tolerance "
+                             f"{atol})")
+    return n_same, worst
 
 
 def phase_engine_qwen3(torch, ops, fixed_step_ms):
@@ -2392,26 +2540,39 @@ def record_moe_outputs(T):
     return seen, undo
 
 
-def routing_parts(one_moe, results, batch, prompt_len, layers):
-    """Where the mesh's tokens took other experts than one rank's: each
-    call's MoE outputs put back in global token order (a rank holds its dp
-    slice's rows, split over tp as ``comm.split_tokens`` cuts them), then
-    per row the first step with a token-layer more than ROUTE_REL apart.
-    Returns ``(first parting step per row, parted token-layers, all)``."""
+def global_moe(results, batch, prompt_len, layers):
+    """The ranks' MoE outputs of each call (``record_moe_outputs``, a
+    fixed-batch ``generate``) put back in global token order: a rank holds
+    its dp slice's rows, split over tp as ``comm.split_tokens`` cuts them."""
     import numpy as np
-    steps = len(one_moe) // layers
     tp = 1 + max(r["tp_index"] for r in results)
     b_loc = batch // (1 + max(r["dp_index"] for r in results))
-    first = [steps] * batch
-    parted = total = 0
-    for i, want in enumerate(one_moe):
+    out = []
+    for i in range(len(results[0]["moe"])):
         t = prompt_len if i < layers else 1
-        got = np.zeros_like(want)
+        got = np.zeros((batch * t, results[0]["moe"][i].shape[-1]),
+                       results[0]["moe"][i].dtype)
         per = b_loc * t // tp
         f = np.arange(per)
         for r in results:
             g = r["tp_index"] * per + f
             got[(r["dp_index"] * b_loc + g // t) * t + g % t] = r["moe"][i]
+        out.append(got)
+    return out
+
+
+def routing_parts(one_moe, results, batch, prompt_len, layers):
+    """Where the mesh's tokens took other experts than one rank's
+    (``one_moe``, each call's outputs in global token order): per row the
+    first step with a token-layer more than ROUTE_REL apart.  Returns
+    ``(first parting step per row, parted token-layers, all)``."""
+    import numpy as np
+    steps = len(one_moe) // layers
+    first = [steps] * batch
+    parted = total = 0
+    for i, (want, got) in enumerate(zip(one_moe, global_moe(
+            results, batch, prompt_len, layers))):
+        t = prompt_len if i < layers else 1
         rel = (np.abs(got - want).max(1)
                / np.maximum(np.abs(want).max(1), 1e-30))
         far = rel > ROUTE_REL
@@ -3737,6 +3898,746 @@ def phase_fault_containment(torch, ops, pool, cuda=True, reduced=False):
     print(f"  phase 19 {time.perf_counter() - t0:.1f} s")
 
 
+# phase 20: the rest of serving over phase 16's mesh (4 gloo ranks sharing
+# the card): (a) the continuous-batching engine, (b) the sequence-sharded
+# ring KV cache, (c) rwkv6 over tensor parallelism
+# phase 13's trace cut to its first 8 requests: each tick crosses the host
+# through gloo (~0.4 s at full width), two runs a config
+MESH_ENGINE_REQUESTS = 8
+# (name, arch, backend, capacity factor): sort runs at NO_DROP_CF, where no
+# token can drop (at the config's 2.0 the two sides drop other tokens)
+MESH_ENGINE_RUNS = [("qwen3 dropless", "qwen3", "dropless", 2.0),
+                    ("qwen3 sort cf 4", "qwen3", "sort", NO_DROP_CF),
+                    ("qwen1.5", "qwen1.5", None, None)]
+# the kernels whose first call at each shape a mesh rank keeps, to hold it
+# against its plain version after the run
+MESH_HELD_KERNELS = ("dispatch_gather", "combine_gather", "grouped_ffn",
+                     "grouped_ffn_ragged", "rwkv6_scan")
+RWKV_MESH_SERVE = dict(batch=8, prompt_len=128, new_tokens=8)
+# (b)'s serve: phase 16's (ServeConfig's batch, prompt and new tokens: a
+# ring cache of 160 slots, 80 a model rank when sequence-sharded)
+SEQ_SERVE = dict(batch=8, prompt_len=128, new_tokens=32)
+RWKV_MESH_FORWARD = (4, 2048)
+# rwkv6 over tp against one rank.  fp32 is held to phase 4's LOGITS_ATOL:
+# the ranks' GEMMs sum in other orders, and each layer's group norm (eps
+# 1e-3) amplifies last-ulp differences up to ~32x; over 24 layers on an
+# H100 the serve read 1.21e-3 (2.5e-4 of the largest logit), where the
+# reduced config on the CPU reads 1e-6.  bf16 is run and printed, not held:
+# each rank rounds its partial product of the time mix's output projection
+# to bf16 before the psum, as the reference does, and one rank rounds the
+# whole product once; at 24 layers that one rounding moves the logits by
+# more than their spread (the reduced config at 24 layers on the CPU: 0.64
+# at prefill of a largest logit 1.25, and one rank rounding two halves'
+# products so gives the mesh's logits exactly)
+# the kept positions of the cache-less forward's logits: every 128th and
+# the last
+RWKV_KEPT_EVERY = 128
+
+
+def p20_cfg(arch: str, reduced: bool):
+    from repro_torch.launch.serve import serve_config
+    if arch == "qwen3":
+        return serve_config(SERVE["arch"], reduced=reduced,
+                            num_layers=None if reduced else SERVE["num_layers"],
+                            moe_grid=None if reduced else SERVE["moe_grid"])
+    return serve_config({"qwen1.5": "qwen1.5-0.5b",
+                         "rwkv6": "rwkv6-1.6b"}[arch], reduced=reduced)
+
+
+def p20_run_cfg(cfg, backend, cf, dtype):
+    return (cfg.replace(dtype=dtype) if backend is None
+            else mesh_cfg(cfg, backend, cf, dtype))
+
+
+@contextlib.contextmanager
+def capture_kernel_inputs(ops, tag):
+    """While open, the first call of each wrapper in MESH_HELD_KERNELS at
+    each input shape keeps a clone of its inputs, under ``(name, tag(),
+    shapes)`` in the yielded dict (the wrappers still launch and count as
+    they do)."""
+    import torch
+    got, orig = {}, {n: getattr(ops, n) for n in MESH_HELD_KERNELS}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            shapes = tuple(tuple(x.shape) for x in a if torch.is_tensor(x))
+            key = (name, tag(), shapes)
+            if key not in got:
+                got[key] = ([x.clone() if torch.is_tensor(x) else x
+                             for x in a], dict(kw))
+            # the wrapper counts its launch on its module-level name
+            setattr(ops, name, fn)
+            try:
+                return fn(*a, **kw)
+            finally:
+                setattr(ops, name, call)
+        return call
+
+    for n, fn in orig.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield got
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
+def hold_kernel(torch, ops, ref, name, args, kw, label, flush):
+    """The kernel ``name`` on inputs a path gave it, against its plain
+    version on the same inputs (phase 2's tolerances), timed (the gathers
+    cold), with its bound and library time: ``(row, line)``
+    (:func:`make_row`)."""
+    fn, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
+    pkw = {k: v for k, v in kw.items() if k != "block"}
+    got, want = fn(*args, **kw), plain(*args, **pkw)
+    torch.cuda.synchronize()
+    library = cold = None
+    if name == "dispatch_gather":
+        x, src = args
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: not bit-exact")
+        used = torch.unique(src[src >= 0]).numel()
+        d, R = x.shape[1], src.shape[0]
+        b = bound(used * d * 2 + R * 4 + R * d * 2, 0, FP32_FLOPS)
+        cold = flush
+    elif name == "combine_gather":
+        rows, src, scale = args
+        wf = want.float()
+        ulp = torch.where(wf == 0, torch.full_like(wf, 1e-30),
+                          wf.abs() * 2.0 ** -7)
+        if not bool(((got.float() - wf).abs() <= ulp).all()):
+            raise AssertionError(f"{name} {label}: more than 1 bf16 ulp")
+        used = torch.unique(src[src >= 0]).numel()
+        valid = int((src >= 0).sum())
+        t, k = src.shape
+        d = rows.shape[1]
+        b = bound(used * d * 2 + t * k * 8 + t * d * 2, 2.0 * valid * d,
+                  FP32_FLOPS)
+        cold = flush
+    elif name in ("grouped_ffn", "grouped_ffn_ragged"):
+        diff = (got.float() - want.float()).abs()
+        if not bool((diff <= FFN_ATOL + FFN_RTOL * want.float().abs()).all()):
+            raise AssertionError(f"{name} {label}: outside rtol {FFN_RTOL} "
+                                 f"/ atol {FFN_ATOL}")
+        if name == "grouped_ffn":
+            x, w1, w3, w2 = args
+            G, T, d = x.shape
+            f = w1.shape[-1]
+            b = bound((2 * G * T * d + 3 * G * d * f) * 2, 6.0 * G * T * d * f,
+                      BF16_TC_FLOPS)
+
+            def bmm():
+                return torch.bmm(ref.activation(torch.bmm(x, w1), kw["act"])
+                                 * torch.bmm(x, w3), w2)
+            library = time_ms(bmm)
+        else:
+            rows, starts, w1, w3, w2 = args
+            n_real = int((rows != 0).any(1).sum())
+            d, f = w1.shape[1], w1.shape[2]
+            seg = starts[1:] - starts[:-1]
+            experts = int((seg > 0).sum())
+            b = bound((experts * 3 * d * f + 2 * n_real * d) * 2,
+                      6.0 * d * f * n_real, BF16_TC_FLOPS)
+    else:                                   # rwkv6_scan
+        (y, s), (wy, ws) = got, want
+        tol = RWKV_RTOL * wy.abs() + RWKV_ATOL_REL * wy.abs().max()
+        if not bool(((y - wy).abs() <= tol).all()) or not torch.equal(s, ws):
+            raise AssertionError(f"{name} {label}: y outside its tolerance "
+                                 f"or s_last not bit-exact")
+        B, T, nh, hd = y.shape
+        b = bound(4.0 * (5 * B * T * nh * hd + nh * hd + 2 * B * nh * hd * hd),
+                  B * nh * T * (5.0 * hd * hd + 5.0 * hd), FP32_FLOPS)
+        got, want = (torch.cat([y.flatten(), s.flatten()]),
+                     torch.cat([wy.flatten(), ws.flatten()]))
+    ms = time_ms(lambda: fn(*args, **kw), flush=cold)
+    plain_ms = time_ms(lambda: plain(*args, **pkw), flush=cold,
+                       iters=2 if name == "rwkv6_scan" else 20,
+                       warmup=1 if name == "rwkv6_scan" else 3)
+    return make_row(name, label, got, want, ms, plain_ms, b, library)
+
+
+def hold_captured(torch, ops, ref, captured, keep):
+    """:func:`hold_kernel` on each captured call whose tag is in ``keep``
+    (a tag -> label prefix dict)."""
+    flush = L2Flush(torch)
+    out = []
+    for (name, tag, shapes), (args, kw) in sorted(
+            captured.items(), key=lambda kv: (kv[0][0], str(kv[0][1]),
+                                              kv[0][2])):
+        if tag in keep:
+            label = f"{keep[tag]} " + " ".join(
+                "x".join(map(str, s)) for s in shapes[:2])
+            out.append(hold_kernel(torch, ops, ref, name, args, kw, label,
+                                   flush))
+    return out
+
+
+def _p20_state(rank):
+    """The rank's mesh (phase 16's layout) and plan, made once."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.plan import plan_from_mesh
+    st = rank.state
+    if "mesh" not in st:
+        st["mesh"] = make_mesh(MESH_SHAPE, ("data", "model"),
+                               device=rank.device)
+        st["plan"] = plan_from_mesh(st["mesh"])
+    return st
+
+
+def _p20_draw(rank, arch, reduced):
+    """The rank's slice of ``arch``'s weights (seed 0, as one device draws
+    them): the fp32 masters and the served bf16 form, replacing any
+    earlier ones."""
+    import torch
+    from repro_torch.models.transformer import cast_for_compute, init_model
+    st = _p20_state(rank)
+    st.pop("p20", None)
+    gc.collect()
+    if rank.device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = p20_cfg(arch, reduced)
+    t0 = time.perf_counter()
+    masters = init_model(cfg, st["plan"], seed=0, device=rank.device,
+                         compute_cast=False, mesh=st["mesh"])
+    if rank.device.type == "cuda":
+        torch.cuda.synchronize()
+    st["p20"] = {"cfg": cfg, "float32": masters,
+                 "bfloat16": cast_for_compute(masters, cfg)}
+    return {"init_s": time.perf_counter() - t0, "param_bytes": sum(
+        t.numel() * t.element_size() for t in _leaves(masters))}
+
+
+def request_stats(eng, wall_s) -> dict:
+    """Tokens/s, tick ms, TTFT and TPOT (mean, p50, p90) of an engine's
+    finished requests, run in ``wall_s``."""
+    import numpy as np
+    reqs = list(eng.requests.values())
+    ttft = [r.t_first - r.t_submit for r in reqs]
+    gaps = np.concatenate([np.diff(r.t_tokens) for r in reqs])
+    n_tok = sum(len(r.generated) for r in reqs)
+    return {"wall_s": wall_s, "ticks": eng.ticks, "tokens": n_tok,
+            "ttft": (np.mean(ttft), _pct(ttft, 50), _pct(ttft, 90)),
+            "tpot": (gaps.mean(), _pct(gaps, 50), _pct(gaps, 90))}
+
+
+def _p20_engine(rank, sc, backend, cf, dtype, reqs, keep, capture):
+    """One engine run on the rank's slice: ``dtype`` bf16 runs the kernel
+    path, fp32 the plain one.  The launch counts are set to 0 just before
+    and read just after; the wire is timed on a ``keep`` run.  ``keep``
+    (data rank 0 only) keeps every token's logits (its vocabulary slice)
+    and, on an fp32 run, each MoE call's outputs; ``capture`` keeps each
+    kernel's first call at each shape on rank 0 and holds them after the
+    run (the decode step's and the largest prefill bucket's)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import Engine
+    st = _p20_state(rank)
+    p, mesh = st["p20"], st["mesh"]
+    cfg = p20_run_cfg(p["cfg"], backend, cf, dtype)
+    mine = keep and mesh.index("data") == 0
+    eng = Engine(p[dtype], cfg, st["plan"], serve=sc, mesh=mesh,
+                 use_kernel=dtype == "bfloat16")
+    key = [None]
+    step_of = eng._step
+
+    def step(k):
+        key[0] = k
+        return step_of(k)
+
+    eng._step = step
+    mesh.wire.reset(timed=keep)
+    cap = capture and rank.rank == 0 and rank.device.type == "cuda"
+    with contextlib.ExitStack() as stack:
+        kept = stack.enter_context(keep_logits(eng)) if mine else {}
+        moe = (stack.enter_context(record_engine_moe(eng))
+               if mine and dtype == "float32" else [])
+        caught = (stack.enter_context(capture_kernel_inputs(
+            ops, lambda: key[0])) if cap else {})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for prompt, nt in reqs:
+            eng.submit(prompt, nt)
+        eng.run()
+        if rank.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    out = {"tokens": dict(eng.finished), "launches": launches,
+           "forwards": sum(s.calls for s in eng.steps.values()),
+           "counts": eng.compile_counts(), "metrics": eng.metrics(),
+           "wire": mesh.wire.summary(), "stats": request_stats(eng, wall),
+           "logits": {u: v[:1] if dtype == "bfloat16" else v
+                      for u, v in _np_logits(kept).items()}, "moe": moe,
+           "dp_index": mesh.index("data"), "tp_index": mesh.index("model"),
+           "rows": []}
+    if cap:
+        buckets = [k for k in eng.steps if k != "decode"]
+        out["rows"] = hold_captured(torch, ops, ref, caught, {
+            "decode": "mesh engine decode",
+            max(buckets): f"mesh engine prefill {max(buckets)}"})
+    return out
+
+
+def _p20_seq(rank, seq, dtype, new_tokens, keep):
+    """Phase 16's dropless serve on the rank's qwen3 slice, with or
+    without ``kv_seq_shard`` (its KV projections all-gathered over
+    ``model`` once: the sequence-sharded cache keeps every KV head), bf16
+    on the kernel path, fp32 on the plain one; the launch counts set to 0
+    just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, serve_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import specs as S
+    st = _p20_state(rank)
+    p, mesh, plan = st["p20"], st["mesh"], st["plan"]
+    base = mesh_cfg(p["cfg"], "dropless", 2.0, dtype)
+    params = p[dtype]
+    if seq:
+        if ("seq", dtype) not in p:
+            rule = S.param_spec_rules(base, plan)
+
+            def gather(block):
+                attn = dict(block["attn"])
+                for n in ("wk", "wv", "bk", "bv"):
+                    if n in attn:
+                        attn[n] = S.gather_leaf(attn[n], rule(
+                            ("attn", n), attn[n].ndim), mesh)
+                return {**block, "attn": attn}
+            p["seq", dtype] = {**params, "stages": tuple(
+                {k: [gather(b) for b in blocks] for k, blocks in st_.items()}
+                for st_ in params["stages"])}
+        params = p["seq", dtype]
+    cfg = base.replace(kv_seq_shard=seq)
+    sc_batch, sc_len = SEQ_SERVE["batch"], SEQ_SERVE["prompt_len"]
+    prompts = serve_prompts(cfg, sc_batch, sc_len, 0, rank.device, mesh, plan)
+    moe, undo = record_moe_outputs(T) if keep else ([], lambda: None)
+    ops.reset_launch_counts()
+    try:
+        res = generate(params, prompts, cfg, plan, new_tokens=new_tokens,
+                       keep_logits=keep, use_kernel=dtype == "bfloat16")
+    finally:
+        undo()
+    return {"tokens": res.tokens, "logits": res.logits, "moe": moe,
+            "launches": ops.launch_counts(), "steps": res.decode_steps,
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "finite": res.logits_finite, "dp_index": mesh.index("data"),
+            "tp_index": mesh.index("model")}
+
+
+def rwkv_forward_tokens(cfg, shape):
+    import numpy as np
+    return np.random.default_rng(7).integers(
+        0, cfg.vocab_size, shape).astype(np.int64)
+
+
+def rwkv_kept_positions(T):
+    return sorted(set(range(0, T, RWKV_KEPT_EVERY)) | {T - 1})
+
+
+def _p20_rwkv(rank, serve_kw, fwd_shape, dtype):
+    """rwkv6 on the rank's slice (its heads of every time mix) in
+    ``dtype``: the fixed-batch serve (logits kept), then the cache-less
+    kernel forward with its launch counts set to 0 just before and read
+    just after (the logits at :func:`rwkv_kept_positions`); on an fp32
+    run rank 0 holds the WKV6 kernel at its first call's inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.serve import generate, serve_prompts
+    from repro_torch.models.transformer import forward
+    from repro_torch.sharding import specs as S
+    st = _p20_state(rank)
+    p, mesh, plan = st["p20"], st["mesh"], st["plan"]
+    cfg, params = p["cfg"].replace(dtype=dtype), p[dtype]
+    prompts = serve_prompts(cfg, serve_kw["batch"], serve_kw["prompt_len"],
+                            0, rank.device, mesh, plan)
+    res = generate(params, prompts, cfg, plan,
+                   new_tokens=serve_kw["new_tokens"], keep_logits=True)
+    toks = torch.as_tensor(rwkv_forward_tokens(cfg, fwd_shape))
+    toks = S.shard_params(toks, S.batch_specs(toks, plan), mesh).to(
+        rank.device)
+    cap = (rank.rank == 0 and rank.device.type == "cuda"
+           and dtype == "float32")
+    with contextlib.ExitStack() as stack:
+        caught = (stack.enter_context(capture_kernel_inputs(
+            ops, lambda: "forward")) if cap else {})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, logits, _, _ = forward(
+                params, toks, cfg, plan, use_kernel=True,
+                positions=torch.arange(toks.shape[1], device=rank.device))
+        if rank.device.type == "cuda":
+            torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    pos = rwkv_kept_positions(toks.shape[1])
+    out = {"tokens": res.tokens, "logits": res.logits,
+           "serve_s": (res.prefill_s, res.decode_s / res.decode_steps),
+           "fwd_logits": logits[:, pos].float().cpu().numpy()[None],
+           "fwd_s": fwd_s, "launches": launches,
+           "finite": res.logits_finite and bool(torch.isfinite(logits).all()),
+           "dp_index": mesh.index("data"), "tp_index": mesh.index("model"),
+           "rows": []}
+    if cap:
+        out["rows"] = hold_captured(torch, ops, ref, caught,
+                                    {"forward": "mesh rank"})
+    return out
+
+
+def p20_one_rank(torch, dev, reduced, sc, n_req):
+    """Phase 20's one-rank runs, in this process before the ranks start:
+    for each engine config the bf16 kernel-path engine (graphs; each
+    request's first-token logits kept) and the fp32 plain-path engine
+    (eager, so that each MoE call runs and is recorded every tick; every
+    token's logits kept); rwkv6's fixed-batch serve and cache-less kernel
+    forward."""
+    from repro_torch.launch.serve import generate, serve_prompts
+    from repro_torch.models.transformer import (cast_for_compute, forward,
+                                                init_model)
+    from repro_torch.serve.engine import Engine
+    from repro_torch.sharding.plan import single_device_plan
+    plan = single_device_plan()
+    one, reqs = {}, {}
+    for arch in ("qwen3", "qwen1.5"):
+        cfg = p20_cfg(arch, reduced)
+        reqs[arch] = engine_requests(cfg, n_req, sc.prompt_len,
+                                     sc.max_new_tokens)
+        masters = init_model(cfg, plan, seed=0, device=dev,
+                             compute_cast=False)
+        weights = {"float32": masters,
+                   "bfloat16": cast_for_compute(masters, cfg)}
+        for name, a, backend, cf in MESH_ENGINE_RUNS:
+            if a != arch:
+                continue
+            for dtype in ("bfloat16", "float32"):
+                eng = Engine(weights[dtype], p20_run_cfg(cfg, backend, cf,
+                                                         dtype), plan,
+                             serve=sc, use_kernel=dtype == "bfloat16")
+                if dtype == "float32":
+                    eng._graphed, eng._pool = False, None
+                with contextlib.ExitStack() as stack:
+                    kept = stack.enter_context(keep_logits(eng))
+                    moe = (stack.enter_context(record_engine_moe(eng))
+                           if dtype == "float32" else [])
+                    for p, nt in reqs[arch]:
+                        eng.submit(p, nt)
+                    eng.run()
+                lg = _np_logits(kept)
+                if dtype == "bfloat16":
+                    lg = {u: v[:1] for u, v in lg.items()}
+                one[name, dtype] = {"tokens": dict(eng.finished),
+                                    "logits": lg, "moe": moe,
+                                    "metrics": eng.metrics()}
+                del eng
+        del masters, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = p20_cfg("rwkv6", reduced)
+    masters = init_model(cfg, plan, seed=0, device=dev, compute_cast=False)
+    weights = {"float32": masters, "bfloat16": cast_for_compute(masters, cfg)}
+    kw = RWKV_MESH_SERVE
+    shape = (4, 64) if reduced else RWKV_MESH_FORWARD
+    for dtype, params in weights.items():
+        c = cfg.replace(dtype=dtype)
+        res = generate(params, serve_prompts(c, kw["batch"],
+                                             kw["prompt_len"], 0, dev), c,
+                       plan, new_tokens=kw["new_tokens"], keep_logits=True)
+        toks = torch.as_tensor(rwkv_forward_tokens(c, shape), device=dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            _, lg, _, _ = forward(params, toks, c, plan, use_kernel=True,
+                                  positions=torch.arange(shape[1],
+                                                         device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        one["rwkv6", dtype] = {"res": res, "fwd_s": fwd_s, "fwd_logits": lg[
+            :, rwkv_kept_positions(shape[1])].float().cpu().numpy()}
+        del lg
+    del masters, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one, reqs
+
+
+def print_wire_ops(wire: dict, n: int, what: str) -> float:
+    """The wire log of a run by op (calls, MiB sent, ms inside ``comm``),
+    each a tick over ``n`` ticks; returns the seconds inside ``comm``."""
+    for key, e in sorted(wire.items(), key=lambda kv: -kv[1]["s"]):
+        print(f"    {what} {key}: {e['calls'] / n:g} calls, "
+              f"{e['bytes'] / n / 2**20:.3f} MiB, {e['s'] / n * 1e3:.3f} ms "
+              f"a tick")
+    return sum(e["s"] for e in wire.values())
+
+
+def check_mesh_engine(name, checked, fp32, one_bf, one_fp, per_forward,
+                      sc):
+    """Phase 20 (a)'s checks and readings of one config's two mesh runs
+    (bf16 on the kernel path, the wire timed; fp32 on the plain path)
+    against the one-rank runs."""
+    import numpy as np
+    for runs in (checked, fp32):
+        if any(o["tokens"] != runs[0]["tokens"] for o in runs):
+            raise AssertionError(f"mesh engine {name}: the ranks' tokens "
+                                 f"differ")
+    r0 = checked[0]
+    counts = r0["counts"]
+    if "captures" in counts and (counts["captures"]["decode"] or any(
+            counts["captures"]["prefill"].values())):
+        raise AssertionError(f"mesh engine {name}: captures {counts}")
+    for r, out in enumerate(checked):
+        want = {k: v * out["forwards"] for k, v in (per_forward or {}).items()}
+        if per_forward is not None and out["launches"] != want:
+            raise AssertionError(f"mesh engine {name}: rank {r} launches "
+                                 f"{out['launches']}, expected {want}")
+    drops = [o["metrics"]["moe_drop_frac_mean"] for o in checked + fp32]
+    if max(drops) or one_bf["metrics"]["moe_drop_frac_mean"]:
+        raise AssertionError(f"mesh engine {name}: a token dropped: {drops}")
+    print(f"  {name}: {r0['forwards']} forwards a rank (eager), compile "
+          f"counts {counts}; launches a rank "
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; every "
+          f"rank's tokens equal in both runs; moe fault events "
+          f"{r0['metrics']['moe_fault_events']:g}")
+    # bf16, the kernel path: each request's first-token logits (its
+    # prefill) as phase 16 holds its bf16 prefill
+    first = {u: np.concatenate([o["logits"][u][0] for o in sorted(
+        (o for o in checked if o["dp_index"] == 0),
+        key=lambda o: o["tp_index"])]) for u in r0["tokens"]}
+    top = max(float(np.abs(v[0]).max()) for v in one_bf["logits"].values())
+    gap = max(float(np.abs(first[u] - one_bf["logits"][u][0]).max())
+              for u in first)
+    same = sum(r0["tokens"][u] == one_bf["tokens"][u] for u in first)
+    agree = np.mean([a == b for u in first for a, b in zip(
+        r0["tokens"][u], one_bf["tokens"][u])])
+    print(f"  {name}, bf16 against one rank: {same} of {len(first)} "
+          f"requests' tokens equal ({agree:.3f} of the tokens); first-token "
+          f"logits {gap:.3e} apart, {gap / top:.4f} of the largest (bound "
+          f"{BF16_PREFILL_REL})")
+    if not gap <= BF16_PREFILL_REL * top:
+        raise AssertionError(f"mesh engine {name}: first-token logits "
+                             f"{gap / top} of the largest apart")
+    # fp32, the plain path: each request up to where its route parts
+    pieces = sorted((o for o in fp32 if o["dp_index"] == 0),
+                    key=lambda o: o["tp_index"])
+    lg = {u: [np.concatenate([o["logits"][u][i] for o in pieces])
+              for i in range(len(pieces[0]["logits"][u]))]
+          for u in pieces[0]["logits"]}
+    upto, parted, total = (engine_route_parts(one_fp["moe"],
+                                              [o["moe"] for o in pieces])
+                           if one_fp["moe"] else (None, 0, 0))
+    n_same, worst = check_request_tokens(
+        one_fp["tokens"], one_fp["logits"], fp32[0]["tokens"], lg,
+        LOGITS_ATOL, f"mesh engine {name} fp32", upto=upto)
+    kept = (len(lg) if upto is None else
+            sum(upto[u] >= len(one_fp["tokens"][u]) for u in lg))
+    print(f"  {name}, fp32 (plain path) against one rank: {parted} of "
+          f"{total} token-layers took other experts (bound "
+          f"{ROUTE_PARTED_SHARE}); {kept} of {len(lg)} requests keep their "
+          f"route to the end; {n_same} requests' tokens equal up to where "
+          f"their route parts; largest logits difference {worst:.3e} "
+          f"(tolerance {LOGITS_ATOL})")
+    if parted > ROUTE_PARTED_SHARE * total or 2 * kept < len(lg):
+        raise AssertionError(f"mesh engine {name} fp32: routes part too "
+                             f"often ({parted} of {total}; {kept} kept)")
+    # the slowest rank's bf16 run, and rank 0's wire in it
+    s = max((o["stats"] for o in checked), key=lambda x: x["wall_s"])
+    ttft, tpot = s["ttft"], s["tpot"]
+    print(f"  {name}, bf16 (the card synchronized around each collective), "
+          f"slowest rank: {s['ticks']} ticks in "
+          f"{s['wall_s'] * 1e3:.1f} ms ({s['wall_s'] / s['ticks'] * 1e3:.2f}"
+          f" ms a tick; {s['tokens'] / s['wall_s']:.1f} tokens/s); TTFT mean "
+          f"{ttft[0] * 1e3:.2f} ms, p50 {ttft[1] * 1e3:.2f}, p90 "
+          f"{ttft[2] * 1e3:.2f}; TPOT mean {tpot[0] * 1e3:.2f} ms, p50 "
+          f"{tpot[1] * 1e3:.2f}, p90 {tpot[2] * 1e3:.2f}")
+    c = r0["stats"]
+    inside = print_wire_ops(r0["wire"], c["ticks"], f"{name} rank 0")
+    print(f"  {name}, rank 0: {c['wall_s'] / c['ticks'] * 1e3:.2f} ms a "
+          f"tick, {inside / c['ticks'] * 1e3:.2f} of it inside comm")
+
+
+def check_seq_shard(runs, per_forward, sc):
+    """Phase 20 (b): phase 16's dropless serve with the sequence-sharded
+    ring cache against the same serve without it, on the same ranks and
+    weights, each row held up to where its route parts (phase 16's
+    ``check_tokens_and_logits``: tokens equal or a near tie, logits within
+    LOGITS_ATOL): fp32 on the plain path, where few routes may part and
+    at least half the rows must keep theirs to the end, as phase 16's fp32
+    check; bf16 on the kernel path, where the sharded cache's KV
+    projection and merged partials round K/V and the attention output to
+    bf16 elsewhere than the head-sharded cache does, and a near-tied
+    router's token takes other experts at prefill in some rows (its
+    prefill logits then lie far apart: printed, not held)."""
+    import numpy as np
+    from repro_torch.launch.serve import gather_logits, gather_rows
+    B, S = SEQ_SERVE["batch"], SEQ_SERVE["prompt_len"]
+    for (dtype, seq), got in runs.items():
+        if not all(o["finite"] for o in got):
+            raise AssertionError(f"seq-shard {dtype} {seq}: non-finite")
+        want = {k: v * (got[0]["steps"] + 1)
+                for k, v in (per_forward or {}).items()}
+        if (dtype == "bfloat16" and per_forward is not None
+                and any(o["launches"] != want for o in got)):
+            raise AssertionError(f"seq-shard {seq}: launches "
+                                 f"{[o['launches'] for o in got]}, "
+                                 f"expected {want}")
+    base, seq = runs["float32", False], runs["float32", True]
+    layers = len(base[0]["moe"]) // (base[0]["steps"] + 1)
+    route, parted, total = routing_parts(global_moe(base, B, S, layers), seq,
+                                         B, S, layers)
+    kept = sum(r == base[0]["steps"] + 1 for r in route)
+    n_same, worst = check_tokens_and_logits(
+        gather_rows(base), gather_logits(base), gather_rows(seq),
+        gather_logits(seq), LOGITS_ATOL, "seq-shard fp32", upto=route)
+    equal = int((gather_rows(base) == gather_rows(seq)).all(1).sum())
+    print(f"  (b) fp32 (plain path), sequence-sharded against not: {equal} "
+          f"of {B} rows' tokens equal; each row's route parts at step "
+          f"{route} ({parted} of {total} token-layers; bound "
+          f"{ROUTE_PARTED_SHARE}); up to there {n_same} rows equal, logits "
+          f"{worst:.3e} apart (tolerance {LOGITS_ATOL})")
+    if parted > ROUTE_PARTED_SHARE * total or 2 * kept < B:
+        raise AssertionError(f"seq-shard fp32: routes part too often")
+    b16, s16 = runs["bfloat16", False], runs["bfloat16", True]
+    route, parted, total = routing_parts(global_moe(b16, B, S, layers), s16,
+                                         B, S, layers)
+    n_same, worst = check_tokens_and_logits(
+        gather_rows(b16), gather_logits(b16), gather_rows(s16),
+        gather_logits(s16), LOGITS_ATOL, "seq-shard bf16", upto=route)
+    lb, ls = gather_logits(b16), gather_logits(s16)
+    rel = float(np.abs(ls[0] - lb[0]).max() / np.abs(lb[0]).max())
+    agree = float((gather_rows(b16) == gather_rows(s16)).mean())
+    print(f"  (b) bf16 (kernel path): tokens equal {agree:.3f}; each row's "
+          f"route parts at step {route} ({parted} of {total} token-layers); "
+          f"up to there {n_same} rows equal, logits {worst:.3e} apart "
+          f"(tolerance {LOGITS_ATOL}); prefill logits {rel:.4f} of the "
+          f"largest apart; launches a rank "
+          f"{ {k: v for k, v in s16[0]['launches'].items() if v} }")
+    for (dtype, sq), got in runs.items():
+        pf = max(o["prefill_s"] for o in got) * 1e3
+        dc = max(o["decode_s"] / o["steps"] for o in got) * 1e3
+        print(f"    {dtype} {'sequence-sharded' if sq else 'head-sharded'}"
+              f" cache, slowest rank: prefill {pf:.2f} ms, decode {dc:.2f} "
+              f"ms a step")
+
+
+def check_rwkv_mesh(out, one, cuda, layers, dtype):
+    """Phase 20 (c): rwkv6 over (2, 2) against one rank in ``dtype``:
+    finite logits and the WKV6 kernel launched once a layer on every rank
+    in the cache-less forward, nothing else; in fp32 the serve's tokens
+    equal or a near tie where a row first parts, its logits and the
+    forward's kept logits within LOGITS_ATOL; in bf16 the same readings
+    printed, not held (see above)."""
+    import numpy as np
+    from repro_torch.launch.serve import gather_logits, gather_rows
+    res = one["res"]
+    if not all(o["finite"] for o in out):
+        raise AssertionError("rwkv6 mesh: non-finite logits")
+    want = {k: 0 for k in out[0]["launches"]}
+    if cuda:
+        want["rwkv6_scan"] = layers
+        if any(o["launches"] != want for o in out):
+            raise AssertionError(f"rwkv6 mesh: launches "
+                                 f"{[o['launches'] for o in out]}")
+    fw = gather_logits([{**o, "logits": o["fwd_logits"]} for o in out])[0]
+    fw_err = float(np.abs(fw - one["fwd_logits"]).max())
+    held = dtype == "float32"
+    if held:
+        n_same, worst = check_tokens_and_logits(
+            res.tokens, res.logits, gather_rows(out), gather_logits(out),
+            LOGITS_ATOL, f"rwkv6 mesh serve {dtype}")
+    else:
+        n_same = int((gather_rows(out) == res.tokens).all(1).sum())
+        worst = float(np.abs(gather_logits(out)[0] - res.logits[0]).max())
+    pf = max(o["serve_s"][0] for o in out) * 1e3
+    dc = max(o["serve_s"][1] for o in out) * 1e3
+    fs = max(o["fwd_s"] for o in out)
+    what = (f"tolerance {LOGITS_ATOL}" if held else
+            f"not held; largest |logit| {np.abs(res.logits).max():.3f}")
+    print(f"  (c) rwkv6 {dtype} serve against one rank: {n_same} of "
+          f"{res.tokens.shape[0]} rows' tokens equal, "
+          f"{'logits' if held else 'prefill logits'} {worst:.3e} apart "
+          f"({what}); slowest rank prefill {pf:.2f} ms, decode {dc:.2f} ms "
+          f"a step (one rank {res.prefill_s * 1e3:.2f}, "
+          f"{res.decode_s / res.decode_steps * 1e3:.2f})")
+    print(f"  (c) rwkv6 {dtype} cache-less kernel forward: kept logits "
+          f"{fw_err:.3e} apart ({what}); launches a rank "
+          f"{ {k: v for k, v in out[0]['launches'].items() if v} }; slowest "
+          f"rank {fs * 1e3:.1f} ms, one rank {one['fwd_s'] * 1e3:.1f} ms")
+    if held and not fw_err <= LOGITS_ATOL:
+        raise AssertionError(f"rwkv6 mesh forward {dtype}: logits {fw_err} "
+                             f"apart")
+
+
+def phase_mesh_finish(torch, ops, devices=MESH_DEVICES, reduced=False):
+    """Phase 20 over phase 16's mesh: (a) the engine, (b) the
+    sequence-sharded ring cache, (c) rwkv6 over tp.  Returns the kernel
+    rows held at the mesh ranks' shapes.  (``devices=["cpu"] * 4,
+    reduced=True`` rehearses it on the CPU with the reduced configs: no
+    kernel then launches, and none is held.)"""
+    from repro_torch.common.config import ServeConfig
+    from repro_torch.launch.mesh import RankPool
+    cuda = torch.device(devices[0]).type == "cuda"
+    dev = torch.device(devices[0])
+    if reduced:
+        se = SMALL_ENGINE
+        sc = ServeConfig(prompt_len=se["prompt_len"],
+                         max_new_tokens=se["new_tokens"],
+                         n_slots=se["n_slots"], page_size=se["page_size"])
+        n_req = 6
+    else:
+        sc, n_req = ServeConfig(), MESH_ENGINE_REQUESTS
+    t0 = time.perf_counter()
+    one, reqs = p20_one_rank(torch, dev, reduced, sc, n_req)
+    print(f"  one rank, this process: the engine runs (bf16 graphs, fp32 "
+          f"eager) and rwkv6's serve and forward in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rows = []
+    with RankPool(len(devices), backend=MESH_BACKEND, devices=devices,
+                  timeout_s=900) as pool:
+        for arch in ("qwen3", "qwen1.5"):
+            t1 = time.perf_counter()
+            inits = pool.run(_p20_draw, arch, reduced)
+            print(f"  {arch}: weights drawn and cut in "
+                  f"{time.perf_counter() - t1:.1f} s, "
+                  f"{inits[0]['param_bytes'] / 2**30:.2f} GiB of fp32 "
+                  f"parameters a rank")
+            for name, a, backend, cf in MESH_ENGINE_RUNS:
+                if a != arch:
+                    continue
+                t1 = time.perf_counter()
+                per = (MESH_PER_FORWARD[backend] if backend else
+                       ZERO_LAUNCHES) if cuda and not reduced else None
+                checked = pool.run(_p20_engine, sc, backend, cf, "bfloat16",
+                                   reqs[arch], True, True)
+                fp32 = pool.run(_p20_engine, sc, backend, cf, "float32",
+                                reqs[arch], True, False)
+                check_mesh_engine(name, checked, fp32,
+                                  one[name, "bfloat16"], one[name, "float32"],
+                                  per, sc)
+                rows += checked[0]["rows"]
+                print(f"  (a) {name}: {time.perf_counter() - t1:.1f} s")
+            if arch == "qwen3":
+                t1 = time.perf_counter()
+                runs = {(d, s): pool.run(_p20_seq, s, d,
+                                         SEQ_SERVE["new_tokens"], True)
+                        for d in ("float32", "bfloat16")
+                        for s in (False, True)}
+                check_seq_shard(runs, MESH_PER_FORWARD["dropless"]
+                                if cuda and not reduced else None, sc)
+                print(f"  (b) {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        pool.run(_p20_draw, "rwkv6", reduced)
+        for dtype in ("float32", "bfloat16"):
+            out = pool.run(_p20_rwkv, RWKV_MESH_SERVE,
+                           (4, 64) if reduced else RWKV_MESH_FORWARD, dtype)
+            check_rwkv_mesh(out, one["rwkv6", dtype], cuda,
+                            p20_cfg("rwkv6", reduced).num_layers, dtype)
+            rows += out[0]["rows"]
+        print(f"  (c) {time.perf_counter() - t1:.1f} s")
+    for _, line in rows:
+        print(line)
+    return [r for r, _ in rows]
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -3896,6 +4797,14 @@ def main() -> int:
                 f"layers, the sentinel on; two runs, then a halted run's "
                 f"snapshot and its resume ({card})")
     phase_robust_one_rank(torch, ops)
+
+    clock.start(f"phase 20: the rest of serving over phase 16's mesh (4 "
+                f"ranks sharing the card under gloo): (a) the engine, "
+                f"qwen3-moe-30b-a3b (4 of 48 layers; dropless, sort) and "
+                f"qwen1.5-0.5b, full width; (b) the sequence-sharded ring "
+                f"cache; (c) rwkv6-1.6b over tensor parallelism ({card})")
+    for r in phase_mesh_finish(torch, ops):
+        rows.setdefault(r["name"], []).append(r)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

@@ -332,7 +332,8 @@ def run_engine(params, cfg: ModelConfig, plan: MeshPlan,
     """Submit every request at once to a new :class:`Engine` on the
     parameters' device and run it until it drains.  Times are host wall
     clock; each token's time is taken after its step's device-to-host
-    copy."""
+    copy.  ``engine_kw`` goes to the engine (``mesh=``: every rank of the
+    mesh calls this on its slice, with the same requests)."""
     eng = Engine(params, cfg, plan, serve=serve, **engine_kw)
     t0 = time.perf_counter()
     for prompt, nt in requests:
@@ -352,34 +353,17 @@ def run_engine(params, cfg: ModelConfig, plan: MeshPlan,
                         eng.capture_launches(), replays, eng)
 
 
-def serve_engine(arch: str, *, reduced: bool = True, requests: int = 8,
-                 prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
-                 device="cuda", num_layers: Optional[int] = None,
-                 moe_grid: Optional[Tuple[int, int]] = None,
-                 moe_options: Optional[dict] = None,
-                 serve_opts: Optional[dict] = None) -> EngineResult:
-    """Continuous-batching engine: random weights from ``seed``, ragged
-    synthetic requests (:func:`draw_requests`) through the paged-KV engine,
-    metrics printed at the end.  ``serve_opts`` sets ``ServeConfig``
-    fields (the ``SERVE_OPTIONS`` flags)."""
-    cfg = serve_config(arch, reduced=reduced, num_layers=num_layers,
-                       moe_grid=moe_grid, moe_options=moe_options)
-    device = resolve_device(device)
-    plan = single_device_plan()
-    scfg = dataclasses.replace(
-        ServeConfig(prompt_len=prompt_len, max_new_tokens=new_tokens),
-        **(serve_opts or {}))
-    params = init_model(cfg, plan, seed=seed, device=device)
-    reqs = draw_requests(np.random.default_rng(seed), requests, prompt_len,
-                         new_tokens, cfg.vocab_size)
-    res = run_engine(params, cfg, plan, reqs, scfg)
-    m = res.metrics
-    n_tok = sum(len(v) for v in res.tokens.values())
-    print(f"engine: {requests} requests, {n_tok} tokens in {res.ticks} ticks"
-          f" ({res.wall_s * 1e3:.0f} ms, {n_tok / max(res.wall_s, 1e-9):,.0f}"
-          f" tok/s)")
-    ttft = np.mean(list(res.ttft_s.values())) * 1e3
-    tpot = np.nanmean(list(res.tpot_s.values())) * 1e3
+def print_engine_summary(res: dict, what: str = "engine") -> None:
+    """The engine's summary (``res``: :func:`engine_summary`): requests,
+    tokens, ticks, wall time and tokens/s, mean TTFT and TPOT, page
+    occupancy, compile counts and the MoE telemetry."""
+    m, wall = res["metrics"], res["wall_s"]
+    n_tok = sum(len(v) for v in res["tokens"].values())
+    print(f"{what}: {len(res['tokens'])} requests, {n_tok} tokens in "
+          f"{res['ticks']} ticks ({wall * 1e3:.0f} ms, "
+          f"{n_tok / max(wall, 1e-9):,.0f} tok/s)")
+    ttft = np.mean(list(res["ttft_s"].values())) * 1e3
+    tpot = np.nanmean(list(res["tpot_s"].values())) * 1e3
     print(f"  time to first token mean {ttft:.1f} ms; time per output token "
           f"mean {tpot:.2f} ms")
     print(f"  pool occupancy mean/max: {m['page_occupancy_mean']:.2f}/"
@@ -387,7 +371,83 @@ def serve_engine(arch: str, *, reduced: bool = True, requests: int = 8,
     print(f"  moe: drop={m['moe_drop_frac_mean']:.3f} "
           f"max_load={m['moe_hop_max_load_max']:.2f} "
           f"entropy_min={m['moe_hop_load_entropy_min']:.2f}")
+
+
+def engine_summary(res: EngineResult) -> dict:
+    """The picklable part of an :class:`EngineResult` (a rank's result)."""
+    return {"tokens": res.tokens, "ttft_s": res.ttft_s, "tpot_s": res.tpot_s,
+            "wall_s": res.wall_s, "ticks": res.ticks, "metrics": res.metrics}
+
+
+def serve_engine(arch: str, *, reduced: bool = True, requests: int = 8,
+                 prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
+                 device="cuda", num_layers: Optional[int] = None,
+                 moe_grid: Optional[Tuple[int, int]] = None,
+                 moe_options: Optional[dict] = None,
+                 serve_opts: Optional[dict] = None,
+                 mesh=None) -> EngineResult:
+    """Continuous-batching engine: random weights from ``seed``, ragged
+    synthetic requests (:func:`draw_requests`) through the paged-KV engine,
+    metrics printed at the end.  ``serve_opts`` sets ``ServeConfig``
+    fields (the ``SERVE_OPTIONS`` flags).
+
+    With ``mesh`` the plan is ``plan_from_mesh(mesh)``, the parameters
+    are the rank's slices (the same numbers as one device draws) on the
+    mesh's device, every rank submits the same requests, and nothing is
+    printed (:func:`serve_engine_mesh` prints the slowest rank's)."""
+    cfg = serve_config(arch, reduced=reduced, num_layers=num_layers,
+                       moe_grid=moe_grid, moe_options=moe_options)
+    if mesh is None:
+        device, plan = resolve_device(device), single_device_plan()
+    else:
+        device, plan = mesh.device, plan_from_mesh(mesh)
+    scfg = dataclasses.replace(
+        ServeConfig(prompt_len=prompt_len, max_new_tokens=new_tokens),
+        **(serve_opts or {}))
+    params = init_model(cfg, plan, seed=seed, device=device, mesh=mesh)
+    reqs = draw_requests(np.random.default_rng(seed), requests, prompt_len,
+                         new_tokens, cfg.vocab_size)
+    res = run_engine(params, cfg, plan, reqs, scfg, mesh=mesh)
+    if mesh is None:
+        print_engine_summary(engine_summary(res))
     return res
+
+
+def _engine_rank(rank, shape, kw) -> dict:
+    """One rank of :func:`serve_engine_mesh` (a :class:`RankPool` task)."""
+    mesh = make_mesh(shape, MESH_AXES[len(shape)], device=rank.device)
+    res = engine_summary(serve_engine(mesh=mesh, **kw))
+    return {**res, "agree": ranks_agree(res["tokens"], mesh)}
+
+
+def ranks_agree(tokens: Dict[int, List[int]], mesh) -> bool:
+    """On every rank of ``mesh``: whether every rank finished the same
+    requests with the same tokens (an all-gather of each rank's tokens in
+    uid order; the counts are equal on every rank by construction)."""
+    flat = torch.as_tensor([t for u in sorted(tokens) for t in tokens[u]],
+                           dtype=torch.int32, device=mesh.device)
+    every = comm.all_gather(flat, mesh.axes, axis=0, tiled=False)
+    return bool((every == flat[None]).all())
+
+
+def serve_engine_mesh(arch: str, shape: Tuple[int, ...], *, backend: str,
+                      devices, threads: Optional[int] = None,
+                      timeout_s: float = 600.0, **kw) -> List[dict]:
+    """:func:`serve_engine` (``kw``) over a mesh of ``shape`` (axes
+    ``MESH_AXES``): one process a rank under ``backend`` on
+    ``devices[rank]``, as :func:`serve_mesh`; checks that every rank gave
+    the same tokens (:func:`ranks_agree`), prints the slowest rank's
+    summary, and returns each rank's :func:`engine_summary`."""
+    world = int(np.prod(shape))
+    out = spawn(_engine_rank, world, backend=backend, devices=devices,
+                args=(tuple(shape), dict(arch=arch, **kw)), threads=threads,
+                timeout_s=timeout_s)
+    if not all(r["agree"] for r in out):
+        raise RuntimeError("engine over the mesh: the ranks' tokens differ")
+    axes = dict(zip(MESH_AXES[len(shape)], shape))
+    print_engine_summary(max(out, key=lambda r: r["wall_s"]),
+                         f"engine over mesh {axes}, {backend}, slowest rank")
+    return out
 
 
 def main():
@@ -429,12 +489,27 @@ def main():
 
 
 def _main_mesh(args, grid) -> None:
+    shape, devices, mesh = mesh_cli(args)
     if args.engine:
-        raise SystemExit("--engine over a mesh is not ported yet")
+        kw = dict(reduced=args.reduced, requests=args.requests,
+                  prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+                  seed=args.seed, num_layers=args.num_layers, moe_grid=grid,
+                  serve_opts=parse_option_flags(args, SERVE_OPTIONS))
+        if mesh is None:
+            serve_engine_mesh(args.arch, shape, backend=args.backend,
+                              devices=devices, **kw)
+            return
+        res = engine_summary(serve_engine(args.arch, mesh=mesh, **kw))
+        if not ranks_agree(res["tokens"], mesh):
+            raise SystemExit("engine over the mesh: the ranks' tokens differ")
+        if mesh.rank == 0:
+            print_engine_summary(res, f"engine, rank 0 of {len(devices)} "
+                                      f"(env://, {args.backend})")
+        dist.destroy_process_group()
+        return
     kw = dict(reduced=args.reduced, batch=args.batch,
               prompt_len=args.prompt_len, new_tokens=args.new_tokens,
               seed=args.seed, num_layers=args.num_layers, moe_grid=grid)
-    shape, devices, mesh = mesh_cli(args)
     if mesh is None:
         serve_mesh(args.arch, shape, backend=args.backend, devices=devices,
                    **kw)

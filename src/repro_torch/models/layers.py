@@ -19,9 +19,9 @@ caller casts them once at load
 projections and FFNs use them as given.  Norms and the LM head compute in
 fp32.
 
-The cache-less (with the flash kernel behind ``use_kernel``) and
-ring-buffer-cache attention paths are ported; the paged cache (the serving
-engine), the sequence-sharded cache and MLA raise.
+The cache-less (with the flash kernel behind ``use_kernel``), ring-buffer
+cache (its sequence cut over tp under ``kv_seq_shard``) and paged cache
+(the serving engine) attention paths are ported; MLA is not.
 """
 from __future__ import annotations
 
@@ -185,7 +185,7 @@ def ffn_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                       causal: bool, window: int = 0, chunk: int = 1024,
-                      use_kernel: bool = False) -> torch.Tensor:
+                      use_kernel: bool = False, return_partial: bool = False):
     """O(T*chunk)-memory attention in fp32.
 
     q: (B, Tq, H, hd); k/v: (B, Tk, KV, hd) with KV | H (GQA).  ``q_pos``
@@ -193,6 +193,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position are masked out.  Keys are streamed in chunks of ``chunk`` with
     a running max and sum; the reference pads the last chunk with masked
     keys, which add exact zeros, so the port does not pad.
+
+    ``return_partial`` returns the softmax partials ``(m, l, acc)`` (B,
+    Tq, KV, g) fp32 twice and (B, Tq, KV, g, dv) fp32 in place of the
+    output, for :func:`merge_attention_partials` to merge across ranks
+    that each hold a slice of the keys.
 
     ``use_kernel`` with causal, unwindowed, ``Tq == Tk`` attention takes
     the flash kernel (:func:`repro_torch.kernels.ops.flash_attention`), as
@@ -230,8 +235,26 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.einsum("btkgc,bckh->btkgh", p, vb)
         m = m_new
+    if return_partial:
+        return m, l, acc
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Tq, H, dv).to(q.dtype)
+
+
+def merge_attention_partials(m: torch.Tensor, l: torch.Tensor,
+                             acc: torch.Tensor, axes, out_shape,
+                             dtype) -> torch.Tensor:
+    """Flash-decoding merge of the softmax partials of
+    :func:`chunked_attention` (``return_partial=True``) over ``axes``, each
+    rank holding a slice of the keys: the pmax of the running maxima, then
+    the psum of each rank's sum and accumulator rescaled to it.  Returns
+    the output reshaped to ``out_shape`` in ``dtype``."""
+    m_g = comm.pmax(m, axes)
+    corr = torch.exp(m - m_g)
+    l_g = comm.psum(l * corr, axes)
+    acc_g = comm.psum(acc * corr[..., None], axes)
+    out = acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+    return out.reshape(out_shape).to(dtype)
 
 
 # =============================================================================
@@ -287,14 +310,13 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     A paged cache (``pool_k``/``pool_v`` and a page ``table``, see
     :func:`paged_attention`) takes per-row ``positions`` (B, T).
 
+    Under ``cfg.kv_seq_shard`` with tp > 1 the ring cache is cut along its
+    sequence over tp (:func:`seq_sharded_attention`).
+
     The ring-cache and paged writes update the cache tensors in place (the
     JAX package returns new arrays and donates the old ones); the returned
     cache is the same dict.
     """
-    if (cache is not None and "pool_k" not in cache and cfg.kv_seq_shard
-            and plan.tp > 1):
-        raise NotImplementedError("the sequence-sharded KV cache needs "
-                                  "tensor parallelism, not ported yet")
     B, T, _ = x.shape
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
@@ -317,6 +339,10 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     elif "pool_k" in cache:
         out, new_cache = paged_attention(q, k, v, cache, positions, cfg,
                                          plan, window=window)
+    elif cfg.kv_seq_shard and plan.tp > 1:
+        out = seq_sharded_attention(q, k, v, cache, positions, cfg, plan,
+                                    window=window)
+        new_cache = cache
     else:
         W = cache["k"].shape[1]
         slot = (positions % W).long()                            # (T,)
@@ -334,16 +360,62 @@ def attention_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return comm.name_saved(y), new_cache
 
 
+def seq_sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cache: Dict, positions: torch.Tensor,
+                          cfg: ModelConfig, plan: MeshPlan, *,
+                          window: int = 0) -> torch.Tensor:
+    """Attention over a ring cache whose sequence dim is cut over tp
+    (flash decoding; the reference's ``kv_seq_shard`` branch).
+
+    Each rank owns ``Wl = W / tp`` consecutive ring slots, ``cache["k"]``/
+    ``["v"]`` (B, Wl, KV, hd) with every KV head (the KV projections are
+    replicated) and ``cache["pos"]`` (Wl,).  Position ``s`` goes to ring
+    slot ``s % W``, which this rank writes only where it falls in its
+    slice (the reference's ``mode="drop"``, masked explicitly).  The
+    queries, cut by head over tp, are all-gathered; each rank attends over
+    its slice with every head, the partials are merged over tp, and the
+    rank keeps its own heads.  q: (B, T, h_loc, hd); k/v: (B, T, KV, hd);
+    ``positions`` (T,).  Returns (B, T, h_loc, hd); the cache is updated in
+    place."""
+    Wl = cache["k"].shape[1]
+    i = comm.axis_index(plan.tp_axis)
+    slot = (positions % (Wl * plan.tp) - i * Wl).long()         # (T,)
+    mine = (slot >= 0) & (slot < Wl)
+    for name, new in (("k", k), ("v", v)):
+        # the ring's slot dim first, so a slot is one row of the write
+        _masked_rows_write(cache[name].transpose(0, 1), slot, mine,
+                           new.transpose(0, 1).to(cache[name].dtype))
+    _masked_rows_write(cache["pos"], slot, mine,
+                       positions.to(cache["pos"].dtype))
+    h_loc = q.shape[2]
+    q_full = comm.all_gather(q, plan.tp_axis, axis=2)         # (B, T, H, hd)
+    m, l, acc = chunked_attention(q_full, cache["k"], cache["v"], positions,
+                                  cache["pos"], causal=cfg.causal,
+                                  window=window, return_partial=True)
+    out = merge_attention_partials(
+        m, l, acc, plan.tp_axis,
+        (q.shape[0], q.shape[1], q_full.shape[2], cache["v"].shape[-1]),
+        q.dtype)
+    return out[:, :, i * h_loc:(i + 1) * h_loc]
+
+
 def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
                          plan: MeshPlan, dtype=torch.bfloat16,
                          device=None) -> Dict:
     """Ring-buffer cache sized ``length``; ``pos`` -1 marks empty slots.
     ``batch`` is this rank's; under tp the cache holds this rank's KV heads
-    where they divide over tp, all of them where they do not (the rank's
+    where they divide over tp, all of them where they do not, and under
+    ``kv_seq_shard`` all of them over ``length / tp`` slots (the rank's
     slice of the global cache, ``sharding.specs.cache_specs``)."""
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    if KV % max(plan.tp, 1) == 0:
-        KV //= max(plan.tp, 1)
+    tp = max(plan.tp, 1)
+    if cfg.kv_seq_shard and tp > 1:
+        if length % tp:
+            raise ValueError(f"a sequence-sharded cache of {length} slots "
+                             f"does not split over {tp} ranks")
+        length //= tp
+    elif KV % tp == 0:
+        KV //= tp
     return {
         "k": torch.zeros((batch, length, KV, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, length, KV, hd), dtype=dtype, device=device),
@@ -356,11 +428,13 @@ def init_attention_cache(cfg: ModelConfig, batch: int, length: int,
 # =============================================================================
 
 def init_paged_kv_cache(cfg: ModelConfig, pool_pages: int, page_size: int,
-                        dtype=torch.bfloat16, device=None) -> Dict:
+                        dtype=torch.bfloat16, device=None,
+                        kv_heads: Optional[int] = None) -> Dict:
     """One layer's page pool, ``(pool_pages, page_size, KV, hd)``, with no
     batch dim: sequences own pages through the page ``table`` that the
-    serving engine adds to the cache dict (``serve.kvcache.inject_tables``)."""
-    KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    serving engine adds to the cache dict (``serve.kvcache.inject_tables``).
+    ``kv_heads`` (default all of them) is a rank's count over a mesh."""
+    KV, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (pool_pages, page_size, KV, hd)
     return {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
             "pool_v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -411,7 +485,7 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     P, page = pool_k.shape[0], pool_k.shape[1]
     B, T, H, hd = q.shape
     mp = table.shape[1]
-    KV = k.shape[2]
+    KVs = k.shape[2]
 
     # ---- write: token (b, t) at position s -> (table[b, s // page],
     # s % page), flattened to one row index of the (P * page) pool rows
@@ -422,14 +496,19 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row = (pidx * page + ps % page).reshape(-1)
     ok = ok.reshape(-1)
     for pool, new in ((pool_k, k), (pool_v, v)):
-        _masked_rows_write(pool.view(P * page, KV, hd), row, ok,
-                           new.reshape(B * T, KV, hd).to(pool.dtype))
+        _masked_rows_write(pool.view(P * page, KVs, hd), row, ok,
+                           new.reshape(B * T, KVs, hd).to(pool.dtype))
 
-    # ---- gather read: (B, mp, page, KV, hd) -> per-sequence (B, Lk) views
+    # ---- gather read: (B, mp, page, KV, hd) -> per-sequence (B, Lk) views;
+    # where the KV heads do not divide over tp, the ones this rank's query
+    # heads read
     tbl = table.long().clamp(0, P - 1)
     Lk = mp * page
-    k_view = pool_k[tbl].reshape(B, Lk, KV, hd).float()
-    v_view = pool_v[tbl].reshape(B, Lk, KV, hd).float()
+    k_view = _kv_slice_for_my_heads(pool_k[tbl].reshape(B, Lk, KVs, hd), H,
+                                    cfg, plan).float()
+    v_view = _kv_slice_for_my_heads(pool_v[tbl].reshape(B, Lk, KVs, hd), H,
+                                    cfg, plan).float()
+    KV = k_view.shape[2]
 
     # ---- direct fp32 softmax over the view
     g = H // KV

@@ -22,6 +22,13 @@ The recurrence runs two ways, as in the reference:
 
 A cache (:func:`init_rwkv_cache`) holds the WKV state and the last token's
 features of each mix; the forwards update it in place and return it.
+
+Under tensor parallelism (``sharding.specs``) a rank holds its heads of
+the time mix (the r/k/v/g projections, the decay's ``w0`` and
+``decay_b``, the bonus ``u``, the group norm and the rows of ``wo``) and
+its ``d_ff`` columns of the channel mix; the token-shift mixes and both
+LoRAs' first factors are replicated.  Each mix's output is the psum of the
+ranks' partial products over tp, and the WKV state holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models.layers import _proj, dense_init
 from repro_torch.sharding import comm
+from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
 
 MIXES = ("r", "k", "v", "w", "g")
@@ -161,12 +169,16 @@ def rwkv_cmix_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def init_rwkv_cache(cfg: ModelConfig, batch: int, plan: MeshPlan, *,
                     device=None) -> Dict:
     """One block's decode cache: the WKV state and each mix's last token,
-    fp32."""
+    fp32.  ``batch`` is this rank's; under tp the state holds this rank's
+    heads (``sharding.specs.cache_specs``)."""
     d = cfg.d_model
     hd = cfg.rwkv.head_dim
+    nh = d // hd
+    if S.rwkv_heads_divide(cfg, plan):
+        nh //= max(plan.tp, 1)
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "wkv": torch.zeros((batch, d // hd, hd, hd), **f32),
+        "wkv": torch.zeros((batch, nh, hd, hd), **f32),
         "x_prev_t": torch.zeros((batch, 1, d), **f32),
         "x_prev_c": torch.zeros((batch, 1, d), **f32),
     }

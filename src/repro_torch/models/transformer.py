@@ -39,8 +39,8 @@ Over a mesh (a ``plan_from_mesh`` plan) every rank runs this same code on
 its slice of the parameters (``sharding.specs``) and of the batch: tensor
 parallelism in attention, the dense FFNs, the embedding and the LM head,
 the tokens split over tp before each MoE layer and gathered after it, and
-the experts over the SMILE grid.  rwkv6 over tp and the sequence-sharded
-KV cache raise.
+the experts over the SMILE grid; an rwkv block's heads over tp; under
+``kv_seq_shard`` the ring caches' sequence over tp.
 """
 from __future__ import annotations
 
@@ -119,9 +119,16 @@ def _model_cfg(cfg: ModelConfig, plan: MeshPlan) -> ModelConfig:
 
 
 def _check_plan(cfg: ModelConfig, plan: MeshPlan) -> None:
-    if plan.tp > 1 and any(st.kind == "rwkv" for st in build_stages(cfg)):
-        raise NotImplementedError("rwkv6 over tensor parallelism is not "
-                                  "ported yet (ROADMAP queue 1, item 7.5)")
+    """rwkv over tp cuts the time mix by head (``sharding.specs``).  Where
+    the heads do not divide over tp the reference keeps the time mix
+    replicated and still psums its output over tp, which counts it tp
+    times; no config of either package has such heads, so the port
+    refuses the plan instead."""
+    if (plan.tp > 1 and not S.rwkv_heads_divide(cfg, plan)
+            and any(st.kind == "rwkv" for st in build_stages(cfg))):
+        nh = cfg.d_model // cfg.rwkv.head_dim
+        raise ValueError(f"rwkv over tp needs its {nh} heads to divide "
+                         f"over {plan.tp} ranks")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -447,8 +454,9 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
     """Per-stage lists of per-block caches: ring-buffer KV caches sized
     ``length`` (the window for sliding attention), or an rwkv block's state
     and last tokens (no length).  Over a mesh ``batch`` is the rank's own,
-    and each KV cache holds the rank's KV heads (its slice of the global
-    cache, ``sharding.specs.cache_specs``)."""
+    and each cache is allocated at the rank's slice of the global cache
+    (``sharding.specs.cache_specs``): its KV heads, or under
+    ``kv_seq_shard`` its ``length / tp`` ring slots, or its rwkv heads."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)

@@ -30,8 +30,22 @@ chunk), each filled by one host-to-device copy from a pinned host buffer a
 tick.  The host's scheduler arrays (``_tok``, ``_pos``, ``_live``,
 ``table_np``) are numpy views of the decode buffer.  Each step's next
 tokens and the bits of its four fp32 MoE telemetry numbers come back as
-one int32 vector, in one device-to-host copy.  A capture that fails raises; there is no eager fallback.  On the CPU
-the steps run eagerly (there is no graph).
+one int32 vector, in one device-to-host copy.  A capture that fails
+raises; there is no eager fallback.  On the CPU the steps run eagerly
+(there is no graph).
+
+Over a mesh of ranks (``Engine(..., mesh=)``, the reference's steps under
+``shard_map``) every rank builds an engine on its slice of the
+parameters, and the pools hold its slice (``sharding.specs.
+engine_step_specs``: replicated over dp, KV heads over tp).  Every rank
+runs the same scheduler on the same submits: admission depends only on
+page counts and finishing only on ``max_new_tokens``, never on token
+values, so the ranks stay in step and issue the same collectives.  The
+decode batch is all ``n_slots`` rows on every rank, replicated over dp as
+in the reference.  **Under a mesh the steps run eagerly, on the card
+too**: a collective over gloo is staged through the host, and the ragged
+hop reads its split sizes on the host, so no capture could hold a step.
+The pinned input buffers and the single device-to-host copy a step stay.
 
 The kernel wrappers' launch counters (``kernels.ops``) move only on a
 Python call: under a graph they count the warm-up and the capture, never a
@@ -222,10 +236,19 @@ StepKey = Union[str, int]                 # "decode", or a bucket length
 class Engine:
     """Continuous-batching serving engine over the paged KV cache, on the
     device the parameters lie on.  The MoE hops run the kernel path
-    (``use_kernel=True``), as the fixed-batch serve does."""
+    (``use_kernel=True``), as the fixed-batch serve does.
+
+    With ``mesh`` (:func:`repro_torch.launch.mesh.make_mesh`, whose plan
+    is ``plan``) ``params`` are the rank's slices, and every rank of the
+    mesh must build its engine and submit the same requests in the same
+    order.  Its steps then run eagerly on the card (no CUDA graph: the
+    collectives cross the host), which :meth:`compile_counts` shows as 0
+    captures.  ``use_kernel=False`` runs the plain path (which also takes
+    fp32 compute), as ``launch.serve.generate`` does."""
 
     def __init__(self, params, cfg: ModelConfig, plan: MeshPlan, *,
-                 serve: Optional[ServeConfig] = None, **overrides):
+                 serve: Optional[ServeConfig] = None, mesh=None,
+                 use_kernel: bool = True, **overrides):
         serve = serve or ServeConfig()
         if overrides:
             serve = dataclasses.replace(serve, **overrides)
@@ -235,8 +258,11 @@ class Engine:
                 "(full/sliding); MLA absorbed decode and SSM/RWKV recurrent "
                 "state over paged pools are ROADMAP follow-ups")
         self.params, self.cfg, self.plan = params, cfg, plan
-        self.serve = serve
+        self.serve, self.mesh, self.use_kernel = serve, mesh, use_kernel
         self.device = params["embed"]["table"].device
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"parameters on {self.device}, the mesh's rank "
+                             f"on {mesh.device}")
         self.cache_len = serve.resolved_cache_len()
         self.page_size = serve.page_size
         self.n_slots = serve.n_slots
@@ -251,10 +277,14 @@ class Engine:
 
         self.alloc = KV.PageAllocator(pool_pages, self.page_size)
         self.caches = KV.init_paged_caches(cfg, pool_pages, self.page_size,
-                                           plan, device=self.device)
+                                           plan, device=self.device,
+                                           mesh=mesh)
         B, mp = self.n_slots, self.max_pages
         self._sentinel = pool_pages                   # OOB page id == unmapped
-        self._graphed = self.device.type == "cuda"
+        # a step is a CUDA graph on the card, except over a mesh: gloo
+        # stages each collective through the host and the ragged hop reads
+        # its split sizes there, which no capture can hold
+        self._graphed = self.device.type == "cuda" and mesh is None
         self._pool = torch.cuda.graph_pool_handle() if self._graphed else None
         # the decode step's input: [tok (B) | pos (B) | live (B) | table
         # (B * mp)]; the scheduler's arrays are views of its host side
@@ -280,7 +310,8 @@ class Engine:
     def _buffers(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(host, device) int32 buffers of ``n``; the host one pinned on the
         card, so its copy is one asynchronous transfer."""
-        host = torch.zeros((n,), dtype=torch.int32, pin_memory=self._graphed)
+        host = torch.zeros((n,), dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
         return host, torch.zeros((n,), dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------ steps
@@ -289,7 +320,8 @@ class Engine:
         d = self._dec_in[1]
         nxt, lg, stats, _ = paged_decode_step_fn(
             self.params, d[:B], caches, d[3 * B:].view(B, mp), d[B:2 * B],
-            d[2 * B:3 * B] > 0, cfg=self.cfg, plan=self.plan)
+            d[2 * B:3 * B] > 0, cfg=self.cfg, plan=self.plan,
+            use_kernel=self.use_kernel)
         return _pack(nxt, stats), lg
 
     def _prefill_fn(self, bucket: int):
@@ -300,7 +332,7 @@ class Engine:
             nxt, lg, stats, _ = _prefill(
                 self.params, d[2 + mp:].view(1, bucket), caches,
                 d[2:2 + mp].view(1, mp), d[0], d[1], cfg=self.cfg,
-                plan=self.plan)
+                plan=self.plan, use_kernel=self.use_kernel)
             return _pack(nxt, stats), lg
         return fn
 
@@ -450,7 +482,8 @@ class Engine:
     def compile_counts(self) -> Dict[str, Any]:
         """Step callables built: ``decode`` (0 or 1) and ``prefill`` {bucket:
         1}, the reference's compile counts.  On the card also ``captures``
-        and ``replays``, in the same form."""
+        and, for graphed steps, ``replays``, or for eager ones (over a
+        mesh) ``calls``, each in the same form."""
         def per(attr):
             return {"decode": (getattr(self.steps["decode"], attr)
                                if "decode" in self.steps else 0),
@@ -459,9 +492,9 @@ class Engine:
                                 if k != "decode"}}
         out = {"decode": int("decode" in self.steps),
                "prefill": {k: 1 for k in self.steps if k != "decode"}}
-        if self._graphed:
+        if self.device.type == "cuda":
             out["captures"] = per("captures")
-            out["replays"] = per("calls")
+            out["replays" if self._graphed else "calls"] = per("calls")
         return out
 
     def capture_launches(self) -> Dict[str, int]:

@@ -32,6 +32,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import MeshPlan
 
 
@@ -80,16 +81,28 @@ class PageAllocator:
 # =============================================================================
 
 def init_paged_caches(cfg0: ModelConfig, pool_pages: int, page_size: int,
-                      plan: MeshPlan, *, device="cuda") -> Tuple:
+                      plan: MeshPlan, *, device="cuda", mesh=None) -> Tuple:
     """Per-stage lists of per-block page pools.  Attention stages only:
-    recurrent-state stages (rwkv, mamba) are gated out by the engine."""
+    recurrent-state stages (rwkv, mamba) are gated out by the engine.
+
+    With ``mesh`` (and its plan) each pool is the rank's slice under
+    ``sharding.specs.cache_specs(..., batch=1)``, allocated at that shape:
+    the KV heads cut over tp where they divide, every page on every rank
+    (the pool has no batch dim, so it is replicated over dp)."""
     device = resolve_device(device)
     cfg = T._model_cfg(cfg0, plan)
     T._check_supported(cfg)
+    kv = cfg.num_kv_heads
+    if mesh is not None:
+        full = L.init_paged_kv_cache(cfg, pool_pages, page_size,
+                                     device="meta")
+        spec = S.cache_specs(full, cfg, plan, 1)["pool_k"]
+        kv = S.local_shape(tuple(full["pool_k"].shape), spec, mesh)[2]
 
     def pools(n):
         return [L.init_paged_kv_cache(cfg, pool_pages, page_size,
-                                      device=device) for _ in range(n)]
+                                      device=device, kv_heads=kv)
+                for _ in range(n)]
 
     out = []
     for st in T.build_stages(cfg):

@@ -16,7 +16,7 @@ as JAX places shards; :func:`gather_leaf` is its inverse.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -42,16 +42,28 @@ def _expert_spec(cfg: ModelConfig, plan: MeshPlan) -> Tuple:
     return (_one(tuple(plan.ep_inter)), _one(intra), None, None)
 
 
+def rwkv_heads_divide(cfg: ModelConfig, plan: MeshPlan) -> bool:
+    """Whether an rwkv time mix's heads (``d_model / head_dim``) divide
+    over ``tp``: then they are cut by head, else replicated."""
+    return (cfg.rwkv is None
+            or (cfg.d_model // cfg.rwkv.head_dim) % max(plan.tp, 1) == 0)
+
+
 def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
                      ) -> Callable[[Tuple[str, ...], int], Spec]:
     """``rule(path, ndim) -> spec`` for the port's parameter leaves: the
     experts over ``(inter, intra if the layout shards it)``; the
     embedding, the LM head, attention heads and dense FFNs over ``tp``;
     routers, norms and the shared expert replicated.  KV projections stay
-    replicated where the KV heads do not divide over ``tp``."""
+    replicated where the KV heads do not divide over ``tp``, and under
+    ``kv_seq_shard`` (the cache's sequence dim is the cut one there).  An
+    rwkv block's time mix is cut by head (its projections, decay, bonus,
+    group norm and output projection) where the heads divide over ``tp``,
+    its channel mix Megatron-style over ``d_ff``."""
     tp = plan.tp_axis
     kv_ok = (cfg.num_kv_heads % max(plan.tp, 1) == 0
              and not cfg.kv_seq_shard)
+    rwkv_tp = tp if rwkv_heads_divide(cfg, plan) else None
     espec = (_expert_spec(cfg, plan)
              if (cfg.moe and cfg.moe.num_experts) else None)
 
@@ -64,8 +76,24 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
             return espec
         if parent in ("router", "router_inter", "router_intra"):
             return (None, None)
-        if parent in ("tmix", "cmix"):
-            return None          # rwkv runs on one tp rank (not ported)
+        if parent == "tmix":
+            if name in ("wr", "wk", "wv", "wg"):
+                return (None, rwkv_tp, None)
+            if name in ("w0", "u"):
+                return (rwkv_tp, None)
+            if name == "decay_b":
+                return (None, rwkv_tp, None)
+            if name == "wo":
+                return (rwkv_tp, None, None)
+            return None          # mu, mix_a, mix_b, decay_a replicated
+        if parent == "ln_x":
+            return (rwkv_tp, None)
+        if parent == "cmix":
+            if name == "wk":
+                return (None, tp)
+            if name == "wv":
+                return (tp, None)
+            return None          # wr, mu_k, mu_r replicated
         if name == "wq":
             return (None, tp, None)
         if name in ("wk", "wv"):
@@ -186,24 +214,68 @@ def cache_specs(cache_tree, cfg: ModelConfig, plan: MeshPlan, batch: int):
     """Decode caches: the batch dim over dp, the KV heads over tp where
     they divide.  Leaves: ring KV ``k``/``v`` (B, W, KV, hd) and ``pos``
     (W,); paged pools ``pool_k``/``pool_v`` (pages, page, KV, hd), no
-    batch dim; rwkv ``wkv`` (B, nh, hd, hd) and ``x_prev_*`` (B, 1, d)."""
+    batch dim, and their page ``table``, replicated; rwkv ``wkv`` (B, nh,
+    hd, hd), its heads over tp where they divide, and ``x_prev_*`` (B, 1,
+    d).  Under ``kv_seq_shard`` with tp > 1 the ring's sequence dim is the
+    cut one: ``k``/``v`` (B, W / tp, KV, hd) with every KV head, ``pos``
+    (W / tp,)."""
     tp = plan.tp_axis
     bspec = batch_dim_spec(batch, plan)
     kv_ok = cfg.num_kv_heads % max(plan.tp, 1) == 0
+    seq_shard = cfg.kv_seq_shard and plan.tp > 1
+    rwkv_tp = tp if rwkv_heads_divide(cfg, plan) else None
 
     def one(path, leaf):
         name, nd = path[-1], leaf.ndim
+        if name == "pos" and seq_shard:
+            return (None,) * (nd - 1) + (tp,)
         if name in ("pos", "table"):
             return (None,) * nd
         if name in ("pool_k", "pool_v"):
             b = (None, None, tp if kv_ok else None, None)
         elif name in ("k", "v"):
-            b = (bspec, None, tp if kv_ok else None, None)
+            b = ((bspec, tp, None, None) if seq_shard
+                 else (bspec, None, tp if kv_ok else None, None))
+        elif name == "wkv":
+            b = (bspec, rwkv_tp, None, None)
         else:
             b = (bspec,) + (None,) * (nd - 1)
         return (None,) * (nd - len(b)) + b
 
     return map_tree(one, cache_tree)
+
+
+def engine_step_specs(params, caches, cfg: ModelConfig, plan: MeshPlan
+                      ) -> Dict[str, Any]:
+    """The specs of the serving engine's steps over a mesh, as the
+    reference's ``build_paged_decode_step`` / ``build_paged_prefill`` set
+    them: the parameters by :func:`param_specs`; the page pools by
+    :func:`cache_specs` at batch 1 (no batch dim: replicated over dp, the
+    KV heads over tp where they divide); the per-tick scheduler arrays
+    (``tok``, ``pos``, ``live`` (B,) and the page ``table`` (B,
+    max_pages)) replicated on every rank; a decode step's logits (B, V)
+    vocabulary-cut over tp, its tokens replicated."""
+    return {"params": param_specs(params, cfg, plan),
+            "caches": cache_specs(caches, cfg, plan, 1),
+            "tok": (None,), "pos": (None,), "live": (None,),
+            "table": (None, None),
+            "next_tok": (None,), "logits": (None, plan.tp_axis)}
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec, sizes) -> Tuple[int, ...]:
+    """The shape of a rank's slice of a leaf of ``shape`` under ``spec``:
+    each cut dim divided by the size of its axes (``sizes``: anything with
+    ``size(axes)``, a mesh or a plan)."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} for a leaf of {len(shape)} dims")
+    out = []
+    for n, e in zip(shape, spec):
+        k = 1 if e is None else sizes.size(e)
+        if n % k:
+            raise ValueError(f"dim {n} of {tuple(shape)} does not split over "
+                             f"{e} ({k} ranks)")
+        out.append(n // k)
+    return tuple(out)
 
 
 # =============================================================================

@@ -16,7 +16,6 @@ from repro.models import layers as JL
 from repro.sharding.plan import single_device_plan as jplan
 from repro_torch.common.config import ModelConfig as TModelConfig
 from repro_torch.models import layers as TL
-from repro_torch.sharding.plan import MeshPlan
 from repro_torch.sharding.plan import single_device_plan as tplan
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -134,19 +133,70 @@ def test_chunked_attention_chunks_match_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN)
 
 
-def test_unported_attention_paths_raise():
-    """The sequence-sharded ring cache needs tensor parallelism, which the
-    port has not yet (the paged cache, which raised here before the serving
-    engine came, is held to the reference below)."""
-    _, tcfg = _attn_cfgs(True, 0)
-    tcfg = tcfg.replace(kv_seq_shard=True)
-    x = torch.zeros((1, 2, 32))
-    p = {k: torch.from_numpy(v.astype(np.float32))
-         for k, v in _attn_params(np.random.default_rng(0)).items()}
-    tp2 = MeshPlan(tp_axis="tp", axis_sizes=(("tp", 2),))
-    with pytest.raises(NotImplementedError, match="sequence-sharded"):
-        TL.attention_forward(p, x, tcfg, tp2, positions=torch.arange(2),
-                             cache=TL.init_attention_cache(tcfg, 1, 4, tp2))
+def _partial_inputs(Tq):
+    """Queries at positions 6.. over 11 cache slots (one empty): every
+    query sees at least one key."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, Tq, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 11, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 11, 2, 8)).astype(np.float32)
+    qp = np.arange(6, 6 + Tq, dtype=np.int32)
+    kp = np.arange(11, dtype=np.int32)
+    kp[3] = -1
+    return q, k, v, qp, kp
+
+
+@pytest.mark.parametrize("Tq,chunk", [(1, 4), (5, 4), (5, 1024)])
+def test_chunked_attention_partials_match(Tq, chunk):
+    """``return_partial=True``: the running max, sum and accumulator
+    against the reference's, and the single-rank merge (no axes) against
+    both packages' attention output."""
+    q, k, v, qp, kp = _partial_inputs(Tq)
+    jargs, targs = (tuple(map(jnp.asarray, (q, k, v, qp, kp))),
+                    tuple(map(torch.from_numpy, (q, k, v, qp, kp))))
+    want = JL.chunked_attention(*jargs, causal=True, chunk=chunk,
+                                return_partial=True)
+    got = TL.chunked_attention(*targs, causal=True, chunk=chunk,
+                               return_partial=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **ATTN)
+    shape = (2, Tq, 4, 8)
+    jout = JL.merge_attention_partials(*want, None, shape, jnp.float32)
+    tout = TL.merge_attention_partials(*got, None, shape, torch.float32)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **ATTN)
+    np.testing.assert_allclose(
+        tout.numpy(), np.asarray(JL.chunked_attention(*jargs, causal=True)),
+        **ATTN)
+
+
+def _merge_on_rank(rank, Tq):
+    """One of two ranks: the partials over its half of the keys, merged
+    over ``model``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.plan import plan_from_mesh
+    plan = plan_from_mesh(make_mesh((2,), ("model",), device=rank.device))
+    q, k, v, qp, kp = map(torch.from_numpy, _partial_inputs(Tq))
+    half = slice(6 * rank.rank, 6 * rank.rank + 6)
+    m, l, acc = TL.chunked_attention(q, k[:, half], v[:, half], qp, kp[half],
+                                     causal=True, return_partial=True)
+    return TL.merge_attention_partials(m, l, acc, plan.tp_axis, q.shape,
+                                       torch.float32).numpy()
+
+
+def test_merge_attention_partials_over_two_ranks(tmp_path):
+    """Two gloo ranks, each holding half of the keys (the sequence-sharded
+    cache's layout), merge their partials (pmax, then psums over
+    ``model``): both get the reference's attention over all the keys."""
+    from repro_torch.launch.mesh import RankPool
+    Tq = 5
+    want = np.asarray(JL.chunked_attention(
+        *map(jnp.asarray, _partial_inputs(Tq)), causal=True))
+    with RankPool(2, backend="gloo", devices=["cpu"] * 2, threads=1,
+                  timeout_s=120,
+                  init_method=f"file://{tmp_path / 'store'}") as pool:
+        got = pool.run(_merge_on_rank, Tq)
+    for out in got:
+        np.testing.assert_allclose(out, want, **ATTN)
 
 
 @pytest.mark.parametrize("window", [0, 3])
