@@ -249,7 +249,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     phase 4's tolerance (bf16 printed: one extra bf16 rounding a layer, the
     reference's, moves rwkv6's logits at 24 layers by more than their
     spread).
-21. A ``{"kernels": [...]}`` line, then the card line, then the last line
+21. The remaining transformer architectures, on one card.  (a)
+    deepseek-v3-671b served at full width (MLA: 128 heads, q rank 1,536,
+    kv rank 512; 256 experts of 2,048 and a shared one, top-8 over top_g
+    4) with the depth cut to 4 of 61 layers (its three dense layers and
+    one MoE layer), grid (8, 32) (DeepSeek-V3's n_group 8, topk_group 4),
+    the sort dispatch in bf16, batch 8, prompt 128, 8 new tokens (its
+    decode steps on the absorbed MLA path): launches, times, peak memory;
+    then each of the MoE layer's kernels held against its plain version on
+    its first call at each shape the serve gave it (hop 1 at d 7,168 into
+    8 nodes, the grouped FFN over 256 experts at prefill and decode, the
+    combines), phase 2's tolerances.  (b) deepseek-v3 training at full
+    width, one dense MLA layer of 61 and the MTP head, LAMB, batch 4 x
+    128: ms a step, ``ce``, ``mtp``, peak memory; then the reduced config
+    (its MoE layer, the MTP head, the fused router and the radix sort)
+    one step on the card against the CPU.  (c) musicgen-large at full
+    width and depth: the serve (batch 8 x 4 codebooks), the cache-less
+    kernel forward at 2 x 2,048 (48 flash launches) and a training step.
+    (d) phi-3-vision-4.2b at full width: the text serve at full depth, the
+    cache-less kernel forward at 2 x 1,024 tokens with 576 image
+    embeddings at positions 1-576, and training steps with images at 16 of
+    32 layers.  (e) Each reduced config card against CPU: phase 4's
+    comparison (bf16, the card's kernels), then fp32 on the plain path,
+    where the card must give the CPU's tokens (every codebook's) with its
+    logits within phase 4's tolerance.
+22. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -422,6 +446,11 @@ FLASH_SHAPES = {"qwen3 path": (2, 4096, 32, 4, 128),
                 "hd 80": (1, 2048, 32, 32, 80),
                 "hd 96": (1, 2048, 32, 32, 96),
                 "hd 160": (1, 2048, 32, 8, 160),
+                # phase 21's cache-less forwards: musicgen-large (2 x 2,048
+                # tokens, 32 heads of 64) and phi-3-vision (2 x 1,024, 32
+                # heads of 96)
+                "musicgen path": (2, 2048, 32, 32, 64),
+                "phi3 path": (2, 1024, 32, 32, 96),
                 # past 192: the wide route (no config of either package
                 # has such heads; the Pallas kernel takes any)
                 "hd 256": (1, 2048, 16, 8, 256),
@@ -1094,21 +1123,25 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
     return busy, per_unit
 
 
-def phase_card_vs_cpu(torch, ops, moe_options=None):
-    """Reduced qwen3-moe (under ``moe_options``): prefill + 3 decode steps,
-    CPU plain versions against the card's kernels, the CPU's tokens fed to
-    both.  Prints the card run's launches, and checks that its expert FFN
-    ran the kernel of the config's backend."""
+def phase_card_vs_cpu(torch, ops, moe_options=None,
+                      arch="qwen3-moe-30b-a3b"):
+    """A reduced config (qwen3-moe by default, under ``moe_options``):
+    prefill + 3 decode steps, CPU plain versions against the card's
+    kernels, the CPU's tokens fed to both (under K > 1 codebooks, K a
+    step).  Prints the card run's launches, and checks that a MoE
+    config's expert FFN ran the kernel of its backend."""
     import numpy as np
     from repro_torch.configs import get_reduced, with_options
     from repro_torch.models import transformer as T
     from repro_torch.sharding.plan import single_device_plan
-    cfg = with_options(get_reduced("qwen3-moe-30b-a3b"), **(moe_options or {}))
+    cfg = with_options(get_reduced(arch), **(moe_options or {}))
     plan = single_device_plan()
     params = T.init_model(cfg, plan, seed=0, device="cpu")
 
     B, S, steps = 2, 16, 3
-    toks = np.random.default_rng(0).integers(8, cfg.vocab_size, (B, S))
+    K = cfg.num_codebooks
+    toks = np.random.default_rng(0).integers(
+        8, cfg.vocab_size, (B, K, S) if K > 1 else (B, S))
     runs = {}
     ops.reset_launch_counts()
     for dev in ("cpu", "cuda"):
@@ -1126,16 +1159,19 @@ def phase_card_vs_cpu(torch, ops, moe_options=None):
                                                  use_kernel=True)
                 outs.append(logits.float().cpu())
                 nxt = (runs["cpu"][i] if dev == "cuda" else logits.cpu())
-                tok = nxt[:, -1].argmax(-1).to(torch.int32)[:, None].to(dev)
+                tok = nxt[:, -1].argmax(-1).to(torch.int32)[..., None].to(
+                    dev)
         runs[dev] = outs
     launches = ops.launch_counts()
-    ffn = ("grouped_ffn_ragged" if cfg.moe.dispatch_backend == "dropless"
-           else "grouped_ffn")
-    other = ({"grouped_ffn", "grouped_ffn_ragged"} - {ffn}).pop()
-    print(f"  card launches over the {steps + 1} forwards: {launches}")
-    if not (launches[ffn] > 0 and launches[other] == 0):
-        raise AssertionError(f"card against CPU: the expert FFN should run "
-                             f"{ffn} only, launches {launches}")
+    print(f"  {arch}: card launches over the {steps + 1} forwards: "
+          f"{launches}")
+    if cfg.moe is not None:
+        ffn = ("grouped_ffn_ragged" if cfg.moe.dispatch_backend == "dropless"
+               else "grouped_ffn")
+        other = ({"grouped_ffn", "grouped_ffn_ragged"} - {ffn}).pop()
+        if not (launches[ffn] > 0 and launches[other] == 0):
+            raise AssertionError(f"card against CPU: the expert FFN should "
+                                 f"run {ffn} only, launches {launches}")
     for i, (a, b) in enumerate(zip(runs["cpu"], runs["cuda"])):
         err = (a - b).abs().max().item()
         what = "prefill" if i == 0 else f"decode {i}"
@@ -1379,9 +1415,10 @@ def _to(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def phase_train_card_vs_cpu(torch):
-    """Reduced smile-3.7b, 3 steps from the same weights and batches on the
-    CPU (plain versions) and on the card (kernels); each step's loss within
+def phase_train_card_vs_cpu(torch, arch="smile-3.7b", steps=3):
+    """A reduced config (smile-3.7b by default; fused router and radix
+    sort), ``steps`` steps from the same weights and batches on the CPU
+    (plain versions) and on the card (kernels); each step's loss within
     TRAIN_LOSS_ATOL."""
     from repro_torch.common.config import TrainConfig
     from repro_torch.data.pipeline import make_batch
@@ -1390,10 +1427,9 @@ def phase_train_card_vs_cpu(torch):
     from repro_torch.optim import make_optimizer, make_schedule
     from repro_torch.sharding.plan import single_device_plan
     from repro_torch.train.step import build_train_step
-    cfg = train_config("smile-3.7b", reduced=True,
-                       moe_options=TRAIN["moe_options"])
+    cfg = train_config(arch, reduced=True, moe_options=TRAIN["moe_options"])
     plan = single_device_plan()
-    B, S, steps = 8, 64, 3
+    B, S = 8, 64
     params = T.init_model(cfg, plan, seed=0, device="cpu", compute_cast=False)
     tcfg = TrainConfig(global_batch_size=B, seq_len=S, steps=steps,
                        warmup_steps=1)
@@ -1411,7 +1447,7 @@ def phase_train_card_vs_cpu(torch):
             p, state, m = step(p, state, b, i + 1)
             losses[dev].append(float(m["loss"]))
     for i, (a, b) in enumerate(zip(losses["cpu"], losses["cuda"])):
-        print(f"  step {i + 1}: loss cpu {a:.5f}, card {b:.5f}, |diff| "
+        print(f"  {arch} step {i + 1}: loss cpu {a:.5f}, card {b:.5f}, |diff| "
               f"{abs(a - b):.3e} (tolerance {TRAIN_LOSS_ATOL})")
         if not abs(a - b) <= TRAIN_LOSS_ATOL:
             raise AssertionError(f"training card against CPU, step {i + 1}")
@@ -1616,15 +1652,17 @@ QWEN_SCORE_LAUNCHES = {**ZERO_LAUNCHES, "dispatch_gather": 8,
 RWKV_SCORE_LAUNCHES = {**ZERO_LAUNCHES, "rwkv6_scan": 24}
 
 
-def phase_scoring_forward(torch, ops, run_cfg, per_forward, shares):
+def phase_scoring_forward(torch, ops, run_cfg, per_forward, shares,
+                          images=0):
     """The cache-less kernel forward once through
     ``repro_torch.models.transformer.forward``, every launch count set to 0
     just before and read just after; then warm, and once under the
-    profiler.  Returns the launch counts of the first forward."""
-    import numpy as np
+    profiler.  Tokens (B, S), or (B, K, S) under K > 1 codebooks;
+    ``images`` image embeddings a row (drawn from seed 0) written at
+    positions 1..images.  Returns the launch counts of the first
+    forward."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data.pipeline import synthetic_tokens
-    from repro_torch.launch.serve import serve_config
+    from repro_torch.launch.serve import serve_config, serve_prompts
     from repro_torch.models import transformer as T
     from repro_torch.sharding.plan import single_device_plan
     gc.collect()
@@ -1636,14 +1674,21 @@ def phase_scoring_forward(torch, ops, run_cfg, per_forward, shares):
     B, S = run_cfg["batch"], run_cfg["seq"]
     params = T.init_model(cfg, plan, seed=0, device="cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    toks = torch.as_tensor(synthetic_tokens(np.random.default_rng(0), B, S,
-                                            cfg.vocab_size), device="cuda")
+    toks = serve_prompts(cfg, B, S, 0, "cuda")
     pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    extra = None
+    if images:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        extra = {"image_embeds": torch.randn(
+            (B, images, cfg.vision_embed_dim), generator=gen, device="cuda"),
+            "image_pos": torch.arange(1, images + 1, dtype=torch.int32,
+                                      device="cuda").repeat(B, 1)}
 
     def run():
         with torch.inference_mode():
             _, logits, _, _ = T.forward(params, toks, cfg, plan,
-                                        positions=pos, use_kernel=True)
+                                        positions=pos, use_kernel=True,
+                                        extra=extra)
         return logits
 
     torch.cuda.synchronize()
@@ -1658,11 +1703,14 @@ def phase_scoring_forward(torch, ops, run_cfg, per_forward, shares):
     shape = tuple(logits.shape)
     del logits
     print(f"  {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
-          f"parameters, batch {B} x {S} tokens; launches {launches}; "
-          f"logits {shape} finite: {finite}")
+          f"parameters, batch {B} x {S} tokens"
+          + (f" ({images} image embeddings a row)" if images else "")
+          + f"; launches {launches}; logits {shape} finite: {finite}")
     if not finite:
         raise AssertionError(f"{cfg.name} forward: non-finite logits")
-    if shape != (B, S, cfg.vocab_size):
+    K = cfg.num_codebooks
+    if shape != ((B, S, K, cfg.vocab_size) if K > 1
+                 else (B, S, cfg.vocab_size)):
         raise AssertionError(f"{cfg.name} forward: logits {shape}")
     if launches != per_forward:
         raise AssertionError(f"{cfg.name} forward: launches {launches}, "
@@ -3950,21 +3998,30 @@ def p20_run_cfg(cfg, backend, cf, dtype):
 
 
 @contextlib.contextmanager
-def capture_kernel_inputs(ops, tag):
-    """While open, the first call of each wrapper in MESH_HELD_KERNELS at
-    each input shape keeps a clone of its inputs, under ``(name, tag(),
+def capture_kernel_inputs(ops, tag, names=MESH_HELD_KERNELS,
+                          by_ref_bytes=None):
+    """While open, the first call of each wrapper in ``names`` at each
+    input shape keeps a clone of its inputs, under ``(name, tag(),
     shapes)`` in the yielded dict (the wrappers still launch and count as
-    they do)."""
+    they do).  A tensor of more than ``by_ref_bytes`` is kept by
+    reference, not cloned: the expert weights, which serving never
+    writes."""
     import torch
-    got, orig = {}, {n: getattr(ops, n) for n in MESH_HELD_KERNELS}
+    got, orig = {}, {n: getattr(ops, n) for n in names}
+
+    def keep(x):
+        if not torch.is_tensor(x):
+            return x
+        big = (by_ref_bytes is not None
+               and x.numel() * x.element_size() > by_ref_bytes)
+        return x if big else x.clone()
 
     def wrap(name, fn):
         def call(*a, **kw):
             shapes = tuple(tuple(x.shape) for x in a if torch.is_tensor(x))
             key = (name, tag(), shapes)
             if key not in got:
-                got[key] = ([x.clone() if torch.is_tensor(x) else x
-                             for x in a], dict(kw))
+                got[key] = ([keep(x) for x in a], dict(kw))
             # the wrapper counts its launch on its module-level name
             setattr(ops, name, fn)
             try:
@@ -3982,12 +4039,14 @@ def capture_kernel_inputs(ops, tag):
             setattr(ops, n, fn)
 
 
-def hold_kernel(torch, ops, ref, name, args, kw, label, flush):
+def hold_kernel(torch, ops, ref, name, args, kw, label, flush, plain=None):
     """The kernel ``name`` on inputs a path gave it, against its plain
     version on the same inputs (phase 2's tolerances), timed (the gathers
     cold), with its bound and library time: ``(row, line)``
-    (:func:`make_row`)."""
-    fn, plain = getattr(ops, name), getattr(ref, f"{name}_ref")
+    (:func:`make_row`).  ``plain`` replaces the plain version (the same
+    function computed in pieces)."""
+    fn = getattr(ops, name)
+    plain = plain or getattr(ref, f"{name}_ref")
     pkw = {k: v for k, v in kw.items() if k != "block"}
     got, want = fn(*args, **kw), plain(*args, **pkw)
     torch.cuda.synchronize()
@@ -4056,9 +4115,10 @@ def hold_kernel(torch, ops, ref, name, args, kw, label, flush):
     return make_row(name, label, got, want, ms, plain_ms, b, library)
 
 
-def hold_captured(torch, ops, ref, captured, keep):
+def hold_captured(torch, ops, ref, captured, keep, plains=None):
     """:func:`hold_kernel` on each captured call whose tag is in ``keep``
-    (a tag -> label prefix dict)."""
+    (a tag -> label prefix dict); ``plains`` (name -> function) replaces
+    a kernel's plain version."""
     flush = L2Flush(torch)
     out = []
     for (name, tag, shapes), (args, kw) in sorted(
@@ -4068,7 +4128,7 @@ def hold_captured(torch, ops, ref, captured, keep):
             label = f"{keep[tag]} " + " ".join(
                 "x".join(map(str, s)) for s in shapes[:2])
             out.append(hold_kernel(torch, ops, ref, name, args, kw, label,
-                                   flush))
+                                   flush, (plains or {}).get(name)))
     return out
 
 
@@ -4638,6 +4698,243 @@ def phase_mesh_finish(torch, ops, devices=MESH_DEVICES, reduced=False):
     return [r for r, _ in rows]
 
 
+# phase 21: the remaining transformer architectures.  deepseek-v3 at full
+# width (d 7,168, 128 MLA heads, q rank 1,536, kv rank 512, 256 experts of
+# 2,048 plus one shared, top-8 over top_g 4, vocab 129,280) cut to 4 of 61
+# layers (its three dense layers and one MoE layer: 15.8 B parameters, the
+# MoE layer 11.5 B of them), on DeepSeek-V3's published expert grouping
+# (n_group 8, topk_group 4: grid (8, 32); grid (0, 0) cannot route on one
+# device).  The serving form draws every block's weights in bf16 as it goes
+# (the fp32 draw of the whole model, 63 GB, would not fit beside its cast)
+DSV3 = dict(arch="deepseek-v3-671b", num_layers=4, moe_grid=(8, 32))
+ARCH_SERVE = dict(batch=8, prompt_len=128, new_tokens=8)
+# one MoE layer a forward: dispatch and combine at both SMILE hops, the
+# grouped FFN at hop 2
+DSV3_PER_FORWARD = {**ZERO_LAUNCHES, "dispatch_gather": 2, "grouped_ffn": 1,
+                    "combine_gather": 2}
+DSV3_HELD = ("dispatch_gather", "combine_gather", "grouped_ffn")
+# the plain grouped FFN widens every weight to fp32: 256 experts' 22.5 GB
+# of bf16 would take 45 GB, so it runs 32 experts at a time
+FFN_PLAIN_EXPERTS = 32
+# training: one dense MLA layer of 61 with the MTP head (3.12 B fp32
+# parameters, ~50 GB with gradients and LAMB moments; a MoE layer's 11.5 B
+# and their state do not fit one card), batch 4 x 128
+DSV3_TRAIN = dict(arch="deepseek-v3-671b", reduced=False, num_layers=1,
+                  batch=4, seq=128, optimizer="lamb", moe_grid=(8, 32),
+                  moe_options={"router_impl": "fused", "sort_impl": "radix"})
+# musicgen-large at full width and depth; phi-3-vision at full width, its
+# training cut to 16 of 32 layers (its 3.8 B fp32 parameters with their
+# gradients and moments, 61 GB, leave too little room at full depth)
+MUSIC_ARCH, PHI3_ARCH = "musicgen-large", "phi-3-vision-4.2b"
+MUSIC_FORWARD = dict(arch=MUSIC_ARCH, num_layers=None, moe_grid=None,
+                     batch=2, seq=2048)
+PHI3_FORWARD = dict(arch=PHI3_ARCH, num_layers=None, moe_grid=None, batch=2,
+                    seq=1024)
+MUSIC_TRAIN = dict(arch=MUSIC_ARCH, reduced=False, batch=4, seq=128,
+                   optimizer="lamb")
+PHI3_TRAIN = dict(arch=PHI3_ARCH, reduced=False, num_layers=16, batch=2,
+                  seq=1024, optimizer="lamb")
+ARCH_TRAIN_STEPS = 3                      # one warm-up, two timed
+# a flash launch a layer of a cache-less forward (musicgen 48, phi-3 32)
+MUSIC_FLASH = {**ZERO_LAUNCHES, "flash_attention": 48}
+PHI3_FLASH = {**ZERO_LAUNCHES, "flash_attention": 32}
+ARCHS_21 = ("deepseek-v3-671b", MUSIC_ARCH, PHI3_ARCH)
+
+
+def chunked_ffn_plain(torch, ref, experts: int):
+    """``ref.grouped_ffn_ref`` over ``experts`` groups at a time (the same
+    function: each group's product is its own)."""
+    def plain(x, w1, w3, w2, *, act):
+        return torch.cat([ref.grouped_ffn_ref(
+            x[g:g + experts], w1[g:g + experts],
+            None if w3 is None else w3[g:g + experts], w2[g:g + experts],
+            act=act) for g in range(0, x.shape[0], experts)])
+    return plain
+
+
+def phase_arch_serve(torch, ops, card, arch, per_forward, num_layers=None,
+                     moe_grid=None, held=()):
+    """``serve`` of ``arch`` at full width (ARCH_SERVE), every launch count
+    set to 0 just before and read just after: each phase's launches its
+    path's per forward, finite logits, then the same weights and prompts
+    warm through ``generate``.  The first call of each kernel in ``held``
+    at each shape keeps its inputs (the weights by reference).  Returns
+    ``(result, captured)``."""
+    from repro_torch.launch.serve import generate, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with capture_kernel_inputs(ops, lambda: arch, held,
+                               by_ref_bytes=1 << 30) as captured:
+        ops.reset_launch_counts()
+        res = serve(arch, reduced=False, seed=0, device="cuda",
+                    num_layers=num_layers, moe_grid=moe_grid, **ARCH_SERVE)
+        launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps = res.inputs.cfg, res.decode_steps
+    n_params = sum(t.numel() for t in _leaves(res.inputs.params))
+    print(f"  {arch} ({card}): {cfg.num_layers} layers, {n_params / 1e9:.3f}"
+          f" B parameters; first call: prefill {res.prefill_s * 1e3:.2f} ms "
+          f"({res.batch} x {ARCH_SERVE['prompt_len']}), decode "
+          f"{res.decode_s / steps * 1e3:.2f} ms a step; launches "
+          f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    if not res.logits_finite:
+        raise AssertionError(f"{arch} serve: non-finite logits")
+    for phase, n in (("prefill", 1), ("decode", steps)):
+        want = {k: v * n for k, v in per_forward.items()}
+        if res.launches[phase] != want:
+            raise AssertionError(f"{arch} serve {phase}: launches "
+                                 f"{res.launches[phase]}, expected {want}")
+    K = cfg.num_codebooks
+    want = ((res.batch, K, ARCH_SERVE["new_tokens"]) if K > 1
+            else (res.batch, ARCH_SERVE["new_tokens"]))
+    if res.tokens.shape != want:
+        raise AssertionError(f"{arch} serve: tokens {res.tokens.shape}")
+    inp = res.inputs
+    warm = generate(inp.params, inp.prompts, inp.cfg, inp.plan,
+                    new_tokens=ARCH_SERVE["new_tokens"])
+    print(f"  {arch} warm ({card}): prefill {warm.prefill_s * 1e3:.2f} ms; "
+          f"decode {warm.decode_s / steps * 1e3:.2f} ms a step "
+          f"({steps * warm.batch / warm.decode_s:.1f} tokens/s); tokens "
+          f"equal to the first call: "
+          f"{bool((warm.tokens == res.tokens).all())}")
+    return res, captured
+
+
+def phase_arch_train(torch, ops, card, kw, steps=ARCH_TRAIN_STEPS):
+    """``train()`` at full width (``kw``), every launch count set to 0
+    just before and read just after (0 throughout: the dense layers run
+    no kernel, and training runs the plain expert path): one warm-up step
+    and the rest timed; the loss, its parts and the peak memory."""
+    from repro_torch.launch.train import train
+    from repro_torch.optim import leaf_groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    params, hist = train(steps=steps, log_every=1, device="cuda", **kw)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for g in leaf_groups(params) for p in g.pieces)
+    del params
+    tokens = kw["batch"] * kw["seq"]
+    for h in hist:
+        print(f"  {kw['arch']} ({card}) step {h['step']}"
+              f"{' (warm-up)' if h['step'] == 1 else ''}: "
+              f"{h['step_ms']:.2f} ms ({tokens / h['step_ms'] * 1e3:,.0f} "
+              f"tokens/s)  loss {h['loss']:.4f} ce {h['ce']:.4f} mtp "
+              f"{h['mtp']:.4f} lb {h['lb']:.5f} grad norm "
+              f"{h['grad_norm']:.4f}")
+        if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"{kw['arch']} train step {h['step']}: "
+                                 f"non-finite loss or grad norm")
+    timed = [h["step_ms"] for h in hist[1:]]
+    print(f"  {kw['arch']} ({card}): {n_params / 1e9:.3f} B parameters, "
+          f"{kw.get('num_layers') or 'all'} layers, batch {kw['batch']} x "
+          f"{kw['seq']}; timed steps mean {sum(timed) / len(timed):.2f} ms; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{kw['arch']} train: launches {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist
+
+
+def phase_arch_card_vs_cpu_fp32(torch, card, arch):
+    """A reduced config in fp32 on the plain path (the kernels take bf16),
+    prefill and 3 decode steps on the CPU and on the card from the same
+    weights, each fed its own tokens: the card gives the CPU's tokens
+    (every codebook's), and its logits lie within phase 16's tolerance up
+    to where a row parts (``check_tokens_and_logits``)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import generate, serve_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.plan import single_device_plan
+    cfg = get_reduced(arch).replace(dtype="float32")
+    plan = single_device_plan()
+    params = T.init_model(cfg, plan, seed=0, device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runs[dev] = generate(_to(params, dev),
+                             serve_prompts(cfg, 2, 16, 0, dev), cfg, plan,
+                             new_tokens=4, keep_logits=True, use_kernel=False)
+    a, b = runs["cpu"], runs["cuda"]
+    K = cfg.num_codebooks
+
+    def rows(r):
+        # every codebook's stream a row: (B*K, n) tokens, (n, B*K, V)
+        if K == 1:
+            return r.tokens, r.logits
+        n = r.tokens.shape[-1]
+        return (r.tokens.reshape(-1, n),
+                r.logits.reshape(n, -1, r.logits.shape[-1]))
+
+    n_same, worst = check_tokens_and_logits(*rows(a), *rows(b), LOGITS_ATOL,
+                                            f"{arch} fp32 card against CPU")
+    print(f"  {arch} fp32 ({card}), plain path: {n_same} of "
+          f"{rows(a)[0].shape[0]} rows' tokens equal; largest logits "
+          f"difference {worst:.3e} (tolerance {LOGITS_ATOL})")
+    if n_same != rows(a)[0].shape[0]:
+        raise AssertionError(f"{arch} fp32: the card parts from the CPU's "
+                             f"tokens")
+
+
+def phase_archs(torch, ops, ref, card):
+    """Phase 21 (see the module docstring); returns the kernel rows held
+    at deepseek-v3's shapes."""
+    from repro_torch.configs import get_config
+    cfg = get_config(DSV3["arch"])
+    print(f"  deepseek-v3 param_count {cfg.param_count() / 1e9:.2f} B at 61 "
+          f"layers (the reference's count, whose MTP term counts a MoE "
+          f"layer)")
+    t0 = time.perf_counter()
+    res, captured = phase_arch_serve(torch, ops, card, DSV3["arch"],
+                                     DSV3_PER_FORWARD,
+                                     num_layers=DSV3["num_layers"],
+                                     moe_grid=DSV3["moe_grid"],
+                                     held=DSV3_HELD)
+    print(f"  (a) deepseek-v3 serve: {time.perf_counter() - t0:.1f} s; "
+          f"holding each kernel's first call at each shape ({card})")
+    rows = []
+    for row, line in hold_captured(
+            torch, ops, ref, captured, {DSV3["arch"]: "dsv3"},
+            {"grouped_ffn": chunked_ffn_plain(torch, ref,
+                                              FFN_PLAIN_EXPERTS)}):
+        print(line)
+        rows.append(row)
+    del res, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_arch_train(torch, ops, card, DSV3_TRAIN)
+    phase_train_card_vs_cpu(torch, DSV3["arch"], steps=1)
+    print(f"  (b) deepseek-v3 training: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_arch_serve(torch, ops, card, MUSIC_ARCH, ZERO_LAUNCHES)
+    phase_scoring_forward(torch, ops, MUSIC_FORWARD, MUSIC_FLASH,
+                          shares=("flash_attn",))
+    phase_arch_train(torch, ops, card, MUSIC_TRAIN)
+    print(f"  (c) musicgen-large: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_arch_serve(torch, ops, card, PHI3_ARCH, ZERO_LAUNCHES)
+    phase_scoring_forward(torch, ops, PHI3_FORWARD, PHI3_FLASH,
+                          shares=("flash_attn",),
+                          images=get_config(PHI3_ARCH).vision_tokens)
+    phase_arch_train(torch, ops, card, PHI3_TRAIN)
+    print(f"  (d) phi-3-vision: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for arch in ARCHS_21:
+        phase_card_vs_cpu(torch, ops, arch=arch)
+        phase_arch_card_vs_cpu_fp32(torch, card, arch)
+    print(f"  (e) card against CPU: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -4804,6 +5101,14 @@ def main() -> int:
                 f"qwen1.5-0.5b, full width; (b) the sequence-sharded ring "
                 f"cache; (c) rwkv6-1.6b over tensor parallelism ({card})")
     for r in phase_mesh_finish(torch, ops):
+        rows.setdefault(r["name"], []).append(r)
+
+    clock.start(f"phase 21: the remaining transformer architectures "
+                f"({card}): (a) deepseek-v3 serve, full width, 4 of 61 "
+                f"layers, grid (8, 32); (b) its training, 1 of 61 layers and "
+                f"the MTP head; (c) musicgen-large and (d) phi-3-vision, full "
+                f"width; (e) the reduced configs card against CPU")
+    for r in phase_archs(torch, ops, ref, card):
         rows.setdefault(r["name"], []).append(r)
     clock.stop()
 

@@ -320,10 +320,11 @@ def smile_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
 
 def init_moe_params(cfg: MoEConfig, d_model: int, plan: MeshPlan, *,
                     generator: torch.Generator, glu: bool = False,
-                    device=None, param_dtype=torch.float32) -> Dict:
+                    device=None, expert_dtype=torch.float32) -> Dict:
     """Init MoE layer params from ``generator`` (its numbers differ from
     ``jax.random``; tests carry weights across with ``params_from_jax``).
-    Expert tensors are stored (n_g, E_pn, d, f)."""
+    Expert tensors are stored (n_g, E_pn, d, f) in ``expert_dtype`` (the
+    same bits as casting the fp32 draw); the routers stay fp32."""
     n_g, m_g = _grid(cfg, plan)
     layout = make_layout(cfg.num_experts, n_g, m_g)
     e_pn = layout.experts_per_node
@@ -331,14 +332,15 @@ def init_moe_params(cfg: MoEConfig, d_model: int, plan: MeshPlan, *,
     scale_in = 1.0 / math.sqrt(d_model)
     scale_out = 1.0 / math.sqrt(f)
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=torch.float32):
         w = torch.randn(shape, generator=generator, device=device)
-        return (w * scale).to(param_dtype)
+        return w.mul_(scale).to(dtype)
 
-    experts = {"w1": normal((n_g, e_pn, d_model, f), scale_in),
-               "w2": normal((n_g, e_pn, f, d_model), scale_out)}
+    experts = {"w1": normal((n_g, e_pn, d_model, f), scale_in, expert_dtype),
+               "w2": normal((n_g, e_pn, f, d_model), scale_out, expert_dtype)}
     if glu:
-        experts["w3"] = normal((n_g, e_pn, d_model, f), scale_in)
+        experts["w3"] = normal((n_g, e_pn, d_model, f), scale_in,
+                               expert_dtype)
     p: Dict = {"experts": experts}
     if cfg.router == "smile":
         p["router_inter"] = {"w": normal((d_model, n_g), scale_in)}

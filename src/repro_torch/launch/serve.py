@@ -62,7 +62,8 @@ from repro_torch.data.pipeline import synthetic_tokens
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import (MESH_AXES, add_mesh_flags, make_mesh,
                                      mesh_cli, spawn)
-from repro_torch.launch.train import add_option_flags, parse_option_flags
+from repro_torch.launch.train import (add_option_flags, cut_depth,
+                                      parse_option_flags)
 from repro_torch.models.transformer import init_caches, init_model
 from repro_torch.serve.decode import decode_step_fn, prefill_fn
 from repro_torch.serve.engine import Engine
@@ -80,12 +81,12 @@ class ServeInputs:
     cfg: ModelConfig
     plan: MeshPlan
     params: Dict
-    prompts: torch.Tensor               # (B, S) int32 on the device
+    prompts: torch.Tensor               # (B, S) or (B, K, S) int32, device
 
 
 @dataclasses.dataclass
 class ServeResult:
-    tokens: np.ndarray                  # (B, new_tokens) generated ids
+    tokens: np.ndarray                  # (B, [K,] new_tokens) generated ids
     prefill_s: float                    # wall time of the prefill
     decode_s: float                     # wall time of all decode steps
     decode_steps: int
@@ -95,7 +96,7 @@ class ServeResult:
     inputs: Optional[ServeInputs] = None  # set by serve()
     # over a mesh: phase -> the rank's comm.WireLog summary
     wire: Dict[str, Dict] = dataclasses.field(default_factory=dict)
-    logits: Optional[np.ndarray] = None  # (steps, B, V_loc), keep_logits
+    logits: Optional[np.ndarray] = None  # (steps, B, [K,] V_loc), kept
 
 
 def _sync(device: torch.device) -> None:
@@ -118,7 +119,7 @@ def serve_config(arch: str, *, reduced: bool = True,
     if moe_options:
         cfg = with_options(cfg, **moe_options)
     if num_layers is not None:
-        cfg = cfg.replace(num_layers=num_layers)
+        cfg = cut_depth(cfg, num_layers)
     if moe_grid is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   grid=tuple(moe_grid)))
@@ -130,8 +131,9 @@ def serve_config(arch: str, *, reduced: bool = True,
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
              plan: MeshPlan, *, new_tokens: int, keep_logits: bool = False,
              use_kernel: bool = True) -> ServeResult:
-    """Prefill ``prompts`` (B, S) and greedily decode ``new_tokens`` tokens
-    per sequence through the kernel path (``use_kernel=False``: the plain
+    """Prefill ``prompts`` (B, S), or (B, K, S) under K > 1 codebooks (the
+    tokens then (B, K, new_tokens)), and greedily decode ``new_tokens``
+    tokens per sequence through the kernel path (``use_kernel=False``: the plain
     path, which also takes fp32 compute), all sequences in lock-step.
     Times are host wall clock around work that ends in a device sync.
 
@@ -141,7 +143,7 @@ def generate(params, prompts: torch.Tensor, cfg: ModelConfig,
     each phase).  ``keep_logits`` keeps every step's last-position logits
     (the rank's part of the vocabulary) on the host."""
     device = prompts.device
-    batch, prompt_len = prompts.shape
+    batch, prompt_len = prompts.shape[0], prompts.shape[-1]
     caches = init_caches(cfg, batch, prompt_len + new_tokens, plan,
                          device=device)
     run = dict(cfg=cfg, plan=plan, use_kernel=use_kernel)
@@ -192,10 +194,17 @@ def serve_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
                   device, mesh=None, plan: Optional[MeshPlan] = None
                   ) -> torch.Tensor:
     """The synthetic prompts :func:`serve` runs, (batch, prompt_len) from
-    ``seed``; over a mesh the rank's rows (the batch split over dp)."""
-    prompts = torch.as_tensor(
-        synthetic_tokens(np.random.default_rng(seed), batch, prompt_len,
-                         cfg.vocab_size))
+    ``seed`` (under K > 1 codebooks (batch, K, prompt_len), a stream a
+    codebook, as the reference draws them); over a mesh the rank's rows
+    (the batch split over dp)."""
+    rng = np.random.default_rng(seed)
+    if cfg.num_codebooks > 1:
+        toks = np.stack([synthetic_tokens(rng, batch, prompt_len,
+                                          cfg.vocab_size)
+                         for _ in range(cfg.num_codebooks)], 1)
+    else:
+        toks = synthetic_tokens(rng, batch, prompt_len, cfg.vocab_size)
+    prompts = torch.as_tensor(toks)
     if mesh is not None:
         prompts = S.shard_params(prompts, S.batch_specs(prompts, plan), mesh)
     return prompts.to(device)
@@ -263,7 +272,7 @@ def gather_rows(results: List[dict]) -> np.ndarray:
 
 
 def gather_logits(results: List[dict]) -> np.ndarray:
-    """The global (steps, B, V) logits from the ranks' kept ones: each
+    """The global (steps, B, [K,] V) logits from the ranks' kept ones: each
     rank's vocabulary slice in tp order, its rows in dp order."""
     rows = {}
     for r in results:
@@ -289,7 +298,7 @@ def serve_mesh(arch: str, shape: Tuple[int, ...], *, backend: str,
     tokens = gather_rows(out)
     pf = max(r["prefill_s"] for r in out)
     dc = max(r["decode_s"] for r in out)
-    steps = tokens.shape[1] - 1
+    steps = tokens.shape[-1] - 1
     print(f"mesh {dict(zip(MESH_AXES[len(shape)], shape))}, {backend}: "
           f"prefill {kw.get('prompt_len')} toks x{tokens.shape[0]}: "
           f"{pf * 1e3:.1f} ms; decode {steps} steps: {dc * 1e3:.1f} ms "

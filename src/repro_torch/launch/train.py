@@ -115,13 +115,24 @@ def parse_option_flags(args, options) -> dict:
     return opts
 
 
+def cut_depth(cfg: ModelConfig, num_layers: int) -> ModelConfig:
+    """``cfg`` with ``num_layers`` layers; a MoE config keeps at most that
+    many leading dense layers (deepseek-v3's three, cut to one, is a
+    dense layer alone and an empty MoE stage)."""
+    cfg = cfg.replace(num_layers=num_layers)
+    if cfg.moe is not None and cfg.moe.first_dense_layers > num_layers:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=num_layers))
+    return cfg
+
+
 def train_config(arch: str, *, reduced: bool = True,
                  moe_options: Optional[dict] = None,
                  moe_grid: Optional[Tuple[int, int]] = None,
                  num_layers: Optional[int] = None) -> ModelConfig:
     """The config :func:`train` runs: the arch's config (or its reduced
     variant) with the MoE options, the logical expert grid and the depth
-    optionally set."""
+    (:func:`cut_depth`) optionally set."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
     if moe_options:
         cfg = with_options(cfg, **moe_options)
@@ -129,7 +140,7 @@ def train_config(arch: str, *, reduced: bool = True,
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   grid=tuple(moe_grid)))
     if num_layers is not None:
-        cfg = cfg.replace(num_layers=num_layers)
+        cfg = cut_depth(cfg, num_layers)
     return cfg
 
 

@@ -21,7 +21,9 @@ fp32.
 
 The cache-less (with the flash kernel behind ``use_kernel``), ring-buffer
 cache (its sequence cut over tp under ``kv_seq_shard``) and paged cache
-(the serving engine) attention paths are ported; MLA is not.
+(the serving engine) attention paths are ported, and deepseek-v3's latent
+attention (:func:`mla_forward`: the naive path and the absorbed decode over
+a latent ring cache; like the reference it never takes the flash kernel).
 """
 from __future__ import annotations
 
@@ -59,9 +61,12 @@ def apply_norm(p: Dict, x: torch.Tensor, kind: str,
 
 def dense_init(shape, *, generator: torch.Generator, scale=None,
                device=None, dtype=torch.float32) -> torch.Tensor:
+    """A normal draw in fp32 times ``scale`` (1/sqrt(fan-in) by default),
+    stored in ``dtype``: the same bits as casting the fp32 leaf afterwards,
+    without holding both (the draw is scaled in place)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 # =============================================================================
@@ -150,12 +155,13 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
 # =============================================================================
 
 def init_ffn(cfg: ModelConfig, d_ff: Optional[int] = None, *,
-             generator: torch.Generator, device=None) -> Dict:
+             generator: torch.Generator, device=None,
+             dtype=torch.float32) -> Dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    p = {"w1": dense_init((d, f), generator=generator, device=device),
-         "w2": dense_init((f, d), generator=generator, device=device)}
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    p = {"w1": dense_init((d, f), **kw), "w2": dense_init((f, d), **kw)}
     if cfg.glu:
-        p["w3"] = dense_init((d, f), generator=generator, device=device)
+        p["w3"] = dense_init((d, f), **kw)
     return p
 
 
@@ -262,10 +268,11 @@ def merge_attention_partials(m: torch.Tensor, l: torch.Tensor,
 # =============================================================================
 
 def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
-                   device=None) -> Dict:
+                   device=None, dtype=torch.float32) -> Dict:
+    """GQA projections, drawn fp32 and stored in ``dtype``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, dtype=dtype)
     p = {
         "wq": dense_init((d, H, hd), **kw),
         "wk": dense_init((d, KV, hd), **kw),
@@ -525,3 +532,116 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("btkgs,bskh->btkgh", e, v_view)
     out = out / torch.clamp(e.sum(-1), min=1e-30)[..., None]
     return out.reshape(B, T, H, hd).to(q.dtype), cache
+
+
+# =============================================================================
+# MLA: multi-head latent attention (deepseek-v3)
+# =============================================================================
+
+def init_mla(cfg: ModelConfig, *, generator: torch.Generator, device=None,
+             dtype=torch.float32) -> Dict:
+    """The low-rank query and KV projections and the per-head up
+    projections: ``wq_a`` (d, qr), ``wq_b`` (qr, H, nope+rope), ``wkv_a``
+    (d, kvr+rope), ``wk_b`` (kvr, H, nope), ``wv_b`` (kvr, H, vhd), ``wo``
+    (H, vhd, d)."""
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    vhd = cfg.v_head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "wq_a": dense_init((d, qr), **kw),
+        "wq_b": dense_init((qr, H, nope + rope), **kw),
+        "wkv_a": dense_init((d, kvr + rope), **kw),
+        "wk_b": dense_init((kvr, H, nope), **kw),
+        "wv_b": dense_init((kvr, H, vhd), **kw),
+        "wo": dense_init((H, vhd, d), scale=1.0 / math.sqrt(H * vhd), **kw),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   plan: MeshPlan, dtype=torch.bfloat16,
+                   device=None) -> Dict:
+    """The latent ring cache: ``ckv`` (B, W, kvr) and ``kpe`` (B, W, rope),
+    bf16 whatever the compute dtype (the reference's ``init_caches``
+    passes no dtype), and ``pos`` (W,), -1 marking empty slots.  Every
+    rank holds all of it for its rows: the latent has no heads."""
+    return {
+        "ckv": torch.zeros((batch, length, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "kpe": torch.zeros((batch, length, cfg.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+        "pos": torch.full((length,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _scale_in(dtype: torch.dtype, scale: float) -> float:
+    """``scale`` rounded to ``dtype``: JAX multiplies an array by a Python
+    float in the array's dtype, so a bf16 score is scaled by the bf16
+    value of the scale (PyTorch would keep it in fp32)."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def mla_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig, plan: MeshPlan,
+                *, positions: torch.Tensor, cache: Optional[Dict] = None,
+                window: int = 0) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Latent attention (``repro.models.layers.mla_forward``): x (B, T, d)
+    -> (B, T, d).  The cache holds only the latent ``ckv`` and the shared
+    rope key ``kpe`` of each token, written at ``positions % W`` in place.
+
+    A cached single-token step takes the absorbed path: ``wk_b`` is folded
+    into the query and ``wv_b`` into the output, so the scores run over the
+    latent directly; they are scaled in the compute dtype, then softmaxed
+    in fp32 over the slots at ``0 <= pos <= positions[-1]``.  Otherwise
+    (a prompt, or no cache) the naive path rebuilds each head's keys and
+    values from the latent and runs :func:`chunked_attention` (keys of
+    nope+rope, values of vhd).  Under tp each rank holds its heads of
+    ``wq_b``, ``wk_b``, ``wv_b`` and ``wo``, and the output is summed over
+    tp.  A bf16 cache read in fp32 compute is widened, as JAX promotes
+    it."""
+    B, T, _ = x.shape
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    kvr = cfg.kv_lora_rank
+    q = _proj(x @ p["wq_a"], p["wq_b"])                     # (B, T, h, n+r)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv = x @ p["wkv_a"]
+    ckv = kv[..., :kvr]
+    k_pe = apply_rope(kv[..., None, kvr:], positions, cfg.rope_theta)[:, :, 0]
+    if cache is not None:
+        slot = (positions % cache["ckv"].shape[1]).long()
+        cache["ckv"][:, slot] = ckv.to(cache["ckv"].dtype)
+        cache["kpe"][:, slot] = k_pe.to(cache["kpe"].dtype)
+        cache["pos"][slot] = positions.to(cache["pos"].dtype)
+        ckv_all, kpe_all, cpos = cache["ckv"], cache["kpe"], cache["pos"]
+    else:
+        ckv_all, kpe_all, cpos = ckv, k_pe, positions
+    dt = torch.promote_types(x.dtype, ckv_all.dtype)
+    wk_b, wv_b = p["wk_b"], p["wv_b"]
+    if cache is not None and T == 1:
+        q_lat = torch.einsum("bthk,rhk->bthr", q_nope, wk_b)   # (B, 1, h, r)
+        s = (torch.einsum("bthr,bsr->bths", q_lat.to(dt), ckv_all.to(dt))
+             + torch.einsum("bthk,bsk->bths", q_rope.to(dt),
+                            kpe_all.to(dt)))
+        s = (s * _scale_in(s.dtype, 1.0 / math.sqrt(nope + rope))).float()
+        last = positions[-1]
+        mask = (cpos >= 0) & (cpos <= last)
+        if window:
+            mask = mask & ((last - cpos) < window)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        a = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bths,bsr->bthr", a, ckv_all.float())
+        out = torch.einsum("bthr,rhk->bthk", o_lat.to(x.dtype), wv_b)
+    else:
+        lat = ckv_all.to(dt)
+        k_nope = torch.einsum("btr,rhk->bthk", lat, wk_b.to(dt))
+        v = torch.einsum("btr,rhk->bthk", lat, wv_b.to(dt))
+        k = torch.cat([k_nope, kpe_all.to(dt)[:, :, None, :].expand(
+            -1, -1, k_nope.shape[2], -1)], dim=-1)
+        out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                                positions, cpos, causal=cfg.causal,
+                                window=window)
+    H, vhd, d = p["wo"].shape
+    y = row_parallel(out.reshape(B, T, H * vhd).to(x.dtype),
+                     p["wo"].reshape(H * vhd, d), plan)
+    return comm.name_saved(y), cache

@@ -7,8 +7,10 @@ parameter dicts (``{"blocks": [...]}``) and a Python loop runs them.  Caches
 follow the same shape: one list of per-block cache dicts per stage.
 
 Ported stages: ``dense``, ``moe``, the paper's ``pair`` and ``rwkv``
-(rwkv6-1.6b).  Mamba2 (zamba2's ``mamba_group``), MLA and the multimodal
-inputs raise.
+(rwkv6-1.6b); attention GQA or deepseek-v3's latent attention (MLA), with
+its multi-token-prediction head (:func:`mtp_logits`); musicgen's codebooks
+(summed embeddings, a head per codebook) and phi-3-vision's projected
+image embeddings.  Mamba2 (zamba2's ``mamba_group``) raises.
 
 Parameters are drawn from a seeded ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s, which is expected: the
@@ -26,9 +28,12 @@ shared and expert FFNs, and an rwkv block's time-mix output projection
   weights at the top of the block, inside its remat region, so only the
   block being run (or recomputed) holds a cast copy.
 
-The reference casts them at every use, which gives the same bits.  Router
-weights, norm scales, the embedding table, the LM head and every other rwkv
-weight (both mixes compute in fp32) stay fp32.
+The reference casts them at every use, which gives the same bits (the
+serving form draws each of those weights in the compute dtype, which also
+gives the same bits, so a model whose fp32 masters would not fit beside
+their cast never holds both).  Router weights, norm scales, the embedding
+tables, the LM and codebook heads, the vision projection (cast at its use)
+and every other rwkv weight (both mixes compute in fp32) stay fp32.
 
 ``remat=True`` (``ModelConfig.remat``, on for training) runs each block
 under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
@@ -134,17 +139,15 @@ def _check_plan(cfg: ModelConfig, plan: MeshPlan) -> None:
 def _check_supported(cfg: ModelConfig) -> None:
     stages = build_stages(cfg)
     attention_free = all(st.kind == "rwkv" for st in stages)
-    if not (cfg.attention in ("full", "sliding")
+    if not (cfg.attention in ("full", "sliding", "mla")
             or (cfg.attention == "none" and attention_free)):
         raise NotImplementedError(f"attention={cfg.attention!r} is not "
                                   f"ported yet")
-    if cfg.num_codebooks > 1 or cfg.vision_tokens or cfg.mtp_depth:
-        raise NotImplementedError("multimodal inputs and MTP heads are not "
-                                  "ported yet")
     for st in stages:
         if st.kind not in BLOCK_KINDS:
-            raise NotImplementedError(f"{st.kind!r} stages are not ported "
-                                      f"yet")
+            raise NotImplementedError(
+                f"{st.kind!r} stages are not ported yet (Mamba2: ROADMAP.md "
+                f"item 10.2)")
 
 
 # =============================================================================
@@ -152,7 +155,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 # =============================================================================
 
 def init_block(cfg: ModelConfig, kind: str, plan: MeshPlan, *,
-               generator: torch.Generator, device=None) -> Dict:
+               generator: torch.Generator, device=None,
+               dtype=torch.float32) -> Dict:
+    """One block's parameters; the matmul weights that :func:`cast_block`
+    casts are stored in ``dtype`` (the same bits as casting them after an
+    fp32 draw), an rwkv block's in fp32."""
     d = cfg.d_model
     kw = dict(generator=generator, device=device)
     if kind == "rwkv":
@@ -165,18 +172,21 @@ def init_block(cfg: ModelConfig, kind: str, plan: MeshPlan, *,
         }
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet")
+    init_attn = L.init_mla if cfg.attention == "mla" else L.init_attention
     p = {
         "ln1": L._norm_init(d, cfg.norm, device),
-        "attn": L.init_attention(cfg, **kw),
+        "attn": init_attn(cfg, dtype=dtype, **kw),
         "ln2": L._norm_init(d, cfg.norm, device),
     }
     if kind == "dense":
-        p["ffn"] = L.init_ffn(cfg, **kw)
+        p["ffn"] = L.init_ffn(cfg, dtype=dtype, **kw)
     else:
-        p["moe"] = init_moe_params(cfg.moe, d, plan, glu=cfg.glu, **kw)
+        p["moe"] = init_moe_params(cfg.moe, d, plan, glu=cfg.glu, **kw,
+                                   expert_dtype=dtype)
         if cfg.moe.num_shared_experts:
             p["shared"] = L.init_ffn(
-                cfg, cfg.moe.num_shared_experts * cfg.moe.d_ff_expert, **kw)
+                cfg, cfg.moe.num_shared_experts * cfg.moe.d_ff_expert,
+                dtype=dtype, **kw)
     return p
 
 
@@ -192,14 +202,23 @@ def _add_stats(a: MoEStats, b: MoEStats) -> MoEStats:
                     a.wire_faults + b.wire_faults)
 
 
+def _attn_fwd(p, x, cfg, plan, positions, cache, use_kernel):
+    """The block's attention on its normed input: latent attention under
+    ``attention="mla"`` (which, as the reference's, never takes the flash
+    kernel), else GQA."""
+    window = cfg.window if cfg.attention == "sliding" else 0
+    if cfg.attention == "mla":
+        return L.mla_forward(p, x, cfg, plan, positions=positions,
+                             cache=cache, window=window)
+    return L.attention_forward(p, x, cfg, plan, positions=positions,
+                               cache=cache, window=window,
+                               use_kernel=use_kernel)
+
+
 def dense_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
                 token_valid=None):
-    window = cfg.window if cfg.attention == "sliding" else 0
-    h, cache = L.attention_forward(p["attn"], L.apply_norm(p["ln1"], x,
-                                                           cfg.norm),
-                                   cfg, plan, positions=positions,
-                                   cache=cache, window=window,
-                                   use_kernel=use_kernel)
+    h, cache = _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                         cfg, plan, positions, cache, use_kernel)
     x = x + h
     x = x + L.ffn_forward(p["ffn"], L.apply_norm(p["ln2"], x, cfg.norm),
                           cfg, plan)
@@ -208,12 +227,8 @@ def dense_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
 
 def moe_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
               token_valid=None):
-    window = cfg.window if cfg.attention == "sliding" else 0
-    h, cache = L.attention_forward(p["attn"], L.apply_norm(p["ln1"], x,
-                                                           cfg.norm),
-                                   cfg, plan, positions=positions,
-                                   cache=cache, window=window,
-                                   use_kernel=use_kernel)
+    h, cache = _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
+                         cfg, plan, positions, cache, use_kernel)
     x = x + h
     hn = L.apply_norm(p["ln2"], x, cfg.norm)
     B, T, d = hn.shape
@@ -254,10 +269,11 @@ BLOCK_KINDS = ("dense", "moe", "pair", "rwkv")
 
 def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
                generator: torch.Generator, device=None,
-               cut=lambda block: block) -> Dict:
-    """The stage's blocks, each passed through ``cut`` as soon as it is
+               dtype=torch.float32, cut=lambda block: block) -> Dict:
+    """The stage's blocks (their matmul weights in ``dtype``,
+    :func:`init_block`), each passed through ``cut`` as soon as it is
     drawn (:func:`init_model` cuts a rank's slice there)."""
-    kw = dict(generator=generator, device=device)
+    kw = dict(generator=generator, device=device, dtype=dtype)
     R = stage.repeats
     if stage.kind == "pair":
         return {"dense": [cut(init_block(cfg, "dense", plan, **kw))
@@ -339,15 +355,19 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
 # =============================================================================
 
 def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
-    """Every block's matmul weights cast to :func:`compute_dtype` once (the
-    serving form), in place of the reference's cast at every use (same
-    bits).  Router weights, norm scales, the embedding table and the LM
-    head are left as they are."""
+    """Every block's matmul weights (the MTP head's block and projection
+    too) cast to :func:`compute_dtype` once (the serving form), in place of
+    the reference's cast at every use (same bits).  Router weights, norm
+    scales, the embedding tables, the LM and codebook heads and the vision
+    projection are left as they are."""
     dt = compute_dtype(cfg)
     out = dict(params)
     out["stages"] = tuple({k: [cast_block(b, dt) for b in blocks]
                            for k, blocks in st.items()}
                           for st in params["stages"])
+    if "mtp" in params:
+        out["mtp"] = {**params["mtp"], "proj": params["mtp"]["proj"].to(dt),
+                      "block": cast_block(params["mtp"]["block"], dt)}
     return out
 
 
@@ -357,13 +377,21 @@ def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the card unless the caller asks for the CPU; raises when
     the card is asked for and there is none).  ``compute_cast=True`` (the
-    serving form) casts the blocks' matmul weights once with
-    :func:`cast_for_compute`; ``False`` keeps every parameter fp32 (the
-    training form).
+    serving form) gives the blocks' matmul weights in the compute dtype,
+    drawn fp32 and cast leaf by leaf as they are drawn (the bits of
+    :func:`cast_for_compute` on the fp32 draw, without holding both);
+    ``False`` keeps every parameter fp32 (the training form).
+
+    The leaves are the reference's: ``embed`` (a table (V, d), or (K, V,
+    d) under K > 1 codebooks, with ``heads`` (K, V, d) in place of
+    ``lm_head``), ``vision_proj`` for image inputs, the stages, the final
+    norm, and deepseek-v3's ``mtp`` head (``proj`` (2d, d), one dense
+    ``block``, ``norm_h`` and ``norm_e``; a block of its own, not stacked
+    with a stage's).
 
     With ``mesh`` (and its plan) each rank draws every leaf whole, the same
     numbers as one device draws under the same plan, and keeps only its
-    slice (``sharding.specs``): the embedding and the LM head are cut as
+    slice (``sharding.specs``): the embedding and the heads are cut as
     drawn, each block as soon as it is made, so a rank never holds more
     than one full block."""
     device = resolve_device(device)
@@ -379,40 +407,89 @@ def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
             lambda p, x: rule(prefix + p, x.ndim), tree), mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(generator=gen, device=device)
-    params: Dict[str, Any] = {
-        "embed": cut(L.init_embedding(cfg, plan, **kw), ("embed",))}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = cut({"w": L.dense_init(
-            (cfg.vocab_size, cfg.d_model), scale=0.02, **kw)}, ("lm_head",))
-    stages = tuple(init_stage(cfg, st, plan, cut=cut, **kw)
-                   for st in build_stages(cfg))
-    params["stages"] = stages
-    params["final_norm"] = L._norm_init(cfg.d_model, cfg.norm, device)
+    block_dtype = compute_dtype(cfg) if compute_cast else torch.float32
+    d, V, K = cfg.d_model, cfg.vocab_size, cfg.num_codebooks
+    params: Dict[str, Any] = {}
+    if K > 1:
+        params["embed"] = cut({"table": L.dense_init(
+            (K, V, d), scale=0.02, **kw)}, ("embed",))
+        params["heads"] = cut({"w": L.dense_init(
+            (K, V, d), scale=0.02, **kw)}, ("heads",))
+    else:
+        params["embed"] = cut(L.init_embedding(cfg, plan, **kw), ("embed",))
+        if not cfg.tie_embeddings:
+            params["lm_head"] = cut({"w": L.dense_init(
+                (V, d), scale=0.02, **kw)}, ("lm_head",))
+    if cfg.vision_tokens:
+        params["vision_proj"] = {"w": L.dense_init(
+            (cfg.vision_embed_dim, d), **kw)}
+    params["stages"] = tuple(
+        init_stage(cfg, st, plan, cut=cut, dtype=block_dtype, **kw)
+        for st in build_stages(cfg))
+    params["final_norm"] = L._norm_init(d, cfg.norm, device)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": L.dense_init((2 * d, d), dtype=block_dtype, **kw),
+            "block": cut(init_block(cfg, "dense", plan, dtype=block_dtype,
+                                    **kw), ("mtp", "block")),
+            "norm_h": L._norm_init(d, cfg.norm, device),
+            "norm_e": L._norm_init(d, cfg.norm, device),
+        }
     return cast_for_compute(params, cfg) if compute_cast else params
 
 
 def embed_inputs(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 plan: MeshPlan) -> torch.Tensor:
-    """Token embedding in :func:`compute_dtype`."""
-    return L.embed_tokens(params["embed"], tokens, plan, compute_dtype(cfg))
+                 plan: MeshPlan, extra: Optional[Dict] = None
+                 ) -> torch.Tensor:
+    """Token (and modality) embedding in :func:`compute_dtype`.
+
+    Under K > 1 codebooks (musicgen) ``tokens`` is (B, K, S): each
+    codebook's ids read its own table (the rank's vocabulary slice, an id
+    outside it reading zeros), summed over K in fp32, psum'd over tp, then
+    cast.  With image inputs (phi-3-vision) ``extra`` holds
+    ``image_embeds`` (B, P, E), projected in the compute dtype, and
+    ``image_pos`` (B, P), the positions of each row they are written at
+    (over the token embeddings there)."""
+    dt = compute_dtype(cfg)
+    if cfg.num_codebooks > 1:
+        table = params["embed"]["table"]                 # (K, V_loc, d)
+        K, v_loc = table.shape[0], table.shape[1]
+        local = tokens.long() - comm.axis_index(plan.tp_axis) * v_loc
+        hit = (local >= 0) & (local < v_loc)             # (B, K, S)
+        book = torch.arange(K, device=tokens.device)[None, :, None]
+        emb = table[book, local.clamp(0, v_loc - 1)]     # (B, K, S, d)
+        emb = emb * hit[..., None].to(table.dtype)
+        return comm.psum(emb.sum(1), plan.tp_axis).to(dt)
+    x = L.embed_tokens(params["embed"], tokens, plan, dt)
+    if cfg.vision_tokens and extra is not None and "image_embeds" in extra:
+        proj = extra["image_embeds"].to(dt) @ params["vision_proj"]["w"].to(dt)
+        pos = extra["image_pos"].long()[..., None].expand(-1, -1, x.shape[-1])
+        x = x.scatter(1, pos, proj)
+    return x
 
 
 def model_logits(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  plan: MeshPlan) -> torch.Tensor:
-    """fp32 logits (B, T, V)."""
+    """fp32 logits of the rank's vocabulary: (B, T, V_loc), or (B, T, K,
+    V_loc) under K > 1 codebooks (a head per codebook)."""
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    if cfg.num_codebooks > 1:
+        return torch.einsum("btd,kvd->btkv", x.float(),
+                            params["heads"]["w"].float())
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.output_logits(head, x, plan)
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
             plan: MeshPlan, *, positions: torch.Tensor,
-            caches: Optional[Tuple] = None, remat: bool = False,
-            use_kernel: bool = False,
+            caches: Optional[Tuple] = None, extra: Optional[Dict] = None,
+            remat: bool = False, use_kernel: bool = False,
             token_valid: Optional[torch.Tensor] = None,
             cast_weights: bool = False):
-    """Full forward.  Returns (hidden (B,T,d), logits (B,T,V), MoEStats,
-    new_caches).  ``caches`` (from :func:`init_caches`, or the paged pools
+    """Full forward.  Returns (hidden (B,T,d), logits (B,T,V) or (B,T,K,V),
+    MoEStats, new_caches).  ``tokens`` (B, T), or (B, K, T) under K > 1
+    codebooks; ``extra`` the image inputs (:func:`embed_inputs`).
+    ``caches`` (from :func:`init_caches`, or the paged pools
     of ``serve.kvcache`` with their page tables) are updated in place and
     returned.  ``positions``: (T,) shared, or (B, T) per row (the paged
     cache; -1 marks a dead row).  ``token_valid`` (B, T) bool, optional:
@@ -423,7 +500,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
     cfg = _model_cfg(cfg0, plan)
     _check_plan(cfg, plan)
     stages = build_stages(cfg)
-    x = embed_inputs(params, tokens, cfg, plan)
+    x = embed_inputs(params, tokens, cfg, plan, extra)
     acc = zero_stats(x.device)
     new_caches = []
     for i, st in enumerate(stages):
@@ -439,6 +516,25 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
     return x, logits, acc, (None if caches is None else tuple(new_caches))
 
 
+def mtp_logits(params: Dict, hidden: torch.Tensor, next_tokens: torch.Tensor,
+               cfg0: ModelConfig, plan: MeshPlan,
+               positions: torch.Tensor) -> torch.Tensor:
+    """deepseek-v3's multi-token-prediction head (depth 1): predicts token
+    t+2 from the final hidden state at t (before the final norm) and the
+    embedding of token t+1.  Returns the rank's fp32 logits (B, T, V_loc).
+    The head's weights are cast to the hidden state's dtype at their use
+    (a no-op in the serving form); it runs no kernel and no cache."""
+    cfg = _model_cfg(cfg0, plan)
+    p = params["mtp"]
+    e = L.embed_tokens(params["embed"], next_tokens, plan, hidden.dtype)
+    h = torch.cat([L.apply_norm(p["norm_h"], hidden, cfg.norm),
+                   L.apply_norm(p["norm_e"], e, cfg.norm)], dim=-1)
+    h = h @ p["proj"].to(h.dtype)
+    h, _, _ = dense_block(cast_block(p["block"], h.dtype), h, cfg, plan,
+                          positions, None)
+    return model_logits(params, h, cfg, plan)
+
+
 def paged_cache_supported(cfg: ModelConfig) -> bool:
     """The serving engine's arch gate (the reference's, in
     ``repro.serve.engine.Engine``): a causal model of one token stream with
@@ -452,8 +548,9 @@ def paged_cache_supported(cfg: ModelConfig) -> bool:
 def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
                 *, device="cuda"):
     """Per-stage lists of per-block caches: ring-buffer KV caches sized
-    ``length`` (the window for sliding attention), or an rwkv block's state
-    and last tokens (no length).  Over a mesh ``batch`` is the rank's own,
+    ``length`` (the window for sliding attention; MLA's latent cache,
+    :func:`repro_torch.models.layers.init_mla_cache`), or an rwkv block's
+    state and last tokens (no length).  Over a mesh ``batch`` is the rank's own,
     and each cache is allocated at the rank's slice of the global cache
     (``sharding.specs.cache_specs``): its KV heads, or under
     ``kv_seq_shard`` its ``length / tp`` ring slots, or its rwkv heads."""
@@ -465,6 +562,9 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
         length = min(length, cfg.window)
 
     def attn_caches(n):
+        if cfg.attention == "mla":
+            return [L.init_mla_cache(cfg, batch, length, plan, device=device)
+                    for _ in range(n)]
         return [L.init_attention_cache(cfg, batch, length, plan,
                                        device=device) for _ in range(n)]
 

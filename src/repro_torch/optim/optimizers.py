@@ -79,6 +79,8 @@ def leaf_groups(params: Dict) -> List[LeafGroup]:
             groups.append(LeafGroup(".".join(path), [t], t.dim(), path))
     for i, stage in enumerate(params.get("stages", ())):
         for kind, blocks in stage.items():
+            if not blocks:              # a stage the depth cut left empty
+                continue
             for path, t in _leaves(blocks[0]):
                 groups.append(LeafGroup(
                     ".".join(("stages", str(i), kind) + path),

@@ -39,29 +39,31 @@ def greedy_sample(logits: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
 def prefill_fn(params, tokens: torch.Tensor, caches, *, cfg: ModelConfig,
                plan: MeshPlan, use_kernel: bool = True
                ) -> Tuple[torch.Tensor, tuple, torch.Tensor]:
-    """Run the prompt (B, S) through the model, filling the caches.
+    """Run the prompt (B, S), or (B, K, S) under K > 1 codebooks, through
+    the model, filling the caches.
 
-    Returns ``(next_token (B,) int32, caches, last_logits (B, V) fp32)``;
-    the JAX version returns the first two, the logits let a caller check
-    them without another forward.
+    Returns ``(next_token (B,) or (B, K) int32, caches, last_logits (B, V)
+    or (B, K, V) fp32)``; the JAX version returns the first two, the logits
+    let a caller check them without another forward.
     """
     S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     _, logits, _, caches = T.forward(params, tokens, cfg, plan,
                                      positions=positions, caches=caches,
                                      use_kernel=use_kernel)
-    last = logits[:, -1, :]
+    last = logits[:, -1]
     return greedy_sample(last, plan), caches, last
 
 
 def decode_step_fn(params, token: torch.Tensor, caches, step: int, *,
                    cfg: ModelConfig, plan: MeshPlan, use_kernel: bool = True
                    ) -> Tuple[torch.Tensor, tuple, torch.Tensor]:
-    """One decode step.  token: (B,); step: the position of this token.
-    Returns ``(next_token (B,), caches, logits (B, V))``."""
+    """One decode step.  token: (B,), or (B, K) under K > 1 codebooks;
+    step: the position of this token.  Returns ``(next_token, caches,
+    logits)`` shaped as :func:`prefill_fn`'s."""
     positions = torch.full((1,), step, dtype=torch.int32, device=token.device)
-    _, logits, _, caches = T.forward(params, token[:, None], cfg, plan,
+    _, logits, _, caches = T.forward(params, token[..., None], cfg, plan,
                                      positions=positions, caches=caches,
                                      use_kernel=use_kernel)
-    last = logits[:, -1, :]
+    last = logits[:, -1]
     return greedy_sample(last, plan), caches, last

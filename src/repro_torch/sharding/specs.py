@@ -53,8 +53,11 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
                      ) -> Callable[[Tuple[str, ...], int], Spec]:
     """``rule(path, ndim) -> spec`` for the port's parameter leaves: the
     experts over ``(inter, intra if the layout shards it)``; the
-    embedding, the LM head, attention heads and dense FFNs over ``tp``;
-    routers, norms and the shared expert replicated.  KV projections stay
+    embedding (each codebook's, under K > 1), the LM head (the codebook
+    heads), attention heads (MLA's ``wq_b``, ``wk_b``, ``wv_b`` and
+    ``wo``) and dense FFNs over ``tp``; routers, norms, the shared expert,
+    MLA's low-rank ``wq_a`` and ``wkv_a``, the vision projection and the
+    MTP head's projection replicated.  KV projections stay
     replicated where the KV heads do not divide over ``tp``, and under
     ``kv_seq_shard`` (the cache's sequence dim is the cut one there).  An
     rwkv block's time mix is cut by head (its projections, decay, bonus,
@@ -69,9 +72,13 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
 
     def base(parent: str, name: str) -> Optional[Tuple]:
         if parent == "embed" and name == "table":
-            return (tp, None)
+            return (None, tp, None) if cfg.num_codebooks > 1 else (tp, None)
+        if parent == "heads" and name == "w":
+            return (None, tp, None)
         if parent == "lm_head" and name == "w":
             return (tp, None)
+        if parent == "vision_proj":
+            return (None, None)
         if parent == "experts":
             return espec
         if parent in ("router", "router_inter", "router_intra"):
@@ -104,6 +111,10 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
             return (tp, None)
         if name in ("bk", "bv"):
             return (tp if kv_ok else None, None)
+        if name in ("wq_a", "wkv_a"):          # MLA's low-rank projections
+            return (None, None)
+        if name in ("wq_b", "wk_b", "wv_b"):   # MLA's heads
+            return (None, tp, None)
         if parent == "shared":
             return None          # runs on token-split shards, replicated
         if name in ("w1", "w3"):
@@ -214,9 +225,10 @@ def cache_specs(cache_tree, cfg: ModelConfig, plan: MeshPlan, batch: int):
     """Decode caches: the batch dim over dp, the KV heads over tp where
     they divide.  Leaves: ring KV ``k``/``v`` (B, W, KV, hd) and ``pos``
     (W,); paged pools ``pool_k``/``pool_v`` (pages, page, KV, hd), no
-    batch dim, and their page ``table``, replicated; rwkv ``wkv`` (B, nh,
-    hd, hd), its heads over tp where they divide, and ``x_prev_*`` (B, 1,
-    d).  Under ``kv_seq_shard`` with tp > 1 the ring's sequence dim is the
+    batch dim, and their page ``table``, replicated; MLA's latent
+    ``ckv`` (B, W, kvr) and ``kpe`` (B, W, rope), the batch dim only;
+    rwkv ``wkv`` (B, nh, hd, hd), its heads over tp where they divide, and
+    ``x_prev_*`` (B, 1, d).  Under ``kv_seq_shard`` with tp > 1 the ring's sequence dim is the
     cut one: ``k``/``v`` (B, W / tp, KV, hd) with every KV head, ``pos``
     (W / tp,)."""
     tp = plan.tp_axis

@@ -25,12 +25,18 @@ EVAL_SEED_OFFSET = 10_000
 
 @torch.no_grad()
 def eval_step_fn(params, batch, *, cfg: ModelConfig, plan: MeshPlan):
-    """Returns (sum CE, token count) over one batch, as tensors."""
+    """Returns (sum CE, token count) over one batch, as tensors (no MTP
+    loss, as the reference's)."""
     tokens, labels = batch["tokens"], batch["labels"]
     S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    extra = {k: batch[k] for k in ("image_embeds", "image_pos")
+             if k in batch}
     _, logits, _, _ = T.forward(params, tokens, cfg, plan,
-                                positions=positions, cast_weights=True)
+                                positions=positions, extra=extra or None,
+                                cast_weights=True)
+    if cfg.num_codebooks > 1:
+        labels = labels.transpose(1, 2)                  # (B, S, K)
     ce = vocab_parallel_xent(logits, labels, plan)
     mask = labels != IGNORE
     s = comm.psum((ce * mask).sum(), plan.dp_axes)

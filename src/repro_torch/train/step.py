@@ -50,23 +50,32 @@ from repro_torch.sharding.plan import MeshPlan
 from repro_torch.train import sentinel as SEN
 
 IGNORE = -1
+MTP_LAMBDA = 0.1
 
 
 def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan):
-    """Masked cross-entropy plus the MoE aux losses.  Returns ``(loss,
-    metrics)``: ``loss`` is this rank's share of the gradient-path loss
-    (the shares of all ranks sum to the global loss, which is the loss
-    itself on one device), the metrics the global values."""
+    """Masked cross-entropy plus the MoE aux losses (and, with an MTP head,
+    ``MTP_LAMBDA`` times its loss).  Returns ``(loss, metrics)``: ``loss``
+    is this rank's share of the gradient-path loss (the shares of all
+    ranks sum to the global loss, which is the loss itself on one device),
+    the metrics the global values.  Musicgen's labels are (B, K, S); image
+    inputs (``image_embeds``, ``image_pos``) ride in the batch."""
     tokens, labels = batch["tokens"], batch["labels"]
-    if "image_embeds" in batch:
-        raise NotImplementedError("vision inputs are not ported yet")
     positions = torch.arange(tokens.shape[-1], dtype=torch.int32,
                              device=tokens.device)
-    _, logits, stats, _ = T.forward(params, tokens, cfg, plan,
-                                    positions=positions, remat=cfg.remat,
-                                    use_kernel=False, cast_weights=True)
-    ce = vocab_parallel_xent(logits, labels, plan)
-    mask = labels != IGNORE
+    extra = {k: batch[k] for k in ("image_embeds", "image_pos")
+             if k in batch}
+    h, logits, stats, _ = T.forward(params, tokens, cfg, plan,
+                                    positions=positions, extra=extra or None,
+                                    remat=cfg.remat, use_kernel=False,
+                                    cast_weights=True)
+    if cfg.num_codebooks > 1:
+        labels_t = labels.transpose(1, 2)                # (B, S, K)
+        ce = vocab_parallel_xent(logits, labels_t, plan)
+        mask = labels_t != IGNORE
+    else:
+        ce = vocab_parallel_xent(logits, labels, plan)
+        mask = labels != IGNORE
     loss_sum = (ce * mask).sum()
     # tokens are distinct across the dp axes only (replicated over tp)
     cnt = torch.clamp(comm.psum(mask.sum().float(), plan.dp_axes), min=1.0)
@@ -74,13 +83,26 @@ def _ce_loss(params, batch, cfg: ModelConfig, plan: MeshPlan):
     n_dev = 1
     for _, n in plan.axis_sizes:
         n_dev *= n
+    tp = max(plan.tp, 1)
     # the aux losses are replicated (psum'd inside): each rank's share is
     # 1 / n_dev of them
-    share = (loss_sum / max(plan.tp, 1) / cnt
-             + (stats.lb_loss + stats.z_loss) / n_dev)
+    share = loss_sum / tp / cnt + (stats.lb_loss + stats.z_loss) / n_dev
     total = ce_mean + stats.lb_loss + stats.z_loss
+    mtp_loss = torch.zeros_like(ce_mean)
+    if cfg.mtp_depth and cfg.causal and "mtp" in params:
+        nxt = torch.where(labels == IGNORE, 0, labels)   # token t+1
+        tgt = torch.full_like(labels, IGNORE)
+        tgt[:, :-1] = labels[:, 1:]                      # token t+2
+        ml = T.mtp_logits(params, h, nxt, cfg, plan, positions)
+        mmask = (tgt != IGNORE) & (labels != IGNORE)
+        ms = (vocab_parallel_xent(ml, tgt, plan) * mmask).sum()
+        mc = torch.clamp(comm.psum(mmask.sum().float(), plan.dp_axes),
+                         min=1.0)
+        mtp_loss = comm.psum(ms.detach(), plan.dp_axes) / mc
+        share = share + MTP_LAMBDA * (ms / tp / mc)
+        total = total + MTP_LAMBDA * mtp_loss
     metrics = {"ce": ce_mean, "lb": stats.lb_loss, "z": stats.z_loss,
-               "mtp": torch.zeros_like(ce_mean), "drop_frac": stats.drop_frac,
+               "mtp": mtp_loss, "drop_frac": stats.drop_frac,
                "loss": total,
                "fault_events": stats.fault_events.sum(),
                "wire_faults": stats.wire_faults.sum(),

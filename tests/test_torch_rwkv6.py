@@ -305,11 +305,14 @@ def test_cast_for_compute_casts_only_tmix_wo():
 
 
 def test_full_rwkv6_config_is_supported_and_others_still_raise():
+    """rwkv6 builds; of the other architectures only zamba2's Mamba2
+    stage still raises (deepseek-v3's MLA and MTP head, musicgen's
+    codebooks and phi-3-vision's image inputs now build)."""
     plan = tplan()
     TT._check_supported(tget_config(ARCH))
-    for arch, what in (("zamba2-2.7b", "mamba_group"),
-                       ("deepseek-v3-671b", "mla"),
-                       ("musicgen-large", "multimodal"),
-                       ("phi-3-vision-4.2b", "multimodal")):
-        with pytest.raises(NotImplementedError, match=what):
-            TT.init_model(tget_reduced(arch), plan, device="cpu")
+    with pytest.raises(NotImplementedError, match="mamba_group"):
+        TT.init_model(tget_reduced("zamba2-2.7b"), plan, device="cpu")
+    for arch in ("deepseek-v3-671b", "musicgen-large", "phi-3-vision-4.2b"):
+        TT._check_supported(tget_config(arch))
+        assert "stages" in TT.init_model(tget_reduced(arch), plan,
+                                         device="cpu")
