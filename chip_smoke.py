@@ -273,7 +273,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     comparison (bf16, the card's kernels), then fp32 on the plain path,
     where the card must give the CPU's tokens (every codebook's) with its
     logits within phase 4's tolerance.
-22. A ``{"kernels": [...]}`` line, then the card line, then the last line
+22. zamba2-2.7b at full width and depth, on one card (54 Mamba2 layers
+    in 9 groups of 6, each followed by the one shared attention block;
+    2.42 B parameters), weights from seed 0.  (a) ``serve`` in bf16, batch
+    8, prompt 128 (one SSD chunk), 16 new tokens: prefill and decode
+    times, peak memory, ``param_count`` (the reference's, 3.84 B) beside
+    the built count, and every kernel's launches, which must be 0: the
+    reference's zamba2 calls no kernel (its Mamba2 ignores
+    ``use_kernel``, its shared block runs with ``use_kernel=False``).  (b)
+    The cache-less ``forward(..., use_kernel=True)`` at 2 x 2,048 tokens
+    (16 chunks): time, peak memory, launches (all 0).  (c) Layer 0's
+    intra-chunk inputs ``(xh, dt, loga, B, C)`` of (b), kept on their way
+    into ``mamba2.ssd_intra_chunk``: ``ssd_chunk`` against that plain
+    function on them, phase 2's tolerance, two calls bit for bit (the
+    kernel row "zamba2 path").  (d) ``train()`` at full depth, fp32
+    masters, bf16 compute, remat per group, LAMB, batch 2 x 1,024, 3
+    steps: ms a step, finite ``ce``, peak memory.  (e) The reduced config
+    card against CPU: phase 4's comparison in bf16, printed (one bf16
+    rounding a Mamba2 block moves its logits by as much as the tolerance),
+    then fp32 on the plain path (the CPU's tokens, logits within phase 4's
+    tolerance) and one fp32 training step's loss within phase 6's.
+23. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -287,7 +307,8 @@ wide route, against ``scaled_dot_product_attention`` as the library's
 time), the
 WKV6 scan at rwkv6's (4, 4,096, 32, 64) with a nonzero state and bonus
 (its final state bit for bit), and the Mamba2 SSD intra-chunk kernel, which
-no model calls: its grouped route at zamba2-2.7b's shapes with a typical, a
+no model calls (phase 22 holds it on the tensors zamba2's forward
+computes): its grouped route at zamba2-2.7b's shapes with a typical, a
 strongly negative and a steep log-decay (with its blocks, head group and
 shared memory), and its general route at chunks of 64 steps; two calls
 must give the same bits.  Each phase prints its wall time.
@@ -493,6 +514,10 @@ RWKV_LOGITS_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 PROFILE_WINDOWS = 5
 
 
+class ProfilerSawNothing(RuntimeError):
+    """No profiler window of :func:`kernel_times` saw a kernel."""
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -547,7 +572,9 @@ def kernel_times(torch, fn, iters: int = 20, flush=None):
             fn()
 
     # the profiler at times drops launches from a window (17 of 20 calls'
-    # kernels, three windows in a row, late in phase 2): each window is
+    # kernels, three windows in a row, late in phase 2; every kernel of
+    # five windows in phase 22, after 21 phases, whatever the pads or the
+    # activities, while phase 22 alone sees them all): each window is
     # padded with idle host time at both ends, and a window in which a
     # kernel did not launch a whole number of times a call is taken again
     best = {}
@@ -573,8 +600,8 @@ def kernel_times(torch, fn, iters: int = 20, flush=None):
     got = {k: (us / n * max(1, round(n / iters)) / 1e3,
                max(1, round(n / iters))) for k, (us, n) in best.items()}
     if not got:
-        raise RuntimeError("the profiler saw no kernel in "
-                           f"{PROFILE_WINDOWS} windows")
+        raise ProfilerSawNothing("the profiler saw no kernel in "
+                                 f"{PROFILE_WINDOWS} windows")
     print(f"    (the profiler dropped launches in {PROFILE_WINDOWS} "
           f"windows; kept {sum(n for _, n in best.values())} of "
           f"{iters * sum(c for _, c in got.values())}: per-launch means)")
@@ -596,8 +623,15 @@ def profile_window(torch, body, pad_s: float = 0.005):
 
 def device_ms(torch, fn, iters: int = 20, flush=None) -> float:
     """Device time per call of the kernels ``fn`` launches (see
-    :func:`kernel_times`)."""
-    return sum(ms for ms, _ in kernel_times(torch, fn, iters, flush).values())
+    :func:`kernel_times`); where no profiler window saw a kernel, the
+    CUDA-event time of a call (:func:`time_ms`), which adds the launch's
+    host time to the kernels', and says so."""
+    try:
+        times = kernel_times(torch, fn, iters, flush)
+    except ProfilerSawNothing as e:
+        print(f"    ({e}: CUDA-event time a call instead)")
+        return time_ms(fn, iters, flush=flush)
+    return sum(ms for ms, _ in times.values())
 
 
 class L2Flush:
@@ -1124,12 +1158,13 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
 
 
 def phase_card_vs_cpu(torch, ops, moe_options=None,
-                      arch="qwen3-moe-30b-a3b"):
+                      arch="qwen3-moe-30b-a3b", held=True):
     """A reduced config (qwen3-moe by default, under ``moe_options``):
     prefill + 3 decode steps, CPU plain versions against the card's
     kernels, the CPU's tokens fed to both (under K > 1 codebooks, K a
     step).  Prints the card run's launches, and checks that a MoE
-    config's expert FFN ran the kernel of its backend."""
+    config's expert FFN ran the kernel of its backend.  The logits are
+    held within LOGITS_ATOL, or only printed where ``held`` is False."""
     import numpy as np
     from repro_torch.configs import get_reduced, with_options
     from repro_torch.models import transformer as T
@@ -1176,9 +1211,9 @@ def phase_card_vs_cpu(torch, ops, moe_options=None,
         err = (a - b).abs().max().item()
         what = "prefill" if i == 0 else f"decode {i}"
         print(f"  {what}: max |logits_cpu - logits_card| {err:.3e} "
-              f"(tolerance {LOGITS_ATOL}, |logits| max "
-              f"{a.abs().max().item():.3f})")
-        if not err <= LOGITS_ATOL:
+              f"({'tolerance' if held else 'printed, not held; phase 4'}"
+              f" {LOGITS_ATOL}, |logits| max {a.abs().max().item():.3f})")
+        if held and not err <= LOGITS_ATOL:
             raise AssertionError(f"card against CPU, {what}: {err}")
 
 
@@ -1415,11 +1450,11 @@ def _to(tree, dev):
     return tree.to(dev, copy=True)
 
 
-def phase_train_card_vs_cpu(torch, arch="smile-3.7b", steps=3):
+def phase_train_card_vs_cpu(torch, arch="smile-3.7b", steps=3, dtype=None):
     """A reduced config (smile-3.7b by default; fused router and radix
-    sort), ``steps`` steps from the same weights and batches on the CPU
-    (plain versions) and on the card (kernels); each step's loss within
-    TRAIN_LOSS_ATOL."""
+    sort; its compute dtype, or ``dtype``), ``steps`` steps from the same
+    weights and batches on the CPU (plain versions) and on the card
+    (kernels); each step's loss within TRAIN_LOSS_ATOL."""
     from repro_torch.common.config import TrainConfig
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch.train import train_config
@@ -1428,6 +1463,8 @@ def phase_train_card_vs_cpu(torch, arch="smile-3.7b", steps=3):
     from repro_torch.sharding.plan import single_device_plan
     from repro_torch.train.step import build_train_step
     cfg = train_config(arch, reduced=True, moe_options=TRAIN["moe_options"])
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     plan = single_device_plan()
     B, S = 8, 64
     params = T.init_model(cfg, plan, seed=0, device="cpu", compute_cast=False)
@@ -1573,10 +1610,9 @@ def phase_scoring_kernels(torch, ops, ref, rows):
 
 def phase_ssd(torch, ops, ref, rows, gen, shape, B, nc, Q, nh, hd, ds, lo,
               hi):
-    """The SSD kernel against its plain version at one shape: its route
-    (ops.ssd_route), blocks, head group and shared memory, its errors, its
-    device time and share of the bound."""
-    from repro_torch.kernels import _build
+    """The SSD kernel against its plain version at one shape, on inputs
+    drawn from ``gen`` with a log-decay a step in ``[lo, hi]``
+    (:func:`hold_ssd`)."""
     dev = torch.device("cuda")
     xh = torch.randn((B, nc, Q, nh, hd), generator=gen, device=dev)
     dt = 0.001 + 0.099 * torch.rand((B, nc, Q, nh), generator=gen,
@@ -1585,21 +1621,34 @@ def phase_ssd(torch, ops, ref, rows, gen, shape, B, nc, Q, nh, hd, ds, lo,
                                        device=dev)
     Bc, Cc = (torch.randn((B, nc, Q, ds), generator=gen, device=dev)
               for _ in range(2))
+    hold_ssd(torch, ops, rows, shape, (xh, dt, loga, Bc, Cc),
+             ref.ssd_chunk_ref, f"loga in [{lo}, {hi}] a step")
+
+
+def hold_ssd(torch, ops, rows, shape, args, plain_fn, what):
+    """``ops.ssd_chunk`` on ``args`` ``(xh, dt, loga, Bc, Cc)`` against
+    ``plain_fn`` on the same: its route (ops.ssd_route), blocks, head group
+    and shared memory, its errors (SSD_RTOL + SSD_ATOL_REL of the largest
+    value), two calls' bits, its device time and share of the bound."""
+    from repro_torch.kernels import _build
+    xh, dt, loga, Bc, Cc = args
+    B, nc, Q, nh, hd = xh.shape
+    ds = Bc.shape[-1]
 
     def kernel():
         return ops.ssd_chunk(xh, dt, loga, Bc, Cc)
 
     def plain():
-        return ref.ssd_chunk_ref(xh, dt, loga, Bc, Cc)
+        return plain_fn(xh, dt, loga, Bc, Cc)
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    for what, a, b in zip(("y_intra", "sB", "a_chunk"), got, want):
+    for name, a, b in zip(("y_intra", "sB", "a_chunk"), got, want):
         if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"ssd_chunk {shape}: {what} not finite")
+            raise AssertionError(f"ssd_chunk {shape}: {name} not finite")
         tol = SSD_RTOL * b.abs() + SSD_ATOL_REL * b.abs().max()
         if not bool(((a - b).abs() <= tol).all()):
-            raise AssertionError(f"ssd_chunk {shape}: {what} outside "
+            raise AssertionError(f"ssd_chunk {shape}: {name} outside "
                                  f"rtol {SSD_RTOL} / atol {SSD_ATOL_REL} "
                                  f"of its largest value")
     again = kernel()
@@ -1623,7 +1672,7 @@ def phase_ssd(torch, ops, ref, rows, gen, shape, B, nc, Q, nh, hd, ds, lo,
             if route.route == "grouped" else None)
     dev_ms = device_ms(torch, kernel, iters=5)
     print(f"  ssd_chunk {shape}: (B, nc, Q, nh, hd, ds) = "
-          f"{(B, nc, Q, nh, hd, ds)}, loga in [{lo}, {hi}] a step; route "
+          f"{(B, nc, Q, nh, hd, ds)}, {what}; route "
           f"{route.route}: {route.blocks} blocks of 256 threads, "
           f"{route.group} head(s) a block"
           + (f", {smem} bytes of shared memory a block" if smem else "")
@@ -4753,8 +4802,8 @@ def chunked_ffn_plain(torch, ref, experts: int):
 
 
 def phase_arch_serve(torch, ops, card, arch, per_forward, num_layers=None,
-                     moe_grid=None, held=()):
-    """``serve`` of ``arch`` at full width (ARCH_SERVE), every launch count
+                     moe_grid=None, held=(), serve_kw=ARCH_SERVE):
+    """``serve`` of ``arch`` at full width (``serve_kw``), every launch count
     set to 0 just before and read just after: each phase's launches its
     path's per forward, finite logits, then the same weights and prompts
     warm through ``generate``.  The first call of each kernel in ``held``
@@ -4768,14 +4817,14 @@ def phase_arch_serve(torch, ops, card, arch, per_forward, num_layers=None,
                                by_ref_bytes=1 << 30) as captured:
         ops.reset_launch_counts()
         res = serve(arch, reduced=False, seed=0, device="cuda",
-                    num_layers=num_layers, moe_grid=moe_grid, **ARCH_SERVE)
+                    num_layers=num_layers, moe_grid=moe_grid, **serve_kw)
         launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     cfg, steps = res.inputs.cfg, res.decode_steps
     n_params = sum(t.numel() for t in _leaves(res.inputs.params))
     print(f"  {arch} ({card}): {cfg.num_layers} layers, {n_params / 1e9:.3f}"
           f" B parameters; first call: prefill {res.prefill_s * 1e3:.2f} ms "
-          f"({res.batch} x {ARCH_SERVE['prompt_len']}), decode "
+          f"({res.batch} x {serve_kw['prompt_len']}), decode "
           f"{res.decode_s / steps * 1e3:.2f} ms a step; launches "
           f"{launches}; max_memory_allocated {peak / 2**30:.2f} GiB")
     if not res.logits_finite:
@@ -4786,13 +4835,13 @@ def phase_arch_serve(torch, ops, card, arch, per_forward, num_layers=None,
             raise AssertionError(f"{arch} serve {phase}: launches "
                                  f"{res.launches[phase]}, expected {want}")
     K = cfg.num_codebooks
-    want = ((res.batch, K, ARCH_SERVE["new_tokens"]) if K > 1
-            else (res.batch, ARCH_SERVE["new_tokens"]))
+    want = ((res.batch, K, serve_kw["new_tokens"]) if K > 1
+            else (res.batch, serve_kw["new_tokens"]))
     if res.tokens.shape != want:
         raise AssertionError(f"{arch} serve: tokens {res.tokens.shape}")
     inp = res.inputs
     warm = generate(inp.params, inp.prompts, inp.cfg, inp.plan,
-                    new_tokens=ARCH_SERVE["new_tokens"])
+                    new_tokens=serve_kw["new_tokens"])
     print(f"  {arch} warm ({card}): prefill {warm.prefill_s * 1e3:.2f} ms; "
           f"decode {warm.decode_s / steps * 1e3:.2f} ms a step "
           f"({steps * warm.batch / warm.decode_s:.1f} tokens/s); tokens "
@@ -4933,6 +4982,77 @@ def phase_archs(torch, ops, ref, card):
         phase_arch_card_vs_cpu_fp32(torch, card, arch)
     print(f"  (e) card against CPU: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# phase 22: zamba2-2.7b at full width and depth (54 Mamba2 layers in 9
+# groups of 6, each followed by the shared attention block).  Its path
+# launches no kernel, as the reference's: the Mamba2 blocks call none, and
+# the shared block runs with use_kernel=False whatever the caller asks
+ZAMBA = "zamba2-2.7b"
+ZAMBA_SERVE = dict(batch=8, prompt_len=128, new_tokens=16)   # one chunk
+ZAMBA_FORWARD = dict(arch=ZAMBA, num_layers=None, moe_grid=None, batch=2,
+                     seq=2048)                               # 16 chunks
+ZAMBA_TRAIN = dict(arch=ZAMBA, reduced=False, batch=2, seq=1024,
+                   optimizer="lamb")
+
+
+@contextlib.contextmanager
+def first_intra_chunk_inputs():
+    """Keeps the inputs of the first call of ``mamba2.ssd_intra_chunk`` in
+    the block (layer 0's, in a forward): ``(xh, dt, loga, Bc, Cc)``."""
+    from repro_torch.models import mamba2 as M2
+    plain, kept = M2.ssd_intra_chunk, []
+
+    def spy(*args):
+        if not kept:
+            kept.extend(a.detach().contiguous() for a in args)
+        return plain(*args)
+
+    M2.ssd_intra_chunk = spy
+    try:
+        yield kept
+    finally:
+        M2.ssd_intra_chunk = plain
+
+
+def phase_zamba2(torch, ops, card, rows):
+    """Phase 22 (see the module docstring); adds the ``ssd_chunk`` row on
+    the path's tensors to ``rows``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as M2
+    t0 = time.perf_counter()
+    res, _ = phase_arch_serve(torch, ops, card, ZAMBA, ZERO_LAUNCHES,
+                              serve_kw=ZAMBA_SERVE)
+    built = sum(t.numel() for t in _leaves(res.inputs.params))
+    print(f"  zamba2 param_count {get_config(ZAMBA).param_count() / 1e9:.3f} "
+          f"B (the reference's count, which counts the x/z projections "
+          f"twice) against {built / 1e9:.3f} B built")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (a) serve: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with first_intra_chunk_inputs() as kept:
+        phase_scoring_forward(torch, ops, ZAMBA_FORWARD, ZERO_LAUNCHES,
+                              shares=())
+    print(f"  (b) cache-less forward: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hold_ssd(torch, ops, rows, "zamba2 path", kept, M2.ssd_intra_chunk,
+             "layer 0's tensors of (b)")
+    del kept
+    print(f"  (c) ssd_chunk on the path's tensors: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_arch_train(torch, ops, card, ZAMBA_TRAIN)
+    print(f"  (d) training: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    phase_card_vs_cpu(torch, ops, arch=ZAMBA, held=False)
+    phase_arch_card_vs_cpu_fp32(torch, card, ZAMBA)
+    phase_train_card_vs_cpu(torch, ZAMBA, steps=1, dtype="float32")
+    print(f"  (e) card against CPU: {time.perf_counter() - t0:.1f} s")
 
 
 class PhaseClock:
@@ -5110,6 +5230,13 @@ def main() -> int:
                 f"width; (e) the reduced configs card against CPU")
     for r in phase_archs(torch, ops, ref, card):
         rows.setdefault(r["name"], []).append(r)
+
+    clock.start(f"phase 22: zamba2-2.7b, full width and depth ({card}): (a) "
+                f"serve, batch 8, prompt 128, 16 new tokens; (b) the "
+                f"cache-less forward, 2 x 2048; (c) ssd_chunk on layer 0's "
+                f"tensors of (b); (d) training, 2 x 1024, LAMB; (e) the "
+                f"reduced config card against CPU")
+    phase_zamba2(torch, ops, card, rows)
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",
@@ -5120,7 +5247,7 @@ def main() -> int:
                   "grouped_ffn_ragged": "prefill hop-2",
                   "flash_attention": "qwen3 path",
                   "rwkv6_scan": "rwkv6 path",
-                  "ssd_chunk": "zamba2 typical"}
+                  "ssd_chunk": "zamba2 path"}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         r = next(x for x in rows[name] if x["shape"] == main_shape[name])

@@ -38,7 +38,10 @@ launches no kernel (the WKV6 kernel belongs to the cache-less forward).  ``serve
 moe_options={"dispatch_backend": "dropless"})`` serves without capacity
 (the options of :func:`repro_torch.configs.with_options`, as in the JAX
 package there is no flag for them): the expert FFN then runs the ragged
-grouped-FFN kernel.  ``--num-layers`` cuts
+grouped-FFN kernel.  zamba2-2.7b serves as the JAX package's does: no
+kernel launches (its Mamba2 blocks take none, and its shared attention
+block runs with ``use_kernel=False``), a prompt at most one SSD chunk or
+a multiple of one.  ``--num-layers`` cuts
 the depth and ``--moe-grid N,M`` sets the logical expert grid, which a
 SMILE config needs on one device (its ``grid=(0, 0)`` folds to ``(1, 1)``
 there, and top-``top_g`` of one node cannot route).  The engine takes the

@@ -6,11 +6,13 @@ runs them with ``lax.scan``; here a stage holds a list of per-block
 parameter dicts (``{"blocks": [...]}``) and a Python loop runs them.  Caches
 follow the same shape: one list of per-block cache dicts per stage.
 
-Ported stages: ``dense``, ``moe``, the paper's ``pair`` and ``rwkv``
-(rwkv6-1.6b); attention GQA or deepseek-v3's latent attention (MLA), with
-its multi-token-prediction head (:func:`mtp_logits`); musicgen's codebooks
-(summed embeddings, a head per codebook) and phi-3-vision's projected
-image embeddings.  Mamba2 (zamba2's ``mamba_group``) raises.
+Stages: ``dense``, ``moe``, the paper's ``pair``, ``rwkv`` (rwkv6-1.6b)
+and zamba2's ``mamba_group`` (``{"mamba": R lists of g Mamba2 blocks,
+"shared_attn": one dense block}``: each group runs its g Mamba2 blocks,
+then the shared block, whose parameters every group uses); attention GQA
+or deepseek-v3's latent attention (MLA), with its multi-token-prediction
+head (:func:`mtp_logits`); musicgen's codebooks (summed embeddings, a head
+per codebook) and phi-3-vision's projected image embeddings.
 
 Parameters are drawn from a seeded ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s, which is expected: the
@@ -19,7 +21,8 @@ tests carry the JAX package's weights across with
 activations are in :func:`compute_dtype` (``ModelConfig.dtype``, bf16 by
 default).  The matmul weights of the blocks (attention projections, dense,
 shared and expert FFNs, and an rwkv block's time-mix output projection
-``tmix.wo``) are used in the compute dtype, cast in one of two ways:
+``tmix.wo``, and a Mamba2 block's projections and convolutions) are used
+in the compute dtype, cast in one of two ways:
 
 * serving casts them once at load (:func:`cast_for_compute`, the default of
   :func:`init_model`); the blocks then use them as they are;
@@ -36,16 +39,17 @@ tables, the LM and codebook heads, the vision projection (cast at its use)
 and every other rwkv weight (both mixes compute in fp32) stay fp32.
 
 ``remat=True`` (``ModelConfig.remat``, on for training) runs each block
-under ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps
-its layer-scan body in ``jax.checkpoint``: a block's activations are
-recomputed in the backward pass instead of kept.
+(each group of a ``mamba_group`` stage) under ``torch.utils.checkpoint``
+(non-reentrant), as the JAX package wraps its layer-scan body in
+``jax.checkpoint``: its activations are recomputed in the backward pass
+instead of kept.
 
 Over a mesh (a ``plan_from_mesh`` plan) every rank runs this same code on
 its slice of the parameters (``sharding.specs``) and of the batch: tensor
 parallelism in attention, the dense FFNs, the embedding and the LM head,
 the tokens split over tp before each MoE layer and gathered after it, and
-the experts over the SMILE grid; an rwkv block's heads over tp; under
-``kv_seq_shard`` the ring caches' sequence over tp.
+the experts over the SMILE grid; an rwkv or Mamba2 block's heads over
+tp; under ``kv_seq_shard`` the ring caches' sequence over tp.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from repro_torch.core.moe import init_moe_params, moe_layer
 from repro_torch.core.pipeline import MoEStats, zero_stats
 from repro_torch.kernels.ref import activation
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import rwkv6 as RW
 from repro_torch.sharding import comm
 from repro_torch.sharding import specs as S
@@ -143,11 +148,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             or (cfg.attention == "none" and attention_free)):
         raise NotImplementedError(f"attention={cfg.attention!r} is not "
                                   f"ported yet")
-    for st in stages:
-        if st.kind not in BLOCK_KINDS:
-            raise NotImplementedError(
-                f"{st.kind!r} stages are not ported yet (Mamba2: ROADMAP.md "
-                f"item 10.2)")
 
 
 # =============================================================================
@@ -170,6 +170,9 @@ def init_block(cfg: ModelConfig, kind: str, plan: MeshPlan, *,
             "ln2": L._norm_init(d, "layernorm", device),
             "cmix": RW.init_rwkv_cmix(cfg, **kw),
         }
+    if kind == "mamba":
+        return {"ln1": L._norm_init(d, cfg.norm, device),
+                "mamba": M2.init_mamba2(cfg, dtype=dtype, **kw)}
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet")
     init_attn = L.init_mla if cfg.attention == "mla" else L.init_attention
@@ -263,8 +266,17 @@ def rwkv_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
     return x + h, zero_stats(x.device), cache
 
 
+def mamba_block(p, x, cfg, plan, cache):
+    """``x + mamba2_forward(ln1(x))`` and the cache: no kernel, whatever
+    the caller's ``use_kernel``, as the reference's (its Mamba2 ignores
+    it), and no routing statistics."""
+    h, cache = M2.mamba2_forward(p["mamba"],
+                                 L.apply_norm(p["ln1"], x, cfg.norm),
+                                 cfg, plan, cache=cache)
+    return x + h, cache
+
+
 BLOCK_FNS = {"dense": dense_block, "moe": moe_block, "rwkv": rwkv_block}
-BLOCK_KINDS = ("dense", "moe", "pair", "rwkv")
 
 
 def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
@@ -272,9 +284,16 @@ def init_stage(cfg: ModelConfig, stage: Stage, plan: MeshPlan, *,
                dtype=torch.float32, cut=lambda block: block) -> Dict:
     """The stage's blocks (their matmul weights in ``dtype``,
     :func:`init_block`), each passed through ``cut`` as soon as it is
-    drawn (:func:`init_model` cuts a rank's slice there)."""
+    drawn (:func:`init_model` cuts a rank's slice there).  A
+    ``mamba_group`` stage: ``R`` lists of ``g`` Mamba2 blocks and the one
+    shared dense block."""
     kw = dict(generator=generator, device=device, dtype=dtype)
     R = stage.repeats
+    if stage.kind == "mamba_group":
+        g = cfg.ssm_layers_per_attn
+        return {"mamba": [[cut(init_block(cfg, "mamba", plan, **kw))
+                           for _ in range(g)] for _ in range(R)],
+                "shared_attn": cut(init_block(cfg, "dense", plan, **kw))}
     if stage.kind == "pair":
         return {"dense": [cut(init_block(cfg, "dense", plan, **kw))
                           for _ in range(R)],
@@ -288,11 +307,17 @@ def cast_block(p: Dict, dt: torch.dtype) -> Dict:
     """One block's matmul weights (attention, dense, shared and expert FFNs)
     cast to ``dt``; router weights and norm scales are left as they are.
     An rwkv block casts only ``tmix.wo``: the reference computes both mixes
-    in fp32 from fp32 weights and casts that one at its use.  A no-op on
-    weights already in ``dt``."""
+    in fp32 from fp32 weights and casts that one at its use.  A Mamba2
+    block casts its projections and convolutions (``mamba2.CAST``), not
+    ``A_log``, ``D``, ``dt_bias`` or its norms.  A no-op on weights
+    already in ``dt``."""
     p = dict(p)
     if "tmix" in p:
         p["tmix"] = {**p["tmix"], "wo": p["tmix"]["wo"].to(dt)}
+        return p
+    if "mamba" in p:
+        p["mamba"] = {k: v.to(dt) if k in M2.CAST else v
+                      for k, v in p["mamba"].items()}
         return p
     p["attn"] = {k: v.to(dt) for k, v in p["attn"].items()}
     if "ffn" in p:
@@ -311,7 +336,8 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
                   use_kernel: bool = False, token_valid=None,
                   cast_weights: bool = False):
     """Run the stage's blocks in order (a loop in place of ``lax.scan``).
-    ``caches``: None or a list of per-block caches.  With ``remat`` (and
+    ``caches``: None or a list of per-block caches (a ``mamba_group``
+    stage's: per group, :func:`init_caches`).  With ``remat`` (and
     autograd recording) each block runs under ``torch.utils.checkpoint``;
     with ``cast_weights`` each block casts its fp32 weights to the
     activation dtype first, inside that region.  Returns
@@ -347,12 +373,58 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
                         None if caches is None else caches["moe"])
         cc = None if caches is None else {"dense": c1, "moe": c2}
         return x, _add_stats(s1, s2), cc
+    if stage.kind == "mamba_group":
+        return _mamba_groups(params, x, cfg, plan, positions, caches,
+                             remat=remat, cast_weights=cast_weights)
     return run(stage.kind, params["blocks"], x, caches)
+
+
+def _mamba_groups(params, x, cfg, plan, positions, caches, *, remat,
+                  cast_weights):
+    """A ``mamba_group`` stage: each group's ``g`` Mamba2 blocks, then the
+    shared dense block with ``use_kernel=False``, as the reference runs it
+    whatever the caller asks.  With ``remat`` the checkpoint wraps a whole
+    group, as the reference's ``jax.checkpoint`` wraps its group body; with
+    ``cast_weights`` the group's blocks and the shared block are cast
+    inside it.  Neither block routes, so the stats stay zero."""
+
+    def group(blocks, shared, x, c):
+        if cast_weights:
+            blocks = [cast_block(p, x.dtype) for p in blocks]
+            shared = cast_block(shared, x.dtype)
+        mc = []
+        for i, p in enumerate(blocks):
+            x, ci = mamba_block(p, x, cfg, plan,
+                                None if c is None else c["mamba"][i])
+            mc.append(ci)
+        x, _, ac = dense_block(shared, x, cfg, plan, positions,
+                               None if c is None else c["attn"])
+        return x, (None if c is None else {"mamba": mc, "attn": ac})
+
+    new = []
+    for r, blocks in enumerate(params["mamba"]):
+        c = None if caches is None else caches[r]
+        if remat:
+            x, c = checkpoint(group, blocks, params["shared_attn"], x, c,
+                              use_reentrant=False)
+        else:
+            x, c = group(blocks, params["shared_attn"], x, c)
+        new.append(c)
+    return x, zero_stats(x.device), (None if caches is None else new)
 
 
 # =============================================================================
 # Whole model
 # =============================================================================
+
+def map_blocks(fn, blocks):
+    """``fn`` over the block dicts of a stage's entry: a list of blocks,
+    ``mamba_group``'s lists of lists, or one block (its ``shared_attn``),
+    keeping the structure."""
+    if isinstance(blocks, list):
+        return [map_blocks(fn, b) for b in blocks]
+    return fn(blocks)
+
 
 def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
     """Every block's matmul weights (the MTP head's block and projection
@@ -362,8 +434,8 @@ def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
     projection are left as they are."""
     dt = compute_dtype(cfg)
     out = dict(params)
-    out["stages"] = tuple({k: [cast_block(b, dt) for b in blocks]
-                           for k, blocks in st.items()}
+    out["stages"] = tuple({k: map_blocks(lambda b: cast_block(b, dt), v)
+                           for k, v in st.items()}
                           for st in params["stages"])
     if "mtp" in params:
         out["mtp"] = {**params["mtp"], "proj": params["mtp"]["proj"].to(dt),
@@ -550,10 +622,14 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
     """Per-stage lists of per-block caches: ring-buffer KV caches sized
     ``length`` (the window for sliding attention; MLA's latent cache,
     :func:`repro_torch.models.layers.init_mla_cache`), or an rwkv block's
-    state and last tokens (no length).  Over a mesh ``batch`` is the rank's own,
-    and each cache is allocated at the rank's slice of the global cache
+    state and last tokens (no length); a ``mamba_group`` stage a dict a
+    group, ``{"mamba": g Mamba2 caches, "attn": the shared block's ring
+    cache}`` (:func:`repro_torch.models.mamba2.init_mamba2_cache`).  Over
+    a mesh ``batch`` is the rank's own, and each cache is allocated at
+    the rank's slice of the global cache
     (``sharding.specs.cache_specs``): its KV heads, or under
-    ``kv_seq_shard`` its ``length / tp`` ring slots, or its rwkv heads."""
+    ``kv_seq_shard`` its ``length / tp`` ring slots, or its rwkv or Mamba2
+    heads."""
     device = resolve_device(device)
     cfg = _model_cfg(cfg0, plan)
     _check_supported(cfg)
@@ -572,6 +648,13 @@ def init_caches(cfg0: ModelConfig, batch: int, length: int, plan: MeshPlan,
     for st in build_stages(cfg):
         if st.kind == "rwkv":
             out.append([RW.init_rwkv_cache(cfg, batch, plan, device=device)
+                        for _ in range(st.repeats)])
+        elif st.kind == "mamba_group":
+            g = cfg.ssm_layers_per_attn
+            out.append([{"mamba": [M2.init_mamba2_cache(cfg, batch, plan,
+                                                        device=device)
+                                   for _ in range(g)],
+                         "attn": attn_caches(1)[0]}
                         for _ in range(st.repeats)])
         elif st.kind == "pair":
             out.append({"dense": attn_caches(st.repeats),

@@ -7,7 +7,9 @@ keeps one tensor per block.  LAMB's trust ratio and the decision to decay a
 weight (``ndim >= 2``) are per JAX leaf, so the port groups the per-block
 pieces of one leaf (:func:`leaf_groups`): the norms sum over the pieces, and
 a stage's per-block norm scales and biases count as 2-D (stacked), so they
-are decayed as in the JAX package.
+are decayed as in the JAX package (zamba2's twice-stacked Mamba2 vectors,
+``A_log``, ``D``, ``dt_bias`` and the norm scales, too; its unstacked
+shared block's norm scales are not).
 
 The update runs on the parameters in place, under ``torch.no_grad``, and
 reads each piece's ``.grad``; the moments are updated in place too.  Every
@@ -46,6 +48,7 @@ class LeafGroup:
     pieces: List[torch.Tensor]
     ndim: int                   # ndim of the JAX leaf
     where: Tuple = ()           # key path of its first piece in the tree
+    stack: Tuple[int, ...] = ()  # the leaf's leading stacked dims
 
     def of(self, tree):
         """This group's entry in ``tree``, a tree shaped as the parameters
@@ -70,7 +73,11 @@ def _get(tree, path):
 def leaf_groups(params: Dict) -> List[LeafGroup]:
     """Group the parameters as the JAX package's leaves: one group per
     top-level tensor (embedding, head, final norm), and for each stage one
-    group per block parameter holding that parameter of every block."""
+    group per block parameter holding that parameter of every block (its
+    ndim one more than a piece's).  zamba2's ``mamba_group`` stage stacks
+    its Mamba2 blocks twice, ``(R, g, ...)``: a group holds all ``R x g``
+    pieces, R-major, its ndim two more; its ``shared_attn`` block is
+    unstacked, each tensor a group of its own ndim."""
     groups = []
     for key, sub in params.items():
         if key == "stages":
@@ -79,13 +86,23 @@ def leaf_groups(params: Dict) -> List[LeafGroup]:
             groups.append(LeafGroup(".".join(path), [t], t.dim(), path))
     for i, stage in enumerate(params.get("stages", ())):
         for kind, blocks in stage.items():
+            where = ("stages", i, kind)
+            if isinstance(blocks, dict):            # one unstacked block
+                for path, t in _leaves(blocks):
+                    groups.append(LeafGroup(".".join(map(str, where + path)),
+                                            [t], t.dim(), where + path))
+                continue
             if not blocks:              # a stage the depth cut left empty
                 continue
+            stack = (len(blocks),)
+            if isinstance(blocks[0], list):         # (R, g) blocks
+                stack += (len(blocks[0]),)
+                blocks = [b for row in blocks for b in row]
             for path, t in _leaves(blocks[0]):
                 groups.append(LeafGroup(
-                    ".".join(("stages", str(i), kind) + path),
-                    [_get(b, path) for b in blocks], t.dim() + 1,
-                    ("stages", i, kind, 0) + path))
+                    ".".join(map(str, where + path)),
+                    [_get(b, path) for b in blocks], t.dim() + len(stack),
+                    where + (0,) * len(stack) + path, stack))
     return groups
 
 

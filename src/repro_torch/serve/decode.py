@@ -2,11 +2,12 @@
 
 The port of ``repro.serve.decode``.  PyTorch runs eagerly, so there is no
 ``build_prefill`` / ``build_decode_step`` compile step: :func:`prefill_fn`
-and :func:`decode_step_fn` are called directly.  Both update the ring-buffer
-KV caches in place.  Over a mesh every rank calls them on its slice of the
-batch, the parameters and the caches (``launch.serve.generate``); the
-logits they return are the rank's part of the vocabulary, and the sampled
-tokens are the whole vocabulary's.
+and :func:`decode_step_fn` are called directly.  Both update the caches in
+place (the ring-buffer KV caches written, a Mamba2 cache's states
+replaced) and return them.  Over a mesh every rank calls them on its slice
+of the batch, the parameters and the caches (``launch.serve.generate``);
+the logits they return are the rank's part of the vocabulary, and the
+sampled tokens are the whole vocabulary's.
 """
 from __future__ import annotations
 

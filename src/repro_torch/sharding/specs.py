@@ -62,7 +62,10 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
     ``kv_seq_shard`` (the cache's sequence dim is the cut one there).  An
     rwkv block's time mix is cut by head (its projections, decay, bonus,
     group norm and output projection) where the heads divide over ``tp``,
-    its channel mix Megatron-style over ``d_ff``."""
+    its channel mix Megatron-style over ``d_ff``.  A Mamba2 block is cut
+    by head (``wx``, ``wz``, ``wdt`` on the output, ``conv_x``, ``A_log``,
+    ``D``, ``dt_bias`` and the gated norm's scale, ``wo`` on the input),
+    its B/C projections and convolutions replicated."""
     tp = plan.tp_axis
     kv_ok = (cfg.num_kv_heads % max(plan.tp, 1) == 0
              and not cfg.kv_seq_shard)
@@ -121,6 +124,16 @@ def param_spec_rules(cfg: ModelConfig, plan: MeshPlan
             return (None, tp)
         if name == "w2":
             return (tp, None)
+        if parent == "mamba":                  # a Mamba2 block's heads
+            if name in ("wx", "wz", "wdt"):
+                return (None, tp)
+            if name in ("conv_x", "wo"):
+                return (tp, None)
+            if name in ("A_log", "D", "dt_bias"):
+                return (tp,)
+            return None          # wB, wC, conv_B, conv_C replicated
+        if parent == "norm" and name == "scale":
+            return (tp,)         # the Mamba2 gated norm over d_inner
         return None
 
     def rule(path: Tuple[str, ...], ndim: int) -> Spec:
@@ -228,7 +241,9 @@ def cache_specs(cache_tree, cfg: ModelConfig, plan: MeshPlan, batch: int):
     batch dim, and their page ``table``, replicated; MLA's latent
     ``ckv`` (B, W, kvr) and ``kpe`` (B, W, rope), the batch dim only;
     rwkv ``wkv`` (B, nh, hd, hd), its heads over tp where they divide, and
-    ``x_prev_*`` (B, 1, d).  Under ``kv_seq_shard`` with tp > 1 the ring's sequence dim is the
+    ``x_prev_*`` (B, 1, d); Mamba2's ``ssm`` (B, nh, hd, ds) and
+    ``conv_x`` (B, W, d_inner) over tp by head, ``conv_B``/``conv_C`` (B,
+    W, ds) the batch dim only.  Under ``kv_seq_shard`` with tp > 1 the ring's sequence dim is the
     cut one: ``k``/``v`` (B, W / tp, KV, hd) with every KV head, ``pos``
     (W / tp,)."""
     tp = plan.tp_axis
@@ -250,6 +265,10 @@ def cache_specs(cache_tree, cfg: ModelConfig, plan: MeshPlan, batch: int):
                  else (bspec, None, tp if kv_ok else None, None))
         elif name == "wkv":
             b = (bspec, rwkv_tp, None, None)
+        elif name == "ssm":
+            b = (bspec, tp, None, None)
+        elif name == "conv_x":
+            b = (bspec, None, tp)
         else:
             b = (bspec,) + (None,) * (nd - 1)
         return (None,) * (nd - len(b)) + b

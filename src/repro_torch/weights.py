@@ -49,7 +49,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _tree(t, device, index=None):
     """Nested dicts of arrays -> nested dicts of tensors, optionally taking
-    ``[index]`` along each leaf's leading (stacked-block) axis."""
+    ``[index]`` along each leaf's leading (stacked-block) axes."""
     if isinstance(t, dict):
         return {k: _tree(v, device, index) for k, v in t.items()}
     if t is None:
@@ -71,6 +71,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
             stages.append({k: [_tree(sp[k], device, r)
                                for r in range(st.repeats)]
                            for k in ("dense", "moe")})
+        elif st.kind == "mamba_group":
+            # the Mamba2 blocks stacked (R, g, ...); the shared block whole
+            g = cfg.ssm_layers_per_attn
+            stages.append({
+                "mamba": [[_tree(sp["mamba"], device, (r, j))
+                           for j in range(g)] for r in range(st.repeats)],
+                "shared_attn": _tree(sp["shared_attn"], device)})
         else:
             stages.append({"blocks": [_tree(sp["blocks"], device, r)
                                       for r in range(st.repeats)]})
@@ -85,12 +92,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
 
 class Leaf(NamedTuple):
     """One leaf of the JAX layout: its checkpoint ``key``, the rank's
-    ``tensors`` that hold it (a stage's blocks, stacked on a new leading
-    axis where ``stacked``), and each tensor's spec over the mesh."""
+    ``tensors`` that hold it (a stage's blocks, stacked on the leading
+    dims ``stack``, R-major: ``(R,)``, zamba2's ``(R, g)``, or ``()`` for
+    a whole leaf), and each tensor's spec over the mesh."""
     key: str
     tensors: List[torch.Tensor]
     specs: List[Tuple]
-    stacked: bool
+    stack: Tuple[int, ...]
 
 
 def _whole(t: torch.Tensor) -> Tuple:
@@ -124,10 +132,10 @@ def state_leaves(params=None, opt_state=None, extra=None, *,
     def add(prefix, i, ts):
         key = prefix + groups[i].name.replace(".", "/")
         if torch.is_tensor(ts):                 # a ZeRO-1 flat chunk
-            out.append(Leaf(key, [ts], [flat_spec[i]], False))
+            out.append(Leaf(key, [ts], [flat_spec[i]], ()))
         else:
             out.append(Leaf(key, list(ts), [gspec[i]] * len(ts),
-                            groups[i].where[0] == "stages"))
+                            groups[i].stack))
 
     for i, g in enumerate(groups):
         add("p/", i, g.pieces)
@@ -138,7 +146,7 @@ def state_leaves(params=None, opt_state=None, extra=None, *,
             for i in range(len(groups)):
                 add(f"o/{name}/", i, ms[i])
     if extra is not None:
-        out += [Leaf(f"x/{f}", [getattr(extra, f)], [()], False)
+        out += [Leaf(f"x/{f}", [getattr(extra, f)], [()], ())
                 for f in SENTINEL_FIELDS]
     return out
 
@@ -164,7 +172,7 @@ def global_shape(leaf: Leaf, mesh=None) -> Tuple[int, ...]:
     if mesh is not None:
         shape = tuple(n * (mesh.size(e) if e is not None else 1)
                       for n, e in zip(shape, leaf.specs[0]))
-    return ((len(leaf.tensors),) + shape) if leaf.stacked else shape
+    return tuple(leaf.stack) + shape
 
 
 def leaf_to_numpy(leaf: Leaf, mesh=None) -> np.ndarray:
@@ -175,14 +183,17 @@ def leaf_to_numpy(leaf: Leaf, mesh=None) -> np.ndarray:
         if mesh is not None:
             t = S.gather_leaf(t, spec, mesh)
         parts.append(t.detach().cpu().numpy())
-    return np.stack(parts) if leaf.stacked else parts[0]
+    if not leaf.stack:
+        return parts[0]
+    return np.stack(parts).reshape(tuple(leaf.stack) + parts[0].shape)
 
 
 @torch.no_grad()
 def leaf_from_numpy(leaf: Leaf, arr: np.ndarray, mesh=None) -> None:
     """Copy the whole leaf ``arr`` into the rank's tensors (their slices
     of it, over a mesh), cast to their dtypes."""
-    parts = list(arr) if leaf.stacked else [arr]
+    parts = (list(arr.reshape((-1,) + arr.shape[len(leaf.stack):]))
+             if leaf.stack else [arr])
     for t, spec, a in zip(leaf.tensors, leaf.specs, parts):
         a = torch.from_numpy(np.array(a, order="C"))   # a copy, 0-d kept
         if mesh is not None:
@@ -236,7 +247,8 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def params_to_jax(params, *, cfg: Optional[ModelConfig] = None,
                   mesh=None) -> Dict[str, Any]:
     """The port's parameters as the JAX package's tree (numpy leaves, each
-    stage's blocks stacked): the inverse of :func:`params_from_jax`.
+    stage's blocks stacked, zamba2's Mamba2 blocks twice): the inverse of
+    :func:`params_from_jax`.
     Over a mesh (with ``cfg``) each leaf is gathered whole."""
     return unflatten({l.key[2:]: leaf_to_numpy(l, mesh) for l in
                       state_leaves(params, cfg=cfg, mesh=mesh)})

@@ -305,14 +305,15 @@ def test_cast_for_compute_casts_only_tmix_wo():
 
 
 def test_full_rwkv6_config_is_supported_and_others_still_raise():
-    """rwkv6 builds; of the other architectures only zamba2's Mamba2
-    stage still raises (deepseek-v3's MLA and MTP head, musicgen's
-    codebooks and phi-3-vision's image inputs now build)."""
+    """rwkv6 builds, and so does every other architecture: no config of
+    the registry raises any more (zamba2's Mamba2 stage was the last), and
+    the reduced zamba2, deepseek-v3, musicgen and phi-3-vision build."""
+    from repro_torch.configs import ASSIGNED, PAPER
     plan = tplan()
-    TT._check_supported(tget_config(ARCH))
-    with pytest.raises(NotImplementedError, match="mamba_group"):
-        TT.init_model(tget_reduced("zamba2-2.7b"), plan, device="cpu")
-    for arch in ("deepseek-v3-671b", "musicgen-large", "phi-3-vision-4.2b"):
+    for arch in ASSIGNED + PAPER:
+        TT._check_supported(tget_config(arch))
+    for arch in ("zamba2-2.7b", "deepseek-v3-671b", "musicgen-large",
+                 "phi-3-vision-4.2b"):
         TT._check_supported(tget_config(arch))
         assert "stages" in TT.init_model(tget_reduced(arch), plan,
                                          device="cpu")
