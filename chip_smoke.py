@@ -293,7 +293,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     rounding a Mamba2 block moves its logits by as much as the tolerance),
     then fp32 on the plain path (the CPU's tokens, logits within phase 4's
     tolerance) and one fp32 training step's loss within phase 6's.
-23. A ``{"kernels": [...]}`` line, then the card line, then the last line
+23. The tooling (``repro_torch.analysis``, ``repro_torch.launch.dryrun``).
+    (a) The kernel pass over this run's build of all nine kernels: each
+    kernel function's registers, spill bytes and static shared memory as
+    ``ptxas -v`` reported them in phase 1, and, for each launch
+    configuration the profiler recorded in phase 2's timed calls (the
+    path's shapes), its threads and its static plus dynamic shared
+    memory; an ``smem-budget`` or ``register-limit`` finding fails the
+    run, a ``register-spill`` finding is printed with its bytes.  (b) In a
+    fresh process (the fake process group must not meet earlier phases'
+    groups): the dry run on the meta device of phase 3's serve (qwen3-moe,
+    4 of 48 layers, grid (16, 8), batch 8, prompt 128, a 160-token cache)
+    and phase 5's training step (smile-3.7b, full depth, batch 16 x 128,
+    one pass, LAMB; the plain router, as the meta device runs no kernel):
+    the predicted peak (``argument_bytes`` plus ``temp_bytes``) and
+    ``argument_bytes`` beside the peak those phases measured
+    (``torch.cuda.max_memory_allocated``), with the ratio.  (c) The
+    production sweep's headline, four dry runs in parallel processes:
+    qwen3-moe-30b-a3b and deepseek-v3-671b at ``train_4k`` on the 16 x 16
+    mesh of 256 ranks under SMILE and under Switch (2 of a rank's 16
+    micro-batches run, the counts of the forward and backward scaled to
+    16): the All2All bytes a rank sends to peers on its 8-GPU node and off
+    it, and ``fits``.  The phase prints the card's memory as
+    ``torch.cuda.get_device_properties`` gives it, the dry run's default.
+24. A ``{"kernels": [...]}`` line, then the card line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds the routing kernels at a phase-17 mesh rank's training
@@ -580,7 +603,8 @@ def kernel_times(torch, fn, iters: int = 20, flush=None):
     best = {}
     for window in range(PROFILE_WINDOWS):
         out = {}
-        for e in profile_window(torch, body).key_averages():
+        prof = profile_window(torch, body)
+        for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA and e.key not in skip:
                 us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
@@ -590,6 +614,7 @@ def kernel_times(torch, fn, iters: int = 20, flush=None):
             if window:
                 print(f"    (the profiler dropped launches in {window} "
                       f"window(s) before this one)")
+            keep_launches(prof)
             return {k: (us / iters / 1e3, n // iters)
                     for k, (us, n) in out.items()}
         if (sum(n for _, n in out.values())
@@ -606,6 +631,17 @@ def kernel_times(torch, fn, iters: int = 20, flush=None):
           f"windows; kept {sum(n for _, n in best.values())} of "
           f"{iters * sum(c for _, c in got.values())}: per-launch means)")
     return got
+
+
+# the launch configurations (registers, threads, shared memory) of the
+# kernels kernel_times saw, for phase 23 (a)'s kernel pass
+LAUNCHES_SEEN = set()
+
+
+def keep_launches(prof) -> None:
+    """Add a timed window's kernel launches to :data:`LAUNCHES_SEEN`."""
+    from repro_torch.analysis import kernel_lint
+    LAUNCHES_SEEN.update(kernel_lint.launches_from_profile(prof))
 
 
 def profile_window(torch, body, pad_s: float = 0.005):
@@ -1036,6 +1072,9 @@ def phase_launch_floor(torch, ops):
 
 SERVE = dict(arch="qwen3-moe-30b-a3b", reduced=False, num_layers=4,
              moe_grid=(16, 8))
+# torch.cuda.max_memory_allocated of phase 3's serve and phase 5's
+# training run, for phase 23 (b)
+MEASURED_PEAKS = {}
 
 
 def phase_serve(torch, ops):
@@ -1052,6 +1091,7 @@ def phase_serve(torch, ops):
                 moe_grid=SERVE["moe_grid"])
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    MEASURED_PEAKS["serve"] = peak
     steps = res.decode_steps
     print(f"  first call: prefill {res.prefill_s * 1e3:.2f} ms "
           f"({sc.batch_size} x {sc.prompt_len} tokens); decode "
@@ -1381,6 +1421,7 @@ def phase_train(torch, ops):
                          on_step=on_step, **TRAIN)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    MEASURED_PEAKS["train"] = peak
     n_params = sum(p.numel() for g in leaf_groups(params)
                    for p in g.pieces)
     del params
@@ -5055,6 +5096,193 @@ def phase_zamba2(torch, ops, card, rows):
     print(f"  (e) card against CPU: {time.perf_counter() - t0:.1f} s")
 
 
+# =============================================================================
+# Phase 23: the tooling (kernel pass, dry run against measured peaks, the
+# production sweep's headline)
+# =============================================================================
+
+TOOLING_BUDGET_S = 90
+# phase 3's serve and phase 5's training step, for the dry run on one device
+DRYRUN_PHASE3 = dict(arch="qwen3-moe-30b-a3b", tokens=128, batch=8,
+                     cache_len=160, num_layers=4, moe_grid=(16, 8))
+DRYRUN_PHASE5 = dict(arch="smile-3.7b", seq=128, batch=16, moe_grid=(16, 8))
+HEADLINE = [(a, r) for a in ("qwen3-moe-30b-a3b", "deepseek-v3-671b")
+            for r in ("smile", "switch")]
+HEADLINE_MICRO_STEPS = 2
+DRYRUN_CHILD = """
+import json
+from repro_torch.common.config import InputShape
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.serve import serve_config
+from repro_torch.launch.train import train_config
+s, t = {s}, {t}
+out = {{}}
+for gc_every in (D.CA.GC_EVERY, 0):
+    r = D.run_step(s["arch"], "prefill_32k", mesh_shape=(),
+                   cache_len=s["cache_len"], collect_every=gc_every,
+                   cfg=serve_config(s["arch"], reduced=False,
+                                    num_layers=s["num_layers"],
+                                    moe_grid=s["moe_grid"]),
+                   shape=InputShape("phase3", s["tokens"], s["batch"],
+                                    "prefill"))
+    out["serve", gc_every] = r
+    r = D.run_step(t["arch"], "train_4k", mesh_shape=(), micro_batch=0,
+                   collect_every=gc_every,
+                   cfg=train_config(t["arch"], reduced=False,
+                                    moe_grid=t["moe_grid"]),
+                   shape=InputShape("phase5", t["seq"], t["batch"], "train"))
+    out["train", gc_every] = r
+print(json.dumps([[k[0], k[1], {{n: r[n] for n in ("argument_bytes",
+                   "temp_bytes", "step_s")}}] for k, r in out.items()]))
+"""
+
+
+def start_dryruns(out_dir: str):
+    """Phase 23 (b) and (c)'s dry runs, each a process of its own, all
+    started at once: ``{name: Popen}``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {"peaks": subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD.format(s=repr(DRYRUN_PHASE3),
+                                                   t=repr(DRYRUN_PHASE5))],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)}
+    for arch, router in HEADLINE:
+        procs[f"{arch}/{router}"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", "train_4k", "--router", router, "--tag",
+             router, "--micro-steps", str(HEADLINE_MICRO_STEPS), "--out",
+             out_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def finish_dryruns(procs, timeout_s: float = 600.0):
+    """Each process's stdout; raises with its stderr where it failed."""
+    outs = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise AssertionError(f"dry run {name} outlasted {timeout_s} s")
+        if p.returncode != 0:
+            raise AssertionError(f"dry run {name} failed:\n{err[-3000:]}")
+        outs[name] = out
+    return outs
+
+
+def phase_kernel_lint():
+    """Phase 23 (a): the kernel pass over this run's build and the
+    launches phase 2 recorded."""
+    import re
+    from repro_torch.analysis import kernel_lint as K
+    from repro_torch.kernels import _build
+    logs = dict(_build.build_log)
+    if set(logs) != set(_build.SIGNATURES):     # a library built earlier
+        logs = K.ptxas_logs()
+    entries = K.ptxas_entries(logs)
+    names = K.demangle([e.function for e in entries])
+    matched = K.match_launches(entries, LAUNCHES_SEEN, names)
+    for e in entries:
+        short = names.get(e.function, e.function).replace(
+            "void ", "").replace("(anonymous namespace)::", "")
+        short = re.sub(r"\(.*", "", short)
+        line = (f"  [{e.source}] {short}: {e.registers} registers, spill "
+                f"stores {e.spill_stores} B, loads {e.spill_loads} B, "
+                f"static smem {e.static_smem} B")
+        ls = matched.get(e.function, [])
+        if ls:
+            regs = max(ls, key=lambda l: l.registers * l.threads)
+            big = max(ls, key=lambda l: l.smem)
+            line += (f"; {len(ls)} launch configurations, threads "
+                     f"{sorted({l.threads for l in ls})}: at most "
+                     f"{regs.registers} x {regs.threads} = "
+                     f"{regs.registers * regs.threads} registers (of "
+                     f"{K.SM90_REGS_PER_SM}), {big.smem} B of shared memory "
+                     f"= static {e.static_smem} + dynamic "
+                     f"{big.smem - e.static_smem} (of {K.SM90_SMEM_OPTIN}; "
+                     f"grid {list(big.grid)})")
+        print(line)
+    seen = {e.source for e in entries if e.function in matched}
+    if set(_build.SIGNATURES) - seen:
+        print(f"  no launch recorded for "
+              f"{sorted(set(_build.SIGNATURES) - seen)}")
+    findings = (K.check_ptxas(entries, names)
+                + K.check_launches([l for ls in matched.values()
+                                    for l in ls])
+                + K.check_float_atomics(K.cuda_sources()))
+    print(f"  {len(entries)} kernel functions of {len(logs)} sources, "
+          f"{sum(map(len, matched.values()))} launch configurations; "
+          f"{len(findings)} finding(s):")
+    for f in findings:
+        print(f"    {f.format()}")
+    bad = [f for f in findings if f.rule in ("smem-budget", "register-limit",
+                                             "float-atomic")]
+    if bad:
+        raise AssertionError(f"kernel pass: {[f.format() for f in bad]}")
+
+
+def phase_tooling(torch):
+    """Phase 23: (a) the kernel pass, (b) the dry run's peaks against
+    phases 3 and 5's, (c) the production sweep's headline; the dry runs
+    run in their own processes while (a) runs here."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.dryrun import H100_HBM_BYTES
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  card memory (get_device_properties): {total} B "
+          f"({total / 2**30:.2f} GiB); the dry run's default "
+          f"{H100_HBM_BYTES} B")
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        procs = start_dryruns(out_dir)
+        print("  (a) the kernel pass")
+        phase_kernel_lint()
+        report_dryruns(finish_dryruns(procs), out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def report_dryruns(outs, out_dir: str) -> None:
+    """Print phase 23 (b) and (c) from the dry runs' output and files."""
+    print("  (b) the dry run on the meta device against the measured "
+          "peaks (torch.cuda.max_memory_allocated)")
+    runs = json.loads(outs["peaks"].strip().splitlines()[-1])
+    for what, gc_every, r in runs:
+        phase = 3 if what == "serve" else 5
+        pred = r["argument_bytes"] + r["temp_bytes"]
+        got = MEASURED_PEAKS.get(what)
+        line = (f"    phase {phase} ({what}), "
+                f"{f'cycles collected every {gc_every} ops' if gc_every else 'Python collects the cycles'}: "
+                f"predicted peak {pred / 2**30:.2f} GiB (argument_bytes "
+                f"{r['argument_bytes'] / 2**30:.2f} + temp_bytes "
+                f"{r['temp_bytes'] / 2**30:.2f}), dry run "
+                f"{r['step_s']:.1f} s")
+        if got:
+            line += (f"; measured {got / 2**30:.2f} GiB, predicted / "
+                     f"measured {pred / got:.3f}")
+        print(line)
+    print(f"  (c) train_4k on the 16 x 16 mesh (256 ranks, 8 a node), "
+          f"rank 0, {HEADLINE_MICRO_STEPS} of 16 micro-batches run: "
+          f"All2All bytes a rank sends to peers on its node / off it")
+    for arch, router in HEADLINE:
+        res = json.load(open(os.path.join(
+            out_dir, f"{arch}__train_4k__single__{router}.json")))
+        c = res["collectives"]
+        near = c["intra_node_peer_bytes"]["all-to-all"]
+        far = c["inter_node_peer_bytes"]["all-to-all"]
+        groups = sorted(k for k in res["collectives_by_group"]
+                        if k.startswith("all-to-all"))
+        print(f"    {arch} {router}: on the node {near / 2**30:.3f} "
+              f"GiB, off it {far / 2**30:.3f} GiB (buffers "
+              f"{c['bytes_per_op']['all-to-all'] / 2**30:.3f} GiB, "
+              f"{c['calls_per_op']['all-to-all']:g} calls, groups "
+              f"{groups}); peak "
+              f"{res['memory']['peak_bytes'] / 2**30:.2f} GiB, fits "
+              f"{res['fits']}; dry run {res['step_s']:.1f} s")
+
+
 class PhaseClock:
     """Prints each phase's heading, and its wall time when the next one
     starts (or at :meth:`stop`)."""
@@ -5237,6 +5465,18 @@ def main() -> int:
                 f"tensors of (b); (d) training, 2 x 1024, LAMB; (e) the "
                 f"reduced config card against CPU")
     phase_zamba2(torch, ops, card, rows)
+
+    clock.start(f"phase 23: the tooling ({card}): (a) the kernel pass over "
+                f"this run's build; (b) the dry run on the meta device "
+                f"against phases 3 and 5's peaks; (c) qwen3-moe and "
+                f"deepseek-v3 train_4k on the 16 x 16 mesh, SMILE and "
+                f"Switch")
+    t23 = time.perf_counter()
+    phase_tooling(torch)
+    t23 = time.perf_counter() - t23
+    if t23 > TOOLING_BUDGET_S:
+        print(f"  phase 23 took {t23:.1f} s, past its "
+              f"{TOOLING_BUDGET_S} s budget")
     clock.stop()
 
     main_shape = {"dispatch_gather": "prefill hop-2",

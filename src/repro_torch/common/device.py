@@ -13,14 +13,18 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``.  Asking for CUDA on a machine
-    without a usable card raises instead of falling back to the CPU."""
+    without a usable card raises instead of falling back to the CPU.
+    ``"meta"`` (tensors with shapes and dtypes and no storage: the dry
+    run's, :mod:`repro_torch.launch.inputs`) is taken only when it is
+    asked for by name; no entry point falls back to it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} was asked for but no CUDA device is "
             f"available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: expected cuda, cpu "
+                         f"or meta")
     return dev
 
 

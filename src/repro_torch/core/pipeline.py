@@ -755,6 +755,11 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
     if token_valid is None:
         token_valid = torch.ones((t,), dtype=torch.bool, device=dev)
     y = run_hop(0, x, token_valid, None)
+    # run_hop calls itself through its closure cell: a reference cycle
+    # that would hold every tensor it captured (the hop statistics, and
+    # through their autograd graph its saved activations) until the
+    # cyclic garbage collector ran; emptying the cell breaks it
+    run_hop = None
     hop_vec = torch.stack(hop_drops)
     fault_vec = comm.psum(torch.stack(hop_faults), sync)
     if any(w is not None for w in hop_wire):

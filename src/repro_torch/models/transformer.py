@@ -15,7 +15,8 @@ head (:func:`mtp_logits`); musicgen's codebooks (summed embeddings, a head
 per codebook) and phi-3-vision's projected image embeddings.
 
 Parameters are drawn from a seeded ``torch.Generator`` on the target
-device.  Its numbers differ from ``jax.random``'s, which is expected: the
+device (on the CPU for the meta device, the dry run's, which has no
+generator and makes no numbers).  Its numbers differ from ``jax.random``'s, which is expected: the
 tests carry the JAX package's weights across with
 :func:`repro_torch.weights.params_from_jax`.  Parameters are fp32; the
 activations are in :func:`compute_dtype` (``ModelConfig.dtype``, bf16 by
@@ -443,6 +444,14 @@ def cast_for_compute(params: Dict, cfg: ModelConfig) -> Dict:
     return out
 
 
+def draw_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded generator parameters are drawn from: on ``device``, or
+    on the CPU for the meta device, which has none (a draw onto meta takes
+    a CPU generator and makes no numbers)."""
+    dev = torch.device("cpu") if device.type == "meta" else device
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
                device="cuda", compute_cast: bool = True,
                mesh=None) -> Dict:
@@ -477,7 +486,7 @@ def init_model(cfg0: ModelConfig, plan: MeshPlan, *, seed: int = 0,
             return tree
         return S.shard_params(tree, S.map_tree(
             lambda p, x: rule(prefix + p, x.ndim), tree), mesh)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = draw_generator(device, seed)
     kw = dict(generator=gen, device=device)
     block_dtype = compute_dtype(cfg) if compute_cast else torch.float32
     d, V, K = cfg.d_model, cfg.vocab_size, cfg.num_codebooks

@@ -26,15 +26,16 @@ def greedy_sample(logits: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
     index wins ties, across ranks too (``torch.argmax`` returns the first
     maximal index of a rank's part; then the largest maximum over tp, and
     of the ranks that hold it, the smallest index)."""
-    arg = logits.argmax(-1)
+    arg = logits.argmax(-1).to(torch.int32)
     if plan.tp <= 1:
-        return arg.to(torch.int32)
+        return arg
     local_max = logits.amax(-1)
     arg = arg + comm.axis_index(plan.tp_axis) * logits.shape[-1]
     gmax = comm.pmax(local_max, plan.tp_axis)
+    # int32 on the wire, as the reference's argmax gives
     cand = torch.where(local_max >= gmax, arg,
-                       torch.full_like(arg, torch.iinfo(torch.int64).max))
-    return (-comm.pmax(-cand, plan.tp_axis)).to(torch.int32)
+                       torch.full_like(arg, torch.iinfo(torch.int32).max))
+    return -comm.pmax(-cand, plan.tp_axis)
 
 
 def prefill_fn(params, tokens: torch.Tensor, caches, *, cfg: ModelConfig,

@@ -36,17 +36,30 @@ on a tensor that needs a gradient (JAX has no transpose for it).  The
 backward apart; the training step's gradient psums log as ``psum.sync``
 (under ZeRO-1 ``psum_scatter.sync``, and the updated parameters'
 all-gather ``all_gather.params``) and its norms' as ``psum.norm``.
+
+A :class:`TraceLog` bound with :func:`tracing` keeps, in order, every
+collective this rank issues (its op as the wire log names it, the axes,
+the dtype, the shape, and the file and line of the code that called
+``comm``), and a call that names an axis the mesh lacks before it
+raises: what :mod:`repro_torch.analysis.trace_lint` holds the ranks to.
+On the meta device (the dry run) the ragged exchange's host read of its
+split sizes takes :func:`repro_torch.common.meta.split_sizes`'s static
+sizes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import sys
 import time
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.common import meta
 from repro_torch.core.dispatch import ragged_row_membership
 
 Axes = Union[None, str, Tuple[str, ...]]
@@ -110,10 +123,70 @@ class WireLog:
                 for k, v in sorted(self.entries.items())}
 
 
-class _Call:
-    """Times one collective into the bound mesh's wire log."""
+class TraceCall(NamedTuple):
+    """One collective as a rank issued it."""
+    op: str                        # as the wire log names it (psum.grad, ...)
+    axes: Tuple[str, ...]
+    dtype: str
+    shape: Tuple[int, ...]
+    caller: str                    # file:line of the code that called comm
+    out_shape: Tuple[int, ...]     # the result's
 
-    def __init__(self, op: str, axes, x: torch.Tensor):
+
+class TraceLog:
+    """Every collective of this process, in the order it was issued
+    (:func:`tracing` binds one)."""
+
+    def __init__(self):
+        self.calls: List[TraceCall] = []
+
+    def add(self, op: str, axes, x: Optional[torch.Tensor],
+            out_shape=None) -> None:
+        shape = () if x is None else tuple(x.shape)
+        self.calls.append(TraceCall(
+            op, tuple(axes),
+            "" if x is None else str(x.dtype).replace("torch.", ""),
+            shape, caller_outside(__file__),
+            shape if out_shape is None else tuple(out_shape)))
+
+
+_TRACE: Optional[TraceLog] = None
+
+
+@contextlib.contextmanager
+def tracing(log: TraceLog):
+    """Record this process's collectives into ``log`` while the block
+    runs."""
+    global _TRACE
+    prev, _TRACE = _TRACE, log
+    try:
+        yield log
+    finally:
+        _TRACE = prev
+
+
+def caller_outside(*files: str) -> str:
+    """``file:line`` of the innermost frame that lies in none of
+    ``files`` and not in torch (a backward's frames are the autograd
+    engine's: its caller is the code that ran ``backward``)."""
+    skip = {os.path.abspath(f) for f in files}
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    f = sys._getframe(1)
+    while f is not None:
+        path = os.path.abspath(f.f_code.co_filename)
+        if path not in skip and not path.startswith(torch_dir):
+            return f"{path}:{f.f_lineno}"
+        f = f.f_back
+    return "?"
+
+
+class _Call:
+    """Times one collective into the bound mesh's wire log (and records
+    it into the bound trace)."""
+
+    def __init__(self, op: str, axes, x: torch.Tensor, out_shape=None):
+        if _TRACE is not None:
+            _TRACE.add(op, axes, x, out_shape)
         self.mesh = _MESH
         self.key = (op, "+".join(axes), str(x.dtype).replace("torch.", ""))
         self.dev = x.device if x.is_cuda else None
@@ -133,11 +206,16 @@ class _Call:
         self.mesh.wire.add(self.key, rows, nbytes, dt)
 
 
-def _group(axes: Tuple[str, ...]):
+def _group(axes: Tuple[str, ...], op: str, x=None):
     """The bound mesh's group over ``axes`` (None for the empty tuple or a
-    group of one rank, where the helper is the identity)."""
+    group of one rank, where the helper is the identity).  An axis the
+    mesh lacks is recorded into the bound trace (as ``op``) before the
+    mesh raises."""
     if not axes:
         return None
+    if _TRACE is not None and _MESH is not None and \
+            not set(axes) <= set(_MESH.axes):
+        _TRACE.add(op, axes, x)
     g = bound_mesh().group(axes)
     return None if g.size == 1 else g
 
@@ -186,7 +264,7 @@ def psum(x, axes: Axes, *, label: str = "psum"):
     """psum over ``axes``; ``label`` is its op in the wire log (the
     training step's gradient sync and norms use their own)."""
     axes = _norm(axes)
-    g = _group(axes)
+    g = _group(axes, label, x)
     if g is None:
         return x
     return _PSum.apply(x, axes, g, label)
@@ -195,7 +273,7 @@ def psum(x, axes: Axes, *, label: str = "psum"):
 def pmax(x, axes: Axes):
     """pmax, which carries no gradient: the input must not need one."""
     axes = _norm(axes)
-    g = _group(axes)
+    g = _group(axes, "pmax", x)
     if g is None:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
@@ -206,7 +284,12 @@ def pmax(x, axes: Axes):
 
 def _gather(x: torch.Tensor, axes, g, axis: int, tiled: bool,
             what: str) -> torch.Tensor:
-    c = _Call(what, axes, x)
+    shape = list(x.shape)
+    if tiled:
+        shape[axis] *= g.size
+    else:
+        shape.insert(axis % (x.dim() + 1), g.size)
+    c = _Call(what, axes, x, shape)
     w = _wire(x).contiguous()
     parts = [torch.empty_like(w) for _ in range(g.size)]
     dist.all_gather(parts, w, group=g.pg)
@@ -223,7 +306,10 @@ def _reduce_scatter(x: torch.Tensor, axes, g, axis: int, tiled: bool,
     ``reduce_scatter_tensor``, which gloo runs too (the same sums as an
     all-reduce, half its bytes).  Logs the bytes this rank sends, all
     blocks but its own."""
-    c = _Call(what, axes, x)
+    shape = list(x.shape)
+    shape[axis] //= g.size
+    c = _Call(what, axes, x, shape if tiled else
+              shape[:axis] + shape[axis + 1:])
     src = _wire(x.movedim(axis, 0)).contiguous()
     if src.shape[0] % g.size:
         raise ValueError(f"comm.psum_scatter over {axes}: dim {axis} is "
@@ -273,7 +359,7 @@ def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True,
     (``tiled``) or stacked on a new ``axis``; ``label`` is its op in the
     wire log."""
     axes = _norm(axes)
-    g = _group(axes)
+    g = _group(axes, label, x)
     if g is None:
         return x
     return _AllGather.apply(x, axes, g, axis, tiled, label)
@@ -287,7 +373,7 @@ def psum_scatter(x, axes: Axes, *, scatter_dimension: int = 0,
     rank's entry is taken, the dim dropped).  Its backward is the
     all_gather of the cotangent.  On one device ``x`` (its one entry)."""
     axes = _norm(axes)
-    g = _group(axes)
+    g = _group(axes, label, x)
     if g is None:
         return x if tiled else x.squeeze(scatter_dimension)
     return _PSumScatter.apply(x, axes, g, scatter_dimension, tiled, label)
@@ -295,8 +381,10 @@ def psum_scatter(x, axes: Axes, *, scatter_dimension: int = 0,
 
 def barrier(axes: Axes) -> None:
     """Wait until every rank of the group over ``axes`` gets here."""
-    g = _group(_norm(axes))
+    g = _group(_norm(axes), "barrier")
     if g is not None:
+        if _TRACE is not None:
+            _TRACE.add("barrier", _norm(axes), None)
         dist.barrier(group=g.pg)
 
 
@@ -334,7 +422,7 @@ def all_to_all(x, axes: Axes, *, split_axis: int, concat_axis: int):
     holds at index ``q`` along ``concat_axis`` what rank ``q`` sent here
     (``lax.all_to_all(tiled=False)``; every caller passes 0 and 0)."""
     axes = _norm(axes)
-    g = _group(axes)
+    g = _group(axes, "all_to_all", x)
     if g is None:
         return x
     if x.shape[split_axis] != g.size:
@@ -455,7 +543,7 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
     if recv_counts is not None:
         assert_count_i32(recv_counts, "ragged_all_to_all(recv_counts)")
     naxes = _norm(axes)
-    g = _group(naxes)
+    g = _group(naxes, "ragged_all_to_all", rows)
     rest = tuple(rows.shape[1:])
     if g is None:
         if rows.shape[0] == recv_rows:
@@ -468,15 +556,16 @@ def ragged_all_to_all(rows: torch.Tensor, send_counts: torch.Tensor,
         recv_counts = exchange_counts(send_counts, naxes)
     if arrive_counts is not None:
         assert_count_i32(arrive_counts, "ragged_all_to_all(arrive_counts)")
-        sc, rc, ac = torch.stack([send_counts, recv_counts,
-                                  arrive_counts]).tolist()
+        sc, rc, ac = (meta.split_sizes(c, n) for c, n in (
+            (send_counts, rows.shape[0]), (recv_counts, recv_rows),
+            (arrive_counts, recv_rows)))
         place = (None if ac == rc and sum(rc) <= recv_rows
                  else _belief_layout(ac, rc, recv_rows))
         out = _Ragged.apply(rows, naxes, g, sc, sc, ac, recv_rows, place)
         return out, recv_counts
-    sc = send_counts.tolist()
-    rc = recv_counts.tolist()
-    if allow_truncate:
+    sc = meta.split_sizes(send_counts, rows.shape[0])
+    rc = meta.split_sizes(recv_counts, recv_rows)
+    if allow_truncate and not meta.is_meta(send_counts):
         m = all_gather(send_counts, naxes, tiled=False).cpu()     # (P, P)
         send_sizes, _, recv_sizes = native_truncation_plan(m, g.index,
                                                            recv_rows)
@@ -515,7 +604,7 @@ def _exchange(x: torch.Tensor, axes, g, ssz: List[int], rsz: List[int],
     copies touch the rows: a checksummed wire's parity rows are integers
     in float lanes."""
     rest = tuple(x.shape[1:])
-    c = _Call(what, axes, x)
+    c = _Call(what, axes, x, (recv_rows,) + rest)
     send = _wire(x).contiguous()
     got = send.new_empty((sum(rsz),) + rest)
     dist.all_to_all_single(got, send, rsz, ssz, group=g.pg)

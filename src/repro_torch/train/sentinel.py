@@ -32,6 +32,7 @@ from typing import Iterable
 
 import torch
 
+from repro_torch.common import meta
 from repro_torch.optim.optimizers import _chunks
 from repro_torch.sharding import comm
 
@@ -127,7 +128,8 @@ def gated_update(ok: torch.Tensor, update_fn, grads, opt_state, params):
     """``update_fn(grads, opt_state, params) -> (params, opt_state)`` where
     ``ok``, else ``(params, opt_state)`` as they are.  ``ok`` must be the
     same on every rank (:func:`step_verdict`): the update runs
-    collectives.  Reads ``ok`` on the host."""
-    if bool(ok):
+    collectives.  Reads ``ok`` on the host (on the meta device the apply
+    path: :func:`repro_torch.common.meta.verdict`)."""
+    if meta.verdict(ok):
         return update_fn(grads, opt_state, params)
     return params, opt_state

@@ -914,3 +914,45 @@ def test_four_ranks_on_the_card_train_as_one():
             got = {k: v for k, v in h["launches"].items() if v}
             assert got == {"router_fused": 4, "group_sort": 4}, got
         assert r["peak_bytes"] > 0
+
+
+@pytest.mark.gpu
+def test_kernel_pass_reads_every_source_on_the_card():
+    """The kernel lint's ptxas rules run where nvcc is: every source's
+    kernel functions parsed, no static shared memory past 48 KiB, and the
+    float-atomic rule clean."""
+    _card()
+    from repro_torch.analysis import kernel_lint as K
+    from repro_torch.kernels import _build
+    logs = K.ptxas_logs()
+    assert logs is not None and set(logs) == set(_build.SIGNATURES)
+    entries = K.ptxas_entries(logs)
+    assert {e.source for e in entries} == set(_build.SIGNATURES)
+    rules = {f.rule for f in K.run(logs=logs)}
+    assert not rules & {"smem-budget", "register-limit", "float-atomic"}
+
+
+@pytest.mark.gpu
+def test_kernel_pass_pairs_launches_with_ptxas_functions():
+    """A profiled launch (registers, threads, static plus dynamic shared
+    memory as CUPTI records them) finds its ptxas function, and within
+    sm_90's limits."""
+    dev = _card()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis import kernel_lint as K
+    g = torch.Generator(device=dev).manual_seed(0)
+    r, k, v, w = (torch.randn((1, 256, 4, 64), generator=g, device=dev)
+                  for _ in range(4))
+    u = torch.randn((4, 64), generator=g, device=dev)
+    s0 = torch.zeros((1, 4, 64, 64), device=dev)
+    ops.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.rwkv6_scan(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+    launches = K.launches_from_profile(prof)
+    entries = K.ptxas_entries({"rwkv6_scan": K.ptxas_logs()["rwkv6_scan"]})
+    matched = K.match_launches(entries, launches)
+    assert len(matched) == 1
+    (got,) = matched.values()
+    assert got and got[0].smem > 0 and K.check_launches(got) == []
