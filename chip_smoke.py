@@ -140,9 +140,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     tolerance) up to the step where its route first parts, at most 1% of
     the token-layers may part and at least half the rows must keep their
     route to the end.  Printed: the slowest rank's prefill and
-    decode-step times beside one rank's, and the rows and bytes each rank
+    decode-step times beside one rank's, the rows and bytes each rank
     sends at each hop (inter over ``data``, intra over ``model``) a
-    forward.  Phase 2 holds the four kernels at a rank's prefill shapes
+    forward, and a decode step's collective calls by class and time
+    inside ``comm`` beside PERF.md's readings from before the serve
+    stopped psumming the routing statistics no caller reads (which no run
+    may psum: the checked run alone computes ``drop_frac``, for the drop
+    checks).  Phase 2 holds the four kernels at a rank's prefill shapes
     too.
 17. Training over the same mesh: ``repro_torch.launch.train.train(...,
     mesh=)`` on every rank (``RankPool`` tasks) for smile-3.7b at full
@@ -164,7 +168,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     tokens/s, each rank's peak memory, a step's collectives by op, axes
     and direction (forward, the backward's ``.grad``, the gradient sync,
     the norms) with rows, bytes and time, and each hop's All2All bytes
-    forward and backward for both routers.
+    forward and backward for both routers.  Then smile-3.7b again under
+    ``remat_save_collectives``: every step's loss and gradient norm
+    bit-equal to the run without it on every rank, and the timed step one
+    all-reduce fewer a block (the replay's attention psum, saved from the
+    forward) with the same All2Alls; both runs' calls by class, time
+    inside ``comm`` and peak per rank printed.
 18. The robust runtime.  (a) On phase 17's ranks (no second spawn), its
     smile-3.7b config, weights and batches under ZeRO-1 LAMB with the step
     sentinel, through ``build_train_step(..., zero1=True,
@@ -224,7 +233,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     before and read just after: each rank's its path's per forward times
     the forwards run; 0 captures; the wire timed: the slowest rank's tick,
     TTFT and TPOT mean, p50 and p90, tokens/s, and rank 0's time inside
-    ``comm`` by op; rank 0 keeps each kernel's first call at each shape of
+    ``comm`` by op and its calls a tick by class beside PERF.md's earlier
+    reading; rank 0 keeps each kernel's first call at each shape of
     the decode step and of the largest prefill bucket and holds it against
     its plain version after the run), then an fp32 plain-path run.  Every
     rank's tokens equal in each run.  Against the one-rank engine: in bf16
@@ -2642,12 +2652,17 @@ def mesh_cfg(cfg, backend: str, cf: float, dtype: str = None):
 
 def record_drops(T):
     """Wrap ``T.forward`` to keep each forward's summed ``drop_frac`` (a
-    device scalar: no host read while a run is timed).  Returns the list
-    and a function that undoes the wrapping."""
+    device scalar: no host read while a run is timed), which the wrapped
+    forward computes whether or not its caller reads it (the serving
+    steps read none: a recorded run issues the drop counts' psums, and
+    its tokens and logits are the same bits).  Returns the list and a
+    function that undoes the wrapping."""
+    from repro_torch.core.pipeline import ALL_STATS
     seen = []
     orig = T.forward
 
     def forward(*a, **kw):
+        kw["read_stats"] = kw.get("read_stats", ALL_STATS) | {"drop_frac"}
         out = orig(*a, **kw)
         seen.append(out[2].drop_frac)
         return out
@@ -2772,7 +2787,7 @@ def _mesh_rank_run(rank, backend, cf, new_tokens, keep, timed, use_kernel):
     from repro_torch.models import transformer as T
     st = rank.state
     st["mesh"].wire.reset(timed=timed)
-    seen, undo = record_drops(T)
+    seen, undo = record_drops(T) if keep else ([], lambda: None)
     moe, undo_moe = record_moe_outputs(T) if keep else ([], lambda: None)
     ops.reset_launch_counts()
     try:
@@ -2788,9 +2803,41 @@ def _mesh_rank_run(rank, backend, cf, new_tokens, keep, timed, use_kernel):
             "prefill_s": res.prefill_s, "decode_s": res.decode_s,
             "steps": res.decode_steps, "launches": launches,
             "finite": res.logits_finite, "wire": res.wire,
-            "drops": drop_summary(seen),
+            "drops": drop_summary(seen) if keep else None,
             "dp_index": st["mesh"].index("data"),
             "tp_index": st["mesh"].index("model")}
+
+
+# the routing statistics' psums (over every axis the tokens are distinct
+# on) as the wire log keys them, and PERF.md §5's readings from before the
+# serving steps stopped issuing the ones no caller reads (chip runs on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, four gloo ranks sharing it): phase 16's
+# dropless decode step (ms a step, of it inside comm, of that in the 28
+# router psums) and phase 20's qwen3 dropless engine tick (rank 0: ms
+# inside comm a tick, of it in the 34.2 router psums)
+STATS_PSUM = "psum data+model float32"
+EARLIER_MESH_DECODE = {"dropless": (270.55, 189.39, 126.30, 28)}
+EARLIER_ENGINE_TICK = {"qwen3 dropless": (313.86, 196.82, 34.2)}
+
+
+def calls_by_class(wire: dict, n: int) -> dict:
+    """A wire log's calls over ``n`` steps, a step, by collective class
+    (``launch.cost_analysis.op_class``; a psum or pmax is an
+    all-reduce)."""
+    from repro_torch.launch.cost_analysis import op_class
+    out = {}
+    for key, e in sorted(wire.items()):
+        cls = op_class(key.split(" ")[0]) or "other"
+        out[cls] = out.get(cls, 0) + e["calls"] / n
+    return {k: round(v, 2) for k, v in out.items()}
+
+
+def stats_psum_line(wire: dict, n: int) -> str:
+    """The routing statistics' psums of a wire log: calls and ms a
+    step."""
+    e = wire.get(STATS_PSUM, {"calls": 0, "s": 0.0})
+    return (f"{e['calls'] / n:g} router-statistics psums, "
+            f"{e['s'] / n * 1e3:.2f} ms")
 
 
 def wire_lines(wire: dict, forwards: int, what: str):
@@ -2963,6 +3010,20 @@ def check_mesh_run(name, runs, one, sc, per_forward, held):
           f"card synchronized around each call): prefill "
           f"{s_pf * 1e3:.2f} of {tpf:.2f} ms, decode "
           f"{s_dc / steps * 1e3:.2f} of {tdc:.2f} ms a step")
+    earlier = EARLIER_MESH_DECODE.get(name)
+    print(f"  {name}, rank 0, collective calls a decode step by class "
+          f"{calls_by_class(w['decode'], steps)}, "
+          f"{stats_psum_line(w['decode'], steps)}; inside comm "
+          f"{s_dc / steps * 1e3:.2f} ms of {tdc:.2f}"
+          + (f" (PERF.md §5 before: {earlier[1]:.2f} of {earlier[0]:.2f}, "
+             f"{earlier[2]:.2f} of it in {earlier[3]} router psums)"
+             if earlier else ""))
+    for kind in ("prefill", "decode"):
+        for r, o in enumerate(timed):
+            if o["wire"][kind].get(STATS_PSUM, {}).get("calls"):
+                raise AssertionError(f"mesh {name}: rank {r}'s {kind} "
+                                     f"psums routing statistics no caller "
+                                     f"reads")
 
 
 def check_mesh_fp32(name, got, one, sc):
@@ -3039,14 +3100,17 @@ class RoutingShapes:
         return self.ops.group_sort(keys, num_keys, **kw)
 
 
-def _mesh_train_rank(rank, kw, steps):
+def _mesh_train_rank(rank, kw, steps, rsc=False):
     """A phase-17 rank: the mesh (once), then ``train(mesh=...)``, every
     launch count set to 0 just before and read just after, the routing
     calls' shapes recorded; the last step times its collectives (the card
-    synchronized around each one)."""
+    synchronized around each one).  ``rsc`` runs the config under
+    ``remat_save_collectives`` (``train`` has no switch for it, as the
+    reference's: its config is wrapped here)."""
     import torch
     from repro_torch.core import dispatch, moe
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as TL
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
     from repro_torch.optim import leaf_groups
@@ -3065,12 +3129,17 @@ def _mesh_train_rank(rank, kw, steps):
 
     shapes = RoutingShapes(ops)
     moe.kops = dispatch.kops = shapes
+    base_config = TL.train_config
+    if rsc:
+        TL.train_config = lambda *a, **k: base_config(*a, **k).replace(
+            remat_save_collectives=True)
     ops.reset_launch_counts()
     try:
         params, hist = train(steps=steps, log_every=1, mesh=st["mesh"],
                              on_step=on_step, **kw)
     finally:
         moe.kops = dispatch.kops = ops
+        TL.train_config = base_config
         wire.timed = False
     launches = ops.launch_counts()
     n = sum(p.numel() for g in leaf_groups(params) for p in g.pieces)
@@ -3156,6 +3225,12 @@ def phase_mesh_train(torch, ops, devices=MESH_DEVICES, reduced=False,
         print(f"  both mesh runs, the ranks' start included: "
               f"{time.perf_counter() - t0:.1f} s")
         check_mesh_train(runs, one, kw, tokens, cuda, reduced)
+        t0 = time.perf_counter()
+        check_mesh_rsc(runs["smile-3.7b"],
+                       pool.run(_mesh_train_rank, kw, steps, True), kw,
+                       cuda)
+        print(f"  the smile run under remat_save_collectives: "
+              f"{time.perf_counter() - t0:.1f} s")
         if after is not None:
             after(pool, runs)
 
@@ -3230,6 +3305,44 @@ def check_mesh_train(runs, one, kw, tokens, cuda, reduced):
         if got != held:
             raise AssertionError(f"mesh train {arch}: routing shapes {got}, "
                                  f"phase 2 holds {held}")
+
+
+def check_mesh_rsc(base, rsc, kw, cuda):
+    """Phase 17's smile run again under ``remat_save_collectives``
+    (``rsc``) against the run without it (``base``): every step's loss
+    and gradient norm bit-equal on every rank; rank 0's last step (the
+    timed one) issues one all-reduce fewer a block (the remat replay's
+    tensor-parallel output, kept from the forward) and the same
+    All2Alls.  Prints both runs' calls by class, time inside comm and
+    peak per rank."""
+    from repro_torch.launch.train import train_config
+    blocks = train_config(kw["arch"], reduced=kw["reduced"],
+                          num_layers=kw["num_layers"]).num_layers
+    for r, (a, b) in enumerate(zip(base, rsc)):
+        got = [(e["loss"], e["grad_norm"]) for e in b["history"]]
+        if got != [(e["loss"], e["grad_norm"]) for e in a["history"]]:
+            raise AssertionError(f"mesh train rsc: rank {r}'s losses or "
+                                 f"gradient norms differ from the run "
+                                 f"without it")
+    calls = {}
+    for what, out in (("remat", base), ("remat + saved collectives", rsc)):
+        last = out[0]["history"][-1]
+        calls[what] = calls_by_class(last["wire"], 1)
+        inside = sum(e["s"] for e in last["wire"].values())
+        print(f"  smile-3.7b {what}, rank 0, step {last['step']}: "
+              f"collective calls by class {calls[what]}; "
+              f"{inside * 1e3:.1f} ms inside comm of "
+              f"{last['step_ms']:.1f}; peak by rank "
+              + (", ".join(f"{o['peak'] / 2**30:.2f} GiB" for o in out)
+                 if cuda else "not measured (CPU)"))
+    a, b = calls.values()
+    if (b.get("all-reduce") != a.get("all-reduce") - blocks
+            or b.get("all-to-all") != a.get("all-to-all")):
+        raise AssertionError(f"mesh train rsc: calls {b}, expected "
+                             f"{blocks} all-reduces fewer than {a}")
+    print(f"  smile-3.7b under remat_save_collectives: every step's loss "
+          f"and gradient norm bit-equal on all ranks; {blocks} all-reduces "
+          f"fewer a step (a block's replayed attention psum each)")
 
 
 # phase 18, the robust runtime.  (a) On phase 17's ranks, its config,
@@ -4601,8 +4714,15 @@ def check_mesh_engine(name, checked, fp32, one_bf, one_fp, per_forward,
           f"{tpot[1] * 1e3:.2f}, p90 {tpot[2] * 1e3:.2f}")
     c = r0["stats"]
     inside = print_wire_ops(r0["wire"], c["ticks"], f"{name} rank 0")
+    earlier = EARLIER_ENGINE_TICK.get(name)
     print(f"  {name}, rank 0: {c['wall_s'] / c['ticks'] * 1e3:.2f} ms a "
-          f"tick, {inside / c['ticks'] * 1e3:.2f} of it inside comm")
+          f"tick, {inside / c['ticks'] * 1e3:.2f} of it inside comm; "
+          f"collective calls a tick by class "
+          f"{calls_by_class(r0['wire'], c['ticks'])}, "
+          f"{stats_psum_line(r0['wire'], c['ticks'])}"
+          + (f" (PERF.md §5 before: {earlier[0]:.2f} ms inside comm, "
+             f"{earlier[1]:.2f} of it in {earlier[2]} router psums a tick)"
+             if earlier else ""))
 
 
 def check_seq_shard(runs, per_forward, sc):

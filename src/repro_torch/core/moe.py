@@ -174,8 +174,8 @@ def _repeat(v: torch.Tensor, k: int) -> torch.Tensor:
 
 def switch_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
                *, act: str = "gelu", renorm: bool = False,
-               use_kernel: bool = False,
-               token_valid=None) -> Tuple[torch.Tensor, MoEStats]:
+               use_kernel: bool = False, token_valid=None,
+               read_stats=PL.ALL_STATS) -> Tuple[torch.Tensor, MoEStats]:
     """One-hop MoE layer over local tokens ``x``: (t, d) -> (t, d)."""
     t, d = x.shape
     n_g, m_g = _grid(cfg, plan)
@@ -224,7 +224,8 @@ def switch_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
                          f"{spec.groups_per_rank}")
     return PL.execute_pipeline(x, [PL.ExpertHop(route, spec)], wsel, cfg,
                                act=act, use_kernel=use_kernel,
-                               sync=_sync_axes(plan), token_valid=token_valid)
+                               sync=_sync_axes(plan), token_valid=token_valid,
+                               read_stats=read_stats)
 
 
 # =============================================================================
@@ -233,8 +234,8 @@ def switch_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
 
 def smile_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
               *, act: str = "gelu", renorm: bool = False, top_g: int = 1,
-              use_kernel: bool = False,
-              token_valid=None) -> Tuple[torch.Tensor, MoEStats]:
+              use_kernel: bool = False, token_valid=None,
+              read_stats=PL.ALL_STATS) -> Tuple[torch.Tensor, MoEStats]:
     """Bi-level MoE layer over local tokens ``x``: (t, d) -> (t, d).
 
     Hop 1: inter-node router p (t, n).  Hop 2 (hop 1's inner compute):
@@ -311,7 +312,7 @@ def smile_moe(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
     return PL.execute_pipeline(
         x, [PL.ExpertHop(route_inter, spec1), PL.ExpertHop(route_intra, spec2)],
         wsel, cfg, act=act, use_kernel=use_kernel, sync=_sync_axes(plan),
-        token_valid=token_valid)
+        token_valid=token_valid, read_stats=read_stats)
 
 
 # =============================================================================
@@ -352,12 +353,17 @@ def init_moe_params(cfg: MoEConfig, d_model: int, plan: MeshPlan, *,
 
 def moe_layer(params: Dict, x: torch.Tensor, cfg: MoEConfig, plan: MeshPlan,
               *, act: str = "gelu", use_kernel: bool = False,
-              token_valid=None) -> Tuple[torch.Tensor, MoEStats]:
+              token_valid=None,
+              read_stats=PL.ALL_STATS) -> Tuple[torch.Tensor, MoEStats]:
     """Dispatch to the configured routing schedule.  ``x``: (t, d) local
-    tokens; ``token_valid`` (t,) bool, optional live-token mask."""
+    tokens; ``token_valid`` (t,) bool, optional live-token mask;
+    ``read_stats`` the stats fields the caller reads
+    (:func:`repro_torch.core.pipeline.execute_pipeline`)."""
     if cfg.router == "smile":
         return smile_moe(params, x, cfg, plan, act=act,
                          renorm=cfg.renorm_gates, top_g=cfg.top_g,
-                         use_kernel=use_kernel, token_valid=token_valid)
+                         use_kernel=use_kernel, token_valid=token_valid,
+                         read_stats=read_stats)
     return switch_moe(params, x, cfg, plan, act=act, renorm=cfg.renorm_gates,
-                      use_kernel=use_kernel, token_valid=token_valid)
+                      use_kernel=use_kernel, token_valid=token_valid,
+                      read_stats=read_stats)

@@ -76,7 +76,29 @@ class MoEStats:
     segments the checksum layer flagged (psum'd over the sync axes, summed
     over layers); ``wire_faults[hop, s]`` is the number of (receiver,
     direction) checks that flagged source rank ``s`` (mod
-    :data:`WIRE_SRC_BINS`), all zero with the wire off or healthy."""
+    :data:`WIRE_SRC_BINS`), all zero with the wire off or healthy.
+
+    **Who reads what.**  Each entry point names the fields its caller
+    reads (``read_stats`` of :func:`execute_pipeline` and
+    ``models.transformer.forward``), and the executor computes and psums
+    only those; a field left out holds its :func:`zero_stats` value.  The
+    reference gets the same from ``jit``'s dead-code elimination.
+
+    * training (``train.step``) and a direct ``forward()`` call read every
+      field (:data:`ALL_STATS`): the losses, the logged drop and fault
+      counts, the sentinel's watchdog fields;
+    * the engine's paged steps read ``serve.engine.ENGINE_STATS``, the
+      four numbers each tick packs;
+    * the fixed-batch ``serve.decode.prefill_fn`` and ``decode_step_fn``
+      read none: they issue no statistics collective.
+
+    Field by field: ``lb_loss`` takes a hop's token count ``cnt``, its
+    top-1 fractions ``f`` and its mean probabilities ``P`` (three psums);
+    ``hop_max_load`` and ``hop_load_entropy`` take ``cnt`` and ``f``;
+    ``z_loss`` its own two psums (none at a zero coefficient);
+    ``drop_frac`` and ``hop_drop_frac`` a hop's two drop counts (on a
+    padded hop, or a ragged hop that echoes); ``fault_events`` one psum a
+    layer and ``wire_faults`` one more with an armed wire."""
     lb_loss: torch.Tensor
     z_loss: torch.Tensor
     drop_frac: torch.Tensor
@@ -85,6 +107,9 @@ class MoEStats:
     hop_max_load: torch.Tensor      # (MAX_HOPS,)
     hop_load_entropy: torch.Tensor  # (MAX_HOPS,)
     wire_faults: torch.Tensor       # (MAX_HOPS, WIRE_SRC_BINS)
+
+
+ALL_STATS = frozenset(f.name for f in dataclasses.fields(MoEStats))
 
 
 def zero_stats(device=None) -> MoEStats:
@@ -102,17 +127,22 @@ def zero_stats(device=None) -> MoEStats:
 # =============================================================================
 
 def lb_loss_terms(probs: torch.Tensor, top1: torch.Tensor,
-                  valid: torch.Tensor, num_groups: int, sync_axes
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  valid: torch.Tensor, num_groups: int, sync_axes, *,
+                  want_p: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Globally-averaged (f, P) vectors for one router (paper Eq. 4):
     ``f_i`` the fraction of tokens whose argmax picked group i, ``P_i`` the
-    mean router probability on group i."""
+    mean router probability on group i (None, and no psum, without
+    ``want_p``).  No backward reads ``P``'s sum (the loss's gradient
+    through it is ``f`` over the count): a remat replay keeps it local."""
     v = valid.float()
     cnt = comm.psum(v.sum(), sync_axes)
     one = F.one_hot(top1.long(), num_groups).float() * v[:, None]
     f = comm.psum(one.sum(0), sync_axes) / torch.clamp(cnt, min=1.0)
-    p = comm.psum((probs * v[:, None]).sum(0), sync_axes) / torch.clamp(
-        cnt, min=1.0)
+    if not want_p:
+        return f, None
+    p = comm.psum((probs * v[:, None]).sum(0), sync_axes,
+                  replay=False) / torch.clamp(cnt, min=1.0)
     return f, p
 
 
@@ -128,7 +158,8 @@ def z_loss(logits: torch.Tensor, valid: torch.Tensor, coef: float,
         return torch.zeros((), dtype=torch.float32, device=logits.device)
     lse = torch.logsumexp(logits, dim=-1)
     v = valid.float()
-    s = comm.psum((lse.square() * v).sum(), sync_axes)
+    # no backward reads the sum itself: a remat replay keeps it local
+    s = comm.psum((lse.square() * v).sum(), sync_axes, replay=False)
     cnt = comm.psum(v.sum(), sync_axes)
     return coef * s / torch.clamp(cnt, min=1.0)
 
@@ -612,7 +643,8 @@ def _occupancy(st: D.CombineState, A: int, device) -> torch.Tensor:
 def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
                      wsel: Dict[str, torch.Tensor], cfg, *, act: str,
                      use_kernel: bool, sync,
-                     token_valid: Optional[torch.Tensor] = None
+                     token_valid: Optional[torch.Tensor] = None,
+                     read_stats: frozenset = ALL_STATS
                      ) -> Tuple[torch.Tensor, MoEStats]:
     """Run a routing schedule expressed as a hop pipeline.
 
@@ -621,6 +653,12 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
     :class:`repro_torch.common.config.MoEConfig`; ``sync``: mesh axes for
     globally-averaged stats.  ``token_valid`` (t,) bool masks top-level
     tokens (None = all valid).  Returns ``(y (t, d), stats)``.
+
+    ``read_stats`` names the :class:`MoEStats` fields the caller reads:
+    only their local sums and psums run, and every other field keeps its
+    :func:`zero_stats` value (``y`` is the same bits whatever the set).
+    The drop counts and the fault and wire vectors have no backward: a
+    remat replay keeps them local (``comm.psum(..., replay=False)``).
 
     ``cfg.fault_plan`` is parsed once here; ``skew`` rewrites the route
     decision, ``nanrows`` the local and padded dispatch buffers, and
@@ -633,6 +671,10 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
         raise ValueError(f"pipeline has {len(hops)} hops; MAX_HOPS is "
                          f"{MAX_HOPS}")
     fp = FI.parse_fault_plan(getattr(cfg, "fault_plan", None))
+    want_p = "lb_loss" in read_stats
+    want_f = want_p or bool({"hop_max_load", "hop_load_entropy"}
+                            & read_stats)
+    want_drops = bool({"drop_frac", "hop_drop_frac"} & read_stats)
     dropless = cfg.dispatch_backend == "dropless"
     dev = x.device
     simpl = cfg.sort_impl
@@ -660,16 +702,19 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
                         and fp.targets(level))
 
         # ---- losses ---------------------------------------------------------
-        f, p = lb_loss_terms(dec.probs, dec.top1, dec.token_valid,
-                             spec.loss_groups, sync)
-        lb_terms.append(scaled_lb_loss(f, p, spec.lb_coef))
-        z_terms.append(z_loss(dec.logits, dec.token_valid,
-                              cfg.router_z_coef, sync))
-        hop_maxload[level] = f.max()
-        if spec.loss_groups > 1:
-            fr = f / torch.clamp(f.sum(), min=1e-9)
-            ent = -torch.sum(fr * torch.log(torch.clamp(fr, min=1e-20)))
-            hop_entropy[level] = ent / math.log(spec.loss_groups)
+        if want_f:
+            f, p = lb_loss_terms(dec.probs, dec.top1, dec.token_valid,
+                                 spec.loss_groups, sync, want_p=want_p)
+            if want_p:
+                lb_terms.append(scaled_lb_loss(f, p, spec.lb_coef))
+            hop_maxload[level] = f.max()
+            if spec.loss_groups > 1:
+                fr = f / torch.clamp(f.sum(), min=1e-9)
+                ent = -torch.sum(fr * torch.log(torch.clamp(fr, min=1e-20)))
+                hop_entropy[level] = ent / math.log(spec.loss_groups)
+        if "z_loss" in read_stats:
+            z_terms.append(z_loss(dec.logits, dec.token_valid,
+                                  cfg.router_z_coef, sync))
 
         # ---- local: the FFN straight over the ragged layout (no drops) -----
         if spec.exchange == "local":
@@ -713,9 +758,8 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
             if survived is None:
                 return D.combine(back, st)
             keep = st.keep & survived[st.pos.clamp(min=0).long()]
-            dropped = comm.psum((st.keep & ~keep).sum().float(), sync)
-            total = comm.psum(st.keep.sum().float(), sync)
-            hop_drops[level] = dropped / torch.clamp(total, min=1.0)
+            if want_drops:
+                hop_drops[level] = _drop_frac(st.keep & ~keep, st.keep, sync)
             return D.combine(back, dataclasses.replace(st, keep=keep))
 
         # ---- padded: fixed-shape capacity buffer ----------------------------
@@ -746,9 +790,9 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
                                 device=dev).repeat_interleave(S)
             out = run_hop(level + 1, x1, valid1, gid1).reshape(gpr, S, d)
         back = _unfold(out, spec, spec.capacity)
-        dropped = comm.psum((dec.valid & ~st.keep).sum().float(), sync)
-        total = comm.psum(dec.valid.sum().float(), sync)
-        hop_drops[level] = dropped / torch.clamp(total, min=1.0)
+        if want_drops:
+            hop_drops[level] = _drop_frac(dec.valid & ~st.keep, dec.valid,
+                                          sync)
         return D.combine(back, st)
 
     t = x.shape[0]
@@ -760,18 +804,31 @@ def execute_pipeline(x: torch.Tensor, hops: Sequence[ExpertHop],
     # through their autograd graph its saved activations) until the
     # cyclic garbage collector ran; emptying the cell breaks it
     run_hop = None
-    hop_vec = torch.stack(hop_drops)
-    fault_vec = comm.psum(torch.stack(hop_faults), sync)
-    if any(w is not None for w in hop_wire):
+    stats = zero_stats(dev)
+    if lb_terms:
+        stats.lb_loss = sum(lb_terms[1:], lb_terms[0])
+    if z_terms:
+        stats.z_loss = sum(z_terms[1:], z_terms[0])
+    if want_drops:
+        stats.hop_drop_frac = torch.stack(hop_drops)
+        stats.drop_frac = stats.hop_drop_frac.sum()
+    if "fault_events" in read_stats:
+        stats.fault_events = comm.psum(torch.stack(hop_faults), sync,
+                                       replay=False)
+    if want_f:
+        stats.hop_max_load = torch.stack(hop_maxload)
+        stats.hop_load_entropy = torch.stack(hop_entropy)
+    if "wire_faults" in read_stats and any(w is not None for w in hop_wire):
         zw = torch.zeros((WIRE_SRC_BINS,), dtype=torch.float32, device=dev)
-        wire_vec = comm.psum(torch.stack([zw if w is None else w
-                                          for w in hop_wire]), sync)
-    else:
-        wire_vec = torch.zeros((MAX_HOPS, WIRE_SRC_BINS),
-                               dtype=torch.float32, device=dev)
-    stats = MoEStats(sum(lb_terms[1:], lb_terms[0]),
-                     sum(z_terms[1:], z_terms[0]),
-                     hop_vec.sum(), hop_vec, fault_vec,
-                     torch.stack(hop_maxload), torch.stack(hop_entropy),
-                     wire_vec)
+        stats.wire_faults = comm.psum(torch.stack(
+            [zw if w is None else w for w in hop_wire]), sync, replay=False)
     return y, stats
+
+
+def _drop_frac(dropped: torch.Tensor, offered: torch.Tensor,
+               sync) -> torch.Tensor:
+    """The global fraction of a hop's offered assignments that dropped
+    (two psums, no backward: a remat replay keeps them local)."""
+    n = comm.psum(dropped.sum().float(), sync, replay=False)
+    total = comm.psum(offered.sum().float(), sync, replay=False)
+    return n / torch.clamp(total, min=1.0)

@@ -26,7 +26,9 @@ counted as it dispatches is exact, with no loop correction.
   Python, as a run on the card does.
 
 The collectives come from ``sharding.comm``'s trace
-(:class:`repro_torch.sharding.comm.TraceLog`), one record a call:
+(:class:`repro_torch.sharding.comm.TraceLog`), one record a call that
+moved data (a remat replay's skipped or saved calls move nothing and are
+not in it, :class:`repro_torch.sharding.comm.RematRegion`):
 :func:`collective_costs` gives each its class (all-to-all, all-reduce,
 all-gather, reduce-scatter), its output bytes (the buffer ``hlo_analysis``
 counts), its group and whether the group spans nodes: a group spans nodes

@@ -43,7 +43,12 @@ and every other rwkv weight (both mixes compute in fp32) stay fp32.
 (each group of a ``mamba_group`` stage) under ``torch.utils.checkpoint``
 (non-reentrant), as the JAX package wraps its layer-scan body in
 ``jax.checkpoint``: its activations are recomputed in the backward pass
-instead of kept.
+instead of kept.  Each such region is a ``comm.RematRegion``: its replay
+issues only the collectives whose outputs the backward reads (the
+routing statistics' other sums stay local), and under
+``ModelConfig.remat_save_collectives`` the tensor-parallel outputs tagged
+with ``comm.name_saved`` are kept from the forward and not communicated
+again, as the reference's ``save_only_these_names`` policy does.
 
 Over a mesh (a ``plan_from_mesh`` plan) every rank runs this same code on
 its slice of the parameters (``sharding.specs``) and of the batch: tensor
@@ -63,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.core.moe import init_moe_params, moe_layer
-from repro_torch.core.pipeline import MoEStats, zero_stats
+from repro_torch.core.pipeline import ALL_STATS, MoEStats, zero_stats
 from repro_torch.kernels.ref import activation
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -220,7 +225,7 @@ def _attn_fwd(p, x, cfg, plan, positions, cache, use_kernel):
 
 
 def dense_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
-                token_valid=None):
+                token_valid=None, read_stats=ALL_STATS):
     h, cache = _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                          cfg, plan, positions, cache, use_kernel)
     x = x + h
@@ -230,7 +235,7 @@ def dense_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
 
 
 def moe_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
-              token_valid=None):
+              token_valid=None, read_stats=ALL_STATS):
     h, cache = _attn_fwd(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm),
                          cfg, plan, positions, cache, use_kernel)
     x = x + h
@@ -243,19 +248,21 @@ def moe_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
         valid_loc, _ = comm.split_tokens(token_valid.reshape(B * T),
                                          plan.tp_axis, max(plan.tp, 1))
     y_loc, stats = moe_layer(p["moe"], loc, cfg.moe, plan, act=cfg.act,
-                             use_kernel=use_kernel, token_valid=valid_loc)
+                             use_kernel=use_kernel, token_valid=valid_loc,
+                             read_stats=read_stats)
     if "shared" in p:
         ps = p["shared"]
         hh = activation(loc @ ps["w1"], cfg.act)
         if "w3" in ps:
             hh = hh * (loc @ ps["w3"])
         y_loc = y_loc + hh @ ps["w2"]
-    y = comm.unsplit_tokens(y_loc, plan.tp_axis, B * T).reshape(B, T, d)
+    y = comm.name_saved(
+        comm.unsplit_tokens(y_loc, plan.tp_axis, B * T)).reshape(B, T, d)
     return x + y, stats, cache
 
 
 def rwkv_block(p, x, cfg, plan, positions, cache, *, use_kernel=False,
-               token_valid=None):
+               token_valid=None, read_stats=ALL_STATS):
     h, cache = RW.rwkv_tmix_forward(p["tmix"],
                                     L.apply_norm(p["ln1"], x, "layernorm"),
                                     cfg, plan, cache=cache,
@@ -332,17 +339,31 @@ def cast_block(p: Dict, dt: torch.dtype) -> Dict:
     return p
 
 
+def _remat(fn, cfg: ModelConfig, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), each
+    of its passes inside one :class:`repro_torch.sharding.comm.
+    RematRegion`, which saves the tagged collectives' outputs under
+    ``cfg.remat_save_collectives``."""
+    region = comm.RematRegion(save=cfg.remat_save_collectives)
+
+    def body(*a):
+        with comm.remat_region(region):
+            return fn(*a)
+    return checkpoint(body, *args, use_reentrant=False)
+
+
 def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
                   plan: MeshPlan, positions, caches, *, remat: bool = False,
                   use_kernel: bool = False, token_valid=None,
-                  cast_weights: bool = False):
+                  cast_weights: bool = False, read_stats=ALL_STATS):
     """Run the stage's blocks in order (a loop in place of ``lax.scan``).
     ``caches``: None or a list of per-block caches (a ``mamba_group``
     stage's: per group, :func:`init_caches`).  With ``remat`` (and
-    autograd recording) each block runs under ``torch.utils.checkpoint``;
-    with ``cast_weights`` each block casts its fp32 weights to the
-    activation dtype first, inside that region.  Returns
-    ``(x, stats, caches)``."""
+    autograd recording) each block runs under ``torch.utils.checkpoint``
+    (:func:`_remat`); with ``cast_weights`` each block casts its fp32
+    weights to the activation dtype first, inside that region.
+    ``read_stats`` as :func:`forward`'s.  Returns ``(x, stats,
+    caches)``."""
     remat = remat and torch.is_grad_enabled()
 
     def run(kind, blocks, x, caches):
@@ -352,14 +373,14 @@ def stage_forward(params: Dict, x, cfg: ModelConfig, stage: Stage,
             if cast_weights:
                 p = cast_block(p, x.dtype)
             return fn(p, x, cfg, plan, positions, c, use_kernel=use_kernel,
-                      token_valid=token_valid)
+                      token_valid=token_valid, read_stats=read_stats)
 
         acc = zero_stats(x.device)
         new = []
         for i, p in enumerate(blocks):
             c = None if caches is None else caches[i]
             if remat:
-                x, stats, c = checkpoint(body, p, x, c, use_reentrant=False)
+                x, stats, c = _remat(body, cfg, p, x, c)
             else:
                 x, stats, c = body(p, x, c)
             acc = _add_stats(acc, stats)
@@ -406,8 +427,7 @@ def _mamba_groups(params, x, cfg, plan, positions, caches, *, remat,
     for r, blocks in enumerate(params["mamba"]):
         c = None if caches is None else caches[r]
         if remat:
-            x, c = checkpoint(group, blocks, params["shared_attn"], x, c,
-                              use_reentrant=False)
+            x, c = _remat(group, cfg, blocks, params["shared_attn"], x, c)
         else:
             x, c = group(blocks, params["shared_attn"], x, c)
         new.append(c)
@@ -566,7 +586,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
             caches: Optional[Tuple] = None, extra: Optional[Dict] = None,
             remat: bool = False, use_kernel: bool = False,
             token_valid: Optional[torch.Tensor] = None,
-            cast_weights: bool = False):
+            cast_weights: bool = False, read_stats=ALL_STATS):
     """Full forward.  Returns (hidden (B,T,d), logits (B,T,V) or (B,T,K,V),
     MoEStats, new_caches).  ``tokens`` (B, T), or (B, K, T) under K > 1
     codebooks; ``extra`` the image inputs (:func:`embed_inputs`).
@@ -577,7 +597,10 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
     the live-token mask of a decode tick or a padded prefill chunk; only the
     MoE blocks read it (invalid tokens route nowhere and leave the router
     losses).  ``remat`` and ``cast_weights`` as in
-    :func:`stage_forward` (training passes both)."""
+    :func:`stage_forward` (training passes both).  ``read_stats``: the
+    ``MoEStats`` fields the caller reads (all by default; see
+    :class:`repro_torch.core.pipeline.MoEStats` for who reads what): the
+    MoE layers compute and psum only those."""
     cfg = _model_cfg(cfg0, plan)
     _check_plan(cfg, plan)
     stages = build_stages(cfg)
@@ -590,7 +613,8 @@ def forward(params: Dict, tokens: torch.Tensor, cfg0: ModelConfig,
                                     positions, c, remat=remat,
                                     use_kernel=use_kernel,
                                     token_valid=token_valid,
-                                    cast_weights=cast_weights)
+                                    cast_weights=cast_weights,
+                                    read_stats=read_stats)
         acc = _add_stats(acc, stats)
         new_caches.append(c)
     logits = model_logits(params, x, cfg, plan)

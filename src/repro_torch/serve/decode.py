@@ -7,7 +7,9 @@ place (the ring-buffer KV caches written, a Mamba2 cache's states
 replaced) and return them.  Over a mesh every rank calls them on its slice
 of the batch, the parameters and the caches (``launch.serve.generate``);
 the logits they return are the rank's part of the vocabulary, and the
-sampled tokens are the whole vocabulary's.
+sampled tokens are the whole vocabulary's.  Neither reads the MoE layers'
+routing statistics (the reference's ``jit`` drops them), so neither
+computes them: no statistics collective runs on a mesh.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ def prefill_fn(params, tokens: torch.Tensor, caches, *, cfg: ModelConfig,
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     _, logits, _, caches = T.forward(params, tokens, cfg, plan,
                                      positions=positions, caches=caches,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel,
+                                     read_stats=frozenset())
     last = logits[:, -1]
     return greedy_sample(last, plan), caches, last
 
@@ -66,6 +69,7 @@ def decode_step_fn(params, token: torch.Tensor, caches, step: int, *,
     positions = torch.full((1,), step, dtype=torch.int32, device=token.device)
     _, logits, _, caches = T.forward(params, token[..., None], cfg, plan,
                                      positions=positions, caches=caches,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel,
+                                     read_stats=frozenset())
     last = logits[:, -1]
     return greedy_sample(last, plan), caches, last

@@ -75,6 +75,10 @@ from repro_torch.sharding.plan import MeshPlan
 # Step functions
 # =============================================================================
 
+# the MoEStats fields a tick keeps (_pack), the only ones its steps compute
+ENGINE_STATS = frozenset({"drop_frac", "hop_max_load", "hop_load_entropy",
+                          "fault_events"})
+
 def paged_decode_step_fn(params, tok, caches, table, seq_pos, live, *,
                          cfg: ModelConfig, plan: MeshPlan,
                          use_kernel: bool = True):
@@ -84,14 +88,16 @@ def paged_decode_step_fn(params, tok, caches, table, seq_pos, live, *,
     liveness; table: (B, max_pages) int32 page table.  Returns (next_tok
     (B,) int32, logits (B, V) fp32, MoEStats, caches); the pools are
     updated in place.  Dead slots give finite garbage tokens the scheduler
-    ignores.
+    ignores.  Of the MoEStats only the :data:`ENGINE_STATS` fields are
+    computed (the others hold zeros).
     """
     positions = torch.where(live, seq_pos, -1)[:, None]          # (B, 1)
     tree = KV.inject_tables(caches, table)
     _, logits, stats, tree = T.forward(params, tok[:, None], cfg, plan,
                                        positions=positions, caches=tree,
                                        use_kernel=use_kernel,
-                                       token_valid=live[:, None])
+                                       token_valid=live[:, None],
+                                       read_stats=ENGINE_STATS)
     lg = logits[:, 0, :]
     return greedy_sample(lg, plan), lg, stats, KV.strip_tables(tree)
 
@@ -108,7 +114,8 @@ def _prefill(params, tokens, caches, table_row, start, n_real, *,
     _, logits, stats, tree = T.forward(params, tokens, cfg, plan,
                                        positions=positions, caches=tree,
                                        use_kernel=use_kernel,
-                                       token_valid=valid[None, :])
+                                       token_valid=valid[None, :],
+                                       read_stats=ENGINE_STATS)
     last = (n_real - 1).clamp(0, S - 1).reshape(1).long()
     lg = logits[0].index_select(0, last)                          # (1, V)
     return greedy_sample(lg, plan)[0], lg[0], stats, KV.strip_tables(tree)

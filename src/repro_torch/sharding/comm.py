@@ -45,6 +45,11 @@ raises: what :mod:`repro_torch.analysis.trace_lint` holds the ranks to.
 On the meta device (the dry run) the ragged exchange's host read of its
 split sizes takes :func:`repro_torch.common.meta.split_sizes`'s static
 sizes.
+
+A block that training recomputes in its backward runs each pass inside a
+:class:`RematRegion` (:func:`remat_region`): the replay moves only what
+the backward reads, and under ``remat_save_collectives`` reuses the
+outputs :func:`name_saved` kept from the forward.
 """
 from __future__ import annotations
 
@@ -260,14 +265,17 @@ class _PSum(torch.autograd.Function):
                 None, None, None)
 
 
-def psum(x, axes: Axes, *, label: str = "psum"):
+def psum(x, axes: Axes, *, label: str = "psum", replay: bool = True):
     """psum over ``axes``; ``label`` is its op in the wire log (the
-    training step's gradient sync and norms use their own)."""
+    training step's gradient sync and norms use their own).
+    ``replay=False`` marks a sum that no backward reads: a remat replay
+    (:class:`RematRegion`) returns ``x`` itself and moves nothing."""
     axes = _norm(axes)
     g = _group(axes, label, x)
     if g is None:
         return x
-    return _PSum.apply(x, axes, g, label)
+    return _regioned(lambda: _PSum.apply(x, axes, g, label), x,
+                     None if replay else x)
 
 
 def pmax(x, axes: Axes):
@@ -362,7 +370,8 @@ def all_gather(x, axes: Axes, *, axis: int = 0, tiled: bool = True,
     g = _group(axes, label, x)
     if g is None:
         return x
-    return _AllGather.apply(x, axes, g, axis, tiled, label)
+    return _regioned(lambda: _AllGather.apply(x, axes, g, axis, tiled,
+                                              label), x)
 
 
 def psum_scatter(x, axes: Axes, *, scatter_dimension: int = 0,
@@ -792,9 +801,93 @@ def split_checksummed_recv(wire: torch.Tensor, recv_counts: torch.Tensor,
     return data, parity.reshape((P, nl) + rest)
 
 
+# ------------------------------------------------------ remat regions
+class RematRegion:
+    """The record of one ``torch.utils.checkpoint`` region (one block, or
+    one group of a ``mamba_group`` stage, in one forward): the region's
+    body runs once forward and again, in the backward, as the replay that
+    recomputes what the backward saved.  Inside :func:`remat_region`
+    :func:`psum` and :func:`all_gather` (the collectives that a replay
+    may skip or that :func:`name_saved` tags) number their calls over a
+    group in order, the same in both passes; in the replay
+
+    * a psum marked ``replay=False`` (a sum that no backward reads: the
+      routing statistics' drop counts, fault and wire vectors, the LB
+      loss's ``P`` and the z-loss sum) returns its local input and moves
+      nothing, where ``jax.checkpoint``'s partial evaluation leaves it
+      out;
+    * with ``save`` (``ModelConfig.remat_save_collectives``) a call whose
+      output the forward passed to :func:`name_saved` returns that output
+      and moves nothing, as the reference's ``save_only_these_names``
+      policy keeps it as a residual (held from the forward to the
+      backward: the flag's memory cost).
+
+    Every other collective runs again, as it must: its output feeds a
+    tensor the backward reads.  The replay still runs every op that
+    saves a tensor for the backward, so the checkpoint's own check of the
+    recomputed tensors holds."""
+
+    def __init__(self, save: bool = False):
+        self.save = save
+        self.passes = 0
+        self.replay = False
+        self.calls = 0
+        self.last = None
+        self.saved: Dict[int, torch.Tensor] = {}
+
+
+_REGION: Optional[RematRegion] = None
+
+
+@contextlib.contextmanager
+def remat_region(region: RematRegion):
+    """Run one pass of ``region``'s body: its first is the forward, every
+    later one a replay."""
+    global _REGION
+    prev, _REGION = _REGION, region
+    region.replay = region.passes > 0
+    region.passes += 1
+    region.calls, region.last = 0, None
+    try:
+        yield region
+    finally:
+        _REGION = prev
+
+
+def _regioned(run, x: torch.Tensor, local=None):
+    """``run()``, one collective over a group, as the bound region's next
+    call: in a replay the output the forward saved, or ``local`` for a
+    call marked as read by no backward; else it runs."""
+    r = _REGION
+    if r is None:
+        return run()
+    i = r.calls
+    r.calls += 1
+    if r.replay:
+        if i in r.saved:
+            # a leaf that needs a gradient where the output did, so the
+            # ops after it save what they saved in the forward
+            return r.saved[i].detach().requires_grad_(
+                x.requires_grad and torch.is_grad_enabled())
+        if local is not None:
+            return local
+    out = run()
+    r.last = (i, out)
+    return out
+
+
 def name_saved(x):
-    """Identity: the JAX package tags collective outputs for its remat
-    policy here; eager PyTorch has no such policy."""
+    """Tag a collective's output (``x`` itself, or a view of it) for the
+    ``remat_save_collectives`` policy and return ``x``: inside a
+    :class:`RematRegion` that saves, the forward keeps the output of the
+    region's latest collective when ``x`` is it, and the replay reuses it
+    in place of communicating again.  Elsewhere the identity, as on one
+    device, where the tagged op moved nothing."""
+    r = _REGION
+    if r is not None and r.save and not r.replay and r.last is not None:
+        i, out = r.last
+        if x is out or x._base is out:
+            r.saved[i] = out.detach()
     return x
 
 

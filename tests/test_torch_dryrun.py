@@ -21,7 +21,14 @@
   mesh against ``analyze_hlo`` of the JAX program lowered on 4 fake CPU
   devices (one subprocess): equal in fp32; in bf16 XLA:CPU widens every
   bf16 collective to fp32 before it runs, so the JAX count is the port's
-  with each bf16 payload counted twice.
+  with each bf16 payload counted twice.  The same fp32 prefill and a
+  decode step: the all-reduce and all-gather calls and bytes equal (no
+  statistics collective on either side).
+* The train step of reduced smile-3.7b on the ``(2, 2)`` fake mesh,
+  without remat, with it and under ``--opt rsc``: the port's differences
+  by class equal the lowered JAX step's (``test_torch_collective_parity.
+  lowered_collectives``): +6 all-reduces and +5 all-to-alls with remat,
+  +4 and +5 with the saved collectives, bytes equal too.
 * The CLI writes its JSON (a decode step of qwen1.5-0.5b over the
   production mesh, a few seconds).
 
@@ -49,6 +56,8 @@ from repro_torch.optim import leaf_groups
 from repro_torch.sharding import specs as S
 from repro_torch.sharding.plan import single_device_plan, test_plan
 from repro_torch import weights as W
+from test_torch_collective_parity import (as_arrays, compiled_collectives,
+                                         lowered_collectives, port_counts)
 from test_torch_mesh import JaxSide
 
 HERE = Path(__file__).resolve().parent
@@ -253,14 +262,17 @@ def _jax_prefill_dot_flops(arch: str, B: int, T: int) -> float:
                        False).dot_flops
 
 
-def _port_prefill(arch, B, T, mesh_shape=(), cfg=None):
+def _port_prefill(arch, B, T, mesh_shape=(), cfg=None, kind="prefill"):
+    """The port's dry run of a prefill (or, with ``kind="decode"``, a
+    decode step over a cache of ``T``)."""
     from repro_torch.launch import dryrun as D
     try:
-        return D.run_step(arch, "prefill_32k",
+        return D.run_step(arch, f"{kind}_32k",
                           cfg=cfg or get_reduced(arch),
-                          shape=InputShape("p", T, B, "prefill"),
+                          shape=InputShape("p", T, B, kind),
                           mesh_shape=mesh_shape,
-                          mesh_axes=("data", "model") if mesh_shape else ())
+                          mesh_axes=("data", "model") if mesh_shape else (),
+                          cache_len=T if kind == "decode" else None)
     finally:
         D.leave_world()
 
@@ -292,6 +304,11 @@ def test_dot_flops_match_jax_hlo(arch):
 # =============================================================================
 
 A2A_B, A2A_T = 4, 16
+TRAIN_ARCH, TRAIN_B, TRAIN_T = "smile-3.7b", 8, 32
+# dry-run variants of the train step: (the config's fields for JAX, the
+# port's cfg fields and --opt tokens)
+TRAIN_OPTS = {"off": dict(remat=False), "on": dict(remat=True),
+              "rsc": dict(remat=True, remat_save_collectives=True)}
 
 
 def _jax_main(out_dir):
@@ -304,7 +321,7 @@ def _jax_main(out_dir):
     from repro.launch import inputs as JI
     from repro.launch.hlo_analysis import analyze_hlo, collective_summary
     from repro.models.transformer import init_caches
-    from repro.serve.decode import build_prefill
+    from repro.serve.decode import build_decode_step, build_prefill
     from repro.sharding.plan import plan_from_mesh
     from repro.sharding.specs import cache_specs
     save = JaxSide.saver(out_dir)
@@ -320,11 +337,56 @@ def _jax_main(out_dir):
                                                      plan))
         cs = JI._sds(cshapes, cache_specs(cshapes, cfg, plan, A2A_B), mesh)
         fn = build_prefill(cfg, plan, ps, ts, cs, mesh=mesh)
-        costs = analyze_hlo(fn.lower(ps, ts, cs).compile().as_text(), 4,
-                            False)
-        summ = collective_summary(costs)
+        text = fn.lower(ps, ts, cs).compile().as_text()
+        summ = collective_summary(analyze_hlo(text, 4, False))
         save(f"a2a/{dtype}", {k.replace("-", "_"): v for k, v in
                               summ["bytes_per_op"].items()})
+        if dtype == "float32":
+            save("serve/prefill", as_arrays(compiled_collectives(text)))
+            (tst, cst, sst), _ = JI.decode_state_struct(
+                cfg, JShape("d", A2A_T, A2A_B, "decode"), plan, mesh)
+            fn = build_decode_step(cfg, plan, ps, tst, cst, mesh=mesh)
+            save("serve/decode", as_arrays(compiled_collectives(
+                fn.lower(ps, tst, cst, sst).compile().as_text())))
+    _jax_train_counts(save, mesh, plan)
+
+
+def _jax_train_counts(save, mesh, plan):
+    """The lowered JAX train step's collectives under each of
+    :data:`TRAIN_OPTS` (structures only: nothing runs), its
+    ``embed_inputs`` pinned to fp32 (the last use of this process), so
+    that its activations are the port's fp32."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from repro.models import transformer as JT
+    JT.embed_inputs = functools.partial(JT.embed_inputs, dtype=jnp.float32)
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as Pspec
+    from repro.common.config import InputShape as JShape
+    from repro.common.config import TrainConfig
+    from repro.configs import get_reduced as jred
+    from repro.launch import inputs as JI
+    from repro.optim import make_optimizer, make_schedule
+    from repro.train.step import build_train_step
+    shape = JShape("t", TRAIN_T, TRAIN_B, "train")
+    opt = make_optimizer("lamb")
+    tcfg = TrainConfig(global_batch_size=TRAIN_B, seq_len=TRAIN_T,
+                       micro_batch_size=0, optimizer="lamb")
+    for name, kw in TRAIN_OPTS.items():
+        cfg = jred(TRAIN_ARCH).replace(dtype="float32", **kw)
+        ps, pspec = JI.params_struct(cfg, plan, mesh)
+        bs, _ = JI.train_batch_struct(cfg, shape, plan, mesh)
+        os_ = JI._sds(jax.eval_shape(opt.init, ps),
+                      {"m": pspec, "v": pspec, "step": Pspec()}, mesh)
+        ss = jax.ShapeDtypeStruct((), jnp.int32,
+                                  sharding=NamedSharding(mesh, Pspec()))
+        step, _ = build_train_step(cfg, tcfg, plan, opt,
+                                   make_schedule("cosine", 3e-4, 100, 10000),
+                                   ps, bs, mesh=mesh)
+        save(f"train/{name}", as_arrays(lowered_collectives(
+            step.lower(ps, os_, bs, ss).as_text(dialect="hlo"))))
 
 
 @pytest.fixture(scope="module")
@@ -351,6 +413,43 @@ def test_all_to_all_bytes_match_jax_on_four_devices(jax_side):
                 t for t in r["trace"] if CA.op_class(t.op) == "all-to-all"])
                 if t.dtype == "bfloat16")
             assert bf16 > 0 and got + bf16 == want
+
+
+def test_serve_reductions_and_gathers_match_jax_on_four_devices(jax_side):
+    for kind in ("prefill", "decode"):
+        r = _port_prefill(QWEN3, A2A_B, A2A_T, mesh_shape=(2, 2),
+                          cfg=get_reduced(QWEN3).replace(dtype="float32"),
+                          kind=kind)
+        got, want = port_counts(r["collectives"]), jax_side.get(
+            f"serve/{kind}")
+        for cls in ("all-reduce", "all-gather"):
+            assert got[cls] == [float(x) for x in want[cls]], (kind, cls)
+        assert got["all-reduce"][0] == 5 and got["all-gather"][0] == 2
+
+
+def test_rsc_train_step_matches_jax_difference(jax_side):
+    from repro_torch.launch import dryrun as D
+    got = {}
+    for name, kw in TRAIN_OPTS.items():
+        cfg = get_reduced(TRAIN_ARCH).replace(
+            dtype="float32", remat=kw["remat"])
+        try:
+            r = D.run_step(TRAIN_ARCH, "train_4k", cfg=cfg,
+                           opts="rsc" if name == "rsc" else "",
+                           shape=InputShape("t", TRAIN_T, TRAIN_B, "train"),
+                           mesh_shape=(2, 2), mesh_axes=("data", "model"),
+                           micro_batch=0)
+        finally:
+            D.leave_world()
+        assert r["cfg"].remat_save_collectives == (name == "rsc")
+        got[name] = port_counts(r["collectives"])
+    want = {k: jax_side.get(f"train/{k}") for k in TRAIN_OPTS}
+    for name, (ar, a2a) in (("on", (6, 5)), ("rsc", (4, 5))):
+        for cls, n in (("all-reduce", ar), ("all-to-all", a2a)):
+            diff = [a - b for a, b in zip(got[name][cls], got["off"][cls])]
+            jdiff = [float(a - b) for a, b in zip(want[name][cls],
+                                                  want["off"][cls])]
+            assert diff == jdiff and diff[0] == n, (name, cls, diff, jdiff)
 
 
 def test_group_spans_nodes_by_blocks_of_eight():
