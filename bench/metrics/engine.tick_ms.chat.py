@@ -1,0 +1,2 @@
+"""The traced window over the engine steps in it (chat traffic)."""
+from bench.core.readers import tick_ms as read  # noqa: F401
