@@ -1,0 +1,2 @@
+"""Device ms a tick in the engine's decode steps (offline traffic)."""
+from bench.core.engine_spans import decode_ms as read  # noqa: F401

@@ -1169,9 +1169,9 @@ def profile_summary(prof, wall_us: float, n: int, unit: str, top: int = 12,
     for e in prof.key_averages():
         # device-side kernel entries only: a CPU op's entry repeats the time
         # of the kernels it launched, and a profiler range's device span
-        # (train_step.*) covers kernels counted on their own
+        # (train_step.*, engine.*) covers kernels counted on their own
         if (e.device_type == DeviceType.CUDA
-                and not e.key.startswith("train_step.")):
+                and not e.key.startswith(("train_step.", "engine."))):
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             dev[e.key] = dev.get(e.key, 0.0) + us

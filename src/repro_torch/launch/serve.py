@@ -315,6 +315,8 @@ def serve_mesh(arch: str, shape: Tuple[int, ...], *, backend: str,
 class EngineResult:
     tokens: Dict[int, List[int]]        # request uid -> generated ids
     ttft_s: Dict[int, float]            # uid -> submit to first token
+    queue_wait_s: Dict[int, float]      # uid -> submit to admission
+    prefill_wait_s: Dict[int, float]    # uid -> admission to first chunk
     tpot_s: Dict[int, float]            # uid -> mean time per later token
     wall_s: float                       # first submit to the last token
     ticks: int
@@ -352,23 +354,27 @@ def run_engine(params, cfg: ModelConfig, plan: MeshPlan,
         eng.submit(prompt, nt)
     out = eng.run()
     wall = time.perf_counter() - t0
-    ttft, tpot = {}, {}
+    ttft, tpot, queue_wait, prefill_wait = {}, {}, {}, {}
     for uid, r in eng.requests.items():
         ttft[uid] = r.t_first - r.t_submit
+        queue_wait[uid] = r.t_admit - r.t_submit
+        prefill_wait[uid] = r.t_prefill - r.t_admit
         gaps = np.diff(r.t_tokens)
         tpot[uid] = float(gaps.mean()) if len(gaps) else float("nan")
     counts = eng.compile_counts()
     replays = (counts["replays"]["decode"]
                + sum(counts["replays"]["prefill"].values())
                if "replays" in counts else 0)
-    return EngineResult(out, ttft, tpot, wall, eng.ticks, eng.metrics(),
+    return EngineResult(out, ttft, queue_wait, prefill_wait, tpot, wall,
+                        eng.ticks, eng.metrics(),
                         eng.capture_launches(), replays, eng)
 
 
 def print_engine_summary(res: dict, what: str = "engine") -> None:
     """The engine's summary (``res``: :func:`engine_summary`): requests,
-    tokens, ticks, wall time and tokens/s, mean TTFT and TPOT, page
-    occupancy, compile counts and the MoE telemetry."""
+    tokens, ticks, wall time and tokens/s, mean TTFT and TPOT, the mean
+    admission and prefill waits inside the TTFT, page occupancy, compile
+    counts and the MoE telemetry."""
     m, wall = res["metrics"], res["wall_s"]
     n_tok = sum(len(v) for v in res["tokens"].values())
     print(f"{what}: {len(res['tokens'])} requests, {n_tok} tokens in "
@@ -378,6 +384,10 @@ def print_engine_summary(res: dict, what: str = "engine") -> None:
     tpot = np.nanmean(list(res["tpot_s"].values())) * 1e3
     print(f"  time to first token mean {ttft:.1f} ms; time per output token "
           f"mean {tpot:.2f} ms")
+    qw, pw = (np.mean(list(res[k].values())) * 1e3
+              for k in ("queue_wait_s", "prefill_wait_s"))
+    print(f"  of the first token: admission wait mean {qw:.1f} ms, prefill "
+          f"wait mean {pw:.1f} ms")
     print(f"  pool occupancy mean/max: {m['page_occupancy_mean']:.2f}/"
           f"{m['page_occupancy_max']:.2f}  compiles: {m['compiles']}")
     print(f"  moe: drop={m['moe_drop_frac_mean']:.3f} "
@@ -387,7 +397,9 @@ def print_engine_summary(res: dict, what: str = "engine") -> None:
 
 def engine_summary(res: EngineResult) -> dict:
     """The picklable part of an :class:`EngineResult` (a rank's result)."""
-    return {"tokens": res.tokens, "ttft_s": res.ttft_s, "tpot_s": res.tpot_s,
+    return {"tokens": res.tokens, "ttft_s": res.ttft_s,
+            "queue_wait_s": res.queue_wait_s,
+            "prefill_wait_s": res.prefill_wait_s, "tpot_s": res.tpot_s,
             "wall_s": res.wall_s, "ticks": res.ticks, "metrics": res.metrics}
 
 

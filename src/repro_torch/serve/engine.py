@@ -52,6 +52,24 @@ Python call: under a graph they count the warm-up and the capture, never a
 replay.  Each step counts its replays, and keeps the launches its warm-up
 and capture made (:meth:`Engine.compile_counts`,
 :meth:`Engine.capture_launches`).
+
+**Tracing.**  A tick opens ``torch.profiler.record_function`` ranges,
+which a profiler puts in one trace with the device's operations, on its
+clock: ``engine.step`` (the tick), ``engine.admit`` (pages and slots for
+waiting requests), ``engine.prefill`` (one prompt chunk, on a tick that
+runs one) and ``engine.decode`` (the fused decode step, on a tick with a
+live slot).  Inside a phase: ``engine.fill`` (prefill only: the bucket's
+host buffer), ``engine.replay`` (the host-to-device copy and the graph's
+replay, or the eager call), ``engine.readback`` (the device-to-host copy
+and the telemetry) and ``engine.bookkeep`` (the scheduler's Python after
+it).  Each phase ends in a blocking read, so the host's admit, fill and
+bookkeep run while the device has nothing queued.  A request's stamps, all
+on the ``time.monotonic`` clock, split its time to first token:
+``t_admit - t_submit`` waits for admission, ``t_prefill - t_admit`` for
+the prefill queue, ``t_first - t_prefill`` is its own prefill.
+:meth:`Engine.metrics` keeps the two waits of the requests that have their
+first token, and at each tick's start the requests waiting for admission
+and the prompt chunks queued for prefill, as running sums and maxima.
 """
 from __future__ import annotations
 
@@ -62,6 +80,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.common.config import ModelConfig, ServeConfig
 from repro_torch.kernels import ops as kops
@@ -220,9 +239,28 @@ class Request:
     max_new_tokens: int
     generated: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
-    t_submit: float = 0.0
-    t_first: float = 0.0                  # wall time of the first token
+    t_submit: float = 0.0                 # time.monotonic, as every stamp
+    t_admit: float = 0.0                  # given its slot and pages
+    t_prefill: float = 0.0                # its first chunk began
+    t_first: float = 0.0                  # its first token
     t_tokens: List[float] = dataclasses.field(default_factory=list)
+
+
+class _Running:
+    """The count, sum and maximum of a series of values >= 0, kept without
+    the series."""
+
+    def __init__(self):
+        self.n, self.total, self.max = 0, 0.0, 0.0
+
+    def add(self, x: float) -> None:
+        self.n += 1
+        self.total += x
+        self.max = max(self.max, x)
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.n if self.n else 0.0
 
 
 def derive_buckets(cache_len: int, lo: int = 16) -> Tuple[int, ...]:
@@ -313,6 +351,9 @@ class Engine:
         self.occupancy: List[float] = []
         self.telemetry: List[Dict[str, float]] = []
         self.steps: Dict[StepKey, _Step] = {}
+        self._backlog = 0                 # prompt chunks queued in prefilling
+        self.queue_stats = {k: _Running() for k in (
+            "waiting", "prefill_backlog", "queue_wait_s", "prefill_wait_s")}
 
     def _buffers(self, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(host, device) int32 buffers of ``n``; the host one pinned on the
@@ -357,14 +398,16 @@ class Engine:
         """Copy ``inputs``' host buffer to the device, run the step, and
         read its packed output (one device-to-host copy): the next tokens."""
         host, dev = inputs
-        dev.copy_(host, non_blocking=True)
-        packed, _ = self._step(key)()
-        out = packed.cpu().numpy()
-        tel = out[-4:].view(np.float32)
-        self.telemetry.append({"drop_frac": float(tel[0]),
-                               "hop_max_load": float(tel[1]),
-                               "hop_load_entropy": float(tel[2]),
-                               "fault_events": float(tel[3])})
+        with record_function("engine.replay"):
+            dev.copy_(host, non_blocking=True)
+            packed, _ = self._step(key)()
+        with record_function("engine.readback"):
+            out = packed.cpu().numpy()
+            tel = out[-4:].view(np.float32)
+            self.telemetry.append({"drop_frac": float(tel[0]),
+                                   "hop_max_load": float(tel[1]),
+                                   "hop_load_entropy": float(tel[2]),
+                                   "fault_events": float(tel[3])})
         return out[:-4]
 
     # ------------------------------------------------------------------ submit
@@ -404,7 +447,9 @@ class Engine:
                 return                                # head-of-line waits
             req = self._pick_waiting()
             assert req is nxt
+            req.t_admit = time.monotonic()
             req.pages = pages
+            self._backlog += max(1, -(-len(req.prompt) // self.buckets[-1]))
             slot = free_slots[0]
             self.table_np[slot] = self._sentinel
             self.table_np[slot, :len(pages)] = pages
@@ -414,31 +459,42 @@ class Engine:
     def _prefill_tick(self) -> None:
         if not self.prefilling:
             return
-        ent = self.prefilling[0]
-        req, slot, start = ent
-        remaining = len(req.prompt) - start
-        chunk = min(remaining, self.buckets[-1])
-        bucket = next(b for b in self.buckets if b >= chunk)
-        self._step(bucket)
-        inputs = self._pre_in[bucket]
-        h, mp = inputs[0].numpy(), self.max_pages
-        h[0], h[1] = start, chunk
-        h[2:2 + mp] = self.table_np[slot]
-        h[2 + mp:] = 0
-        h[2 + mp:2 + mp + chunk] = req.prompt[start:start + chunk]
-        nxt = self._run(bucket, inputs)
-        ent[2] = start + chunk
-        if ent[2] >= len(req.prompt):                 # prompt done -> go live
-            self.prefilling.popleft()
-            tok = int(nxt[0])
-            now = time.monotonic()
-            req.t_first = now
-            req.t_tokens.append(now)
-            req.generated.append(tok)
-            self._tok[slot] = tok
-            self._pos[slot] = len(req.prompt)
-            self._live[slot] = True
-            self._maybe_finish(slot)                  # max_new_tokens == 1
+        with record_function("engine.prefill"):
+            ent = self.prefilling[0]
+            req, slot, start = ent
+            if start == 0:
+                req.t_prefill = time.monotonic()
+            with record_function("engine.fill"):
+                chunk = min(len(req.prompt) - start, self.buckets[-1])
+                bucket = next(b for b in self.buckets if b >= chunk)
+                self._step(bucket)
+                inputs = self._pre_in[bucket]
+                h, mp = inputs[0].numpy(), self.max_pages
+                h[0], h[1] = start, chunk
+                h[2:2 + mp] = self.table_np[slot]
+                h[2 + mp:] = 0
+                h[2 + mp:2 + mp + chunk] = req.prompt[start:start + chunk]
+            nxt = self._run(bucket, inputs)
+            with record_function("engine.bookkeep"):
+                self._backlog -= 1
+                ent[2] = start + chunk
+                if ent[2] >= len(req.prompt):         # prompt done -> go live
+                    self._go_live(req, slot, int(nxt[0]))
+
+    def _go_live(self, req: Request, slot: int, tok: int) -> None:
+        """The prompt's last chunk gave ``tok``: the request leaves the
+        prefill queue and decodes in its slot."""
+        self.prefilling.popleft()
+        now = time.monotonic()
+        req.t_first = now
+        req.t_tokens.append(now)
+        req.generated.append(tok)
+        self.queue_stats["queue_wait_s"].add(req.t_admit - req.t_submit)
+        self.queue_stats["prefill_wait_s"].add(req.t_prefill - req.t_admit)
+        self._tok[slot] = tok
+        self._pos[slot] = len(req.prompt)
+        self._live[slot] = True
+        self._maybe_finish(slot)                      # max_new_tokens == 1
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.slot_req[slot]
@@ -452,28 +508,33 @@ class Engine:
     def _decode_tick(self) -> None:
         if not self._live.any():
             return
-        nxt = self._run("decode", self._dec_in)
-        now = time.monotonic()
-        for i in range(self.n_slots):
-            if not self._live[i]:
-                continue
-            req = self.slot_req[i]
-            tok = int(nxt[i])
-            req.generated.append(tok)
-            req.t_tokens.append(now)
-            self._pos[i] += 1
-            self._tok[i] = tok
-            self._maybe_finish(i)
+        with record_function("engine.decode"):
+            nxt = self._run("decode", self._dec_in)
+            with record_function("engine.bookkeep"):
+                now = time.monotonic()
+                for i in range(self.n_slots):
+                    if not self._live[i]:
+                        continue
+                    req = self.slot_req[i]
+                    tok = int(nxt[i])
+                    req.generated.append(tok)
+                    req.t_tokens.append(now)
+                    self._pos[i] += 1
+                    self._tok[i] = tok
+                    self._maybe_finish(i)
 
     # ------------------------------------------------------------------ drive
     def step(self) -> None:
         """One engine tick: admit -> one prefill chunk -> one fused decode."""
-        self.ticks += 1
-        with torch.no_grad():
-            self._admit()
+        with record_function("engine.step"), torch.no_grad():
+            self.ticks += 1
+            self.queue_stats["waiting"].add(len(self.waiting))
+            self.queue_stats["prefill_backlog"].add(self._backlog)
+            with record_function("engine.admit"):
+                self._admit()
             self._prefill_tick()
             self._decode_tick()
-        self.occupancy.append(self.alloc.occupancy)
+            self.occupancy.append(self.alloc.occupancy)
 
     @property
     def busy(self) -> bool:
@@ -529,5 +590,10 @@ class Engine:
             "moe_hop_load_entropy_min": agg("hop_load_entropy", np.min),
             "moe_fault_events": agg("fault_events", np.sum),
             "compiles": self.compile_counts(),
+            # the waits of the requests that have their first token; the
+            # queues at each tick's start
+            **{f"{k}_{s}": float(getattr(q, s))
+               for k, q in self.queue_stats.items()
+               for s in ("mean", "max")},
         }
 
